@@ -1,0 +1,8 @@
+"""PyTorch / CUDA port of fithubert_tpu's serving forward.
+
+Layout mirrors ``fithubert_tpu`` module for module. Every Pallas kernel on
+the ported path has a hand-written CUDA counterpart under ``csrc/`` with a
+Python wrapper under ``ops/kernels/``; on a CPU tensor the wrapper runs the
+kernel's plain PyTorch version instead. This package imports neither JAX nor
+anything of ``fithubert_tpu``.
+"""

@@ -1,0 +1,76 @@
+"""s3prl-style upstream expert (``fithubert_tpu/export/expert.py:33``).
+
+    forward(wavs: list of 1-D waveforms, 16 kHz) ->
+        {'last_hidden_state': (B, T, D_out) at 50 Hz,
+         'hidden_states':     tuple of per-layer (B, T', D) hiddens,
+         'padding_mask':      (B, T') bool, True = padding}
+    get_downsample_rates(key) -> 320
+
+Built from a student config (or a reference-schema YAML path) and a torch
+state dict (or a ``.pt`` file of one). Every projection head but the last
+is dropped, as the reference's export does. The outputs are tensors on the
+expert's device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Sequence, Union
+
+import numpy as np
+import torch
+
+from fithubert_tpu_torch.config import StudentConfig, load_yaml_config
+from fithubert_tpu_torch.device import resolve_device
+from fithubert_tpu_torch.models.student import StudentModel
+
+
+def quantize_length(length: int, quantum: int, max_length: int = 0) -> int:
+    """Round a padded length up to a multiple of ``quantum``
+    (``fithubert_tpu/data/librispeech.py:159``)."""
+    q = ((length + quantum - 1) // quantum) * quantum if quantum > 1 else length
+    if max_length > 0:
+        q = min(q, max_length)
+    return max(q, quantum if quantum > 1 else length)
+
+
+class UpstreamExpert:
+    def __init__(self, cfg: Union[StudentConfig, str],
+                 weights: Union[Mapping[str, torch.Tensor], str],
+                 device: Union[str, torch.device] = "cuda",
+                 length_quantum: int = 16000):
+        self.device = resolve_device(device)
+        self.cfg = load_yaml_config(cfg) if isinstance(cfg, str) else cfg
+        self.length_quantum = length_quantum
+        sd = (torch.load(weights, map_location="cpu", weights_only=True)
+              if isinstance(weights, str) else weights)
+        last = f"proj_head.{self.cfg.encoder_layers - 1}."
+        sd = {k: v for k, v in sd.items()
+              if not k.startswith("proj_head.") or k.startswith(last)}
+        self.model = StudentModel(self.cfg, disable_projections=True, device=self.device)
+        self.model.load_state_dict(sd)
+        self.model.eval()
+
+    def get_downsample_rates(self, key: str = "") -> int:
+        return self.cfg.downsample_rate
+
+    def __call__(self, wavs: Sequence[Any]) -> Dict[str, Any]:
+        return self.forward(wavs)
+
+    def forward(self, wavs: Sequence[Any]) -> Dict[str, Any]:
+        """wavs: 1-D float waveforms (numpy arrays or tensors)."""
+        wavs = [w.detach().float().cpu().numpy() if isinstance(w, torch.Tensor)
+                else np.asarray(w, np.float32) for w in wavs]
+        lengths = [int(w.shape[0]) for w in wavs]
+        t_pad = quantize_length(max(lengths), self.length_quantum)
+        batch = np.zeros((len(wavs), t_pad), np.float32)
+        mask = np.ones((len(wavs), t_pad), bool)
+        for i, (w, n) in enumerate(zip(wavs, lengths)):
+            batch[i, :n] = w
+            mask[i, :n] = False
+        out = self.model(torch.from_numpy(batch).to(self.device),
+                         torch.from_numpy(mask).to(self.device))
+        return {
+            "last_hidden_state": out.x,
+            "hidden_states": tuple(h for (h, _, _) in out.layer_results),
+            "padding_mask": out.padding_mask,
+        }

@@ -1,0 +1,23 @@
+"""GELU in the two flavours the JAX package uses.
+
+``gelu_exact`` is the erf form (``fithubert_tpu/ops/activations.py:28``): the
+FFN, the positional conv, and every GELU in fp32. ``gelu_tanh`` is the tanh
+approximation that the fused conv stack applies whenever its dtype is not
+fp32 (``ops/pallas/conv_frontend.py:85-91,211-212,252``). Both compute in
+fp32 and cast back to the input dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """``0.5 * x * (1 + erf(x / sqrt(2)))``."""
+    return F.gelu(x.float(), approximate="none").to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``0.5 * x * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))``."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)

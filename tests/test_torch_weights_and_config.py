@@ -1,0 +1,119 @@
+"""Weight exchange and configuration of the PyTorch port against the JAX
+package: the state-dict round trip through the JAX package's own importer,
+the .pt path, the FitHuBERT-960h preset, spec parsing, and full-width
+parameter shapes."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fithubert_tpu.config import conv_spec_tuple as j_conv_spec_tuple
+from fithubert_tpu.config import load_yaml_config as j_load_yaml
+from fithubert_tpu.config import parse_spec as j_parse_spec
+from fithubert_tpu.export.reference_import import map_student_state_dict
+from fithubert_tpu.models import StudentModel as JStudent
+from fithubert_tpu_torch import config as tconfig
+from fithubert_tpu_torch.export.expert import UpstreamExpert
+from fithubert_tpu_torch.export.jax_params import jax_student_params_to_state_dict
+from fithubert_tpu_torch.models.student import StudentModel
+from tests.test_torch_student import configs, jax_params
+
+torch.set_num_threads(2)
+
+YAML = "configs/fithubert.yaml"
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def test_state_dict_round_trip_through_map_student_state_dict():
+    """JAX tree -> port state dict -> the JAX package's importer -> the
+    original tree, leaf for leaf."""
+    jcfg, tcfg = configs()
+    params = jax_params(jcfg)
+    sd = jax_student_params_to_state_dict(params, tcfg)
+    StudentModel(tcfg, device="cpu").load_state_dict(sd, strict=True)
+    back = _leaves(map_student_state_dict(sd, jcfg))
+    want = _leaves(params)
+    assert set(back) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(back[k], want[k], err_msg=k)
+
+
+def test_pt_file_loads_with_plain_torch_load(tmp_path):
+    """A .pt state dict serves through UpstreamExpert via
+    torch.load(weights_only=True), identically to the in-memory dict."""
+    jcfg, tcfg = configs()
+    sd = jax_student_params_to_state_dict(jax_params(jcfg, seed=1), tcfg)
+    path = str(tmp_path / "student.pt")
+    torch.save(sd, path)
+    wavs = [np.random.default_rng(0).standard_normal(n).astype(np.float32) for n in (2000, 900)]
+    a = UpstreamExpert(tcfg, path, device="cpu", length_quantum=800)(wavs)
+    b = UpstreamExpert(tcfg, sd, device="cpu", length_quantum=800)(wavs)
+    torch.testing.assert_close(a["last_hidden_state"], b["last_hidden_state"], rtol=0, atol=0)
+    # only the last projection head is kept
+    kept = [k for k in UpstreamExpert(tcfg, sd, device="cpu").model.state_dict()
+            if k.startswith("proj_head.")]
+    assert kept and all(k.startswith(f"proj_head.{tcfg.encoder_layers - 1}.") for k in kept)
+
+
+def test_fithubert_960h_equals_yaml_distiller_field_by_field():
+    port = tconfig.fithubert_960h()
+    ref = j_load_yaml(YAML).distiller
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert port.embed == ref.embed and port.downsample_rate == ref.downsample_rate == 320
+
+
+def test_port_yaml_loader_matches_preset():
+    assert tconfig.load_yaml_config(YAML) == tconfig.fithubert_960h()
+
+
+@pytest.mark.parametrize("spec", [
+    "[(128, 10, 5)] + [(256, 1, 1)] + [(256, 3, 2)] * 4",
+    "[(512,10,5)] + [(512,3,2)]*4 + [(512,2,2)]*2",
+    "[11]", "None", "", [[64, 2, 2]],
+])
+def test_spec_parsing_matches_jax(spec):
+    assert tconfig.parse_spec(spec) == j_parse_spec(spec)
+    if spec not in ("[11]",):
+        assert tconfig.conv_spec_tuple(spec) == j_conv_spec_tuple(spec)
+
+
+@pytest.mark.parametrize("bad", ["__import__('os')", "[(1, 2)]", "'a'"])
+def test_spec_parsing_rejects_like_jax(bad):
+    with pytest.raises(ValueError):
+        j_conv_spec_tuple(bad)
+    with pytest.raises(ValueError):
+        tconfig.conv_spec_tuple(bad)
+
+
+def test_unsupported_options_raise():
+    for over in (dict(layer_type="conformer"), dict(tr_layer_type="fc1"),
+                 dict(extractor_mode="layer_norm"), dict(layerwise_proj=False)):
+        cfg = dataclasses.replace(tconfig.fithubert_960h(), **over)
+        with pytest.raises(NotImplementedError):
+            StudentModel(cfg, device="cpu")
+
+
+def test_full_width_parameter_shapes_equal_jax():
+    """Every JAX leaf of the release student (from jax.eval_shape of its init,
+    no compute) has the shape that the port's parameter maps to."""
+    jcfg = j_load_yaml(YAML).distiller
+    shapes = jax.eval_shape(
+        JStudent(jcfg).init, jax.random.PRNGKey(0), jnp.zeros((1, 16000)),
+        jnp.zeros((1, 16000), bool))["params"]
+    model = StudentModel(tconfig.fithubert_960h(), device="cpu")
+    mapped = map_student_state_dict(model.state_dict(), jcfg)
+    want = {k: tuple(v.shape) for k, v in
+            ((jax.tree_util.keystr(p), v) for p, v in jax.tree_util.tree_leaves_with_path(shapes))}
+    got = {k: v.shape for k, v in _leaves(mapped).items()}
+    assert got == want
+    n_port = sum(p.numel() for p in model.parameters())
+    assert n_port == sum(int(np.prod(s)) for s in want.values())
