@@ -1,6 +1,9 @@
-"""Carry weights from the JAX package's StudentModel param tree into the
-port's state dict: the inverse of
-``fithubert_tpu/export/reference_import.py:42 map_student_state_dict``.
+"""Carry weights from the JAX package's StudentModel and TeacherModel param
+trees into the port's state dicts: the inverses of
+``fithubert_tpu/export/reference_import.py:42 map_student_state_dict`` and,
+for the teacher, of ``fithubert_tpu/export/fairseq_import.py``'s
+``map_extractor`` (``:139``), ``map_pos_conv`` (``:169``) and
+``map_transformer_encoder`` (``:186``): the keys are fairseq's.
 
 The tree is a nested dict of arrays (numpy, or anything ``np.asarray``
 takes); nothing of JAX is imported. Conv kernels are (K, C_in, C_out) in JAX
@@ -17,13 +20,14 @@ import numpy as np
 import torch
 
 from fithubert_tpu_torch.config import StudentConfig
+from fithubert_tpu_torch.models.teacher import TeacherGeometry
 
 
 def _t(a, perm=None) -> torch.Tensor:
     arr = np.asarray(a, dtype=np.float32)
     if perm is not None:
         arr = arr.transpose(perm)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    return torch.from_numpy(np.array(arr, copy=True, order="C"))
 
 
 def _dense(sd, name, p) -> None:
@@ -83,3 +87,11 @@ def jax_student_params_to_state_dict(params: Mapping[str, Any],
         if "lin_proj" in head:
             _dense(sd, f"{prefix}.lin_proj", head["lin_proj"])
     return sd
+
+
+def jax_teacher_params_to_state_dict(params: Mapping[str, Any],
+                                     geometry: TeacherGeometry) -> Dict[str, torch.Tensor]:
+    """JAX TeacherModel params -> the port's TeacherModel state dict, under
+    fairseq's key names. The teacher's tree is the student's without a TR
+    layer or heads."""
+    return jax_student_params_to_state_dict(params, geometry.to_student_config())

@@ -9,6 +9,7 @@ reference's state-dict names; the JAX kernels are their transposes (see
                           SamePad, exact GELU)
   Conv1D                ≙ conv.py:38, the k == s branch (the TR conv1d)
   ConvTranspose1D       ≙ conv.py:161, the k == s branch (the upsampler)
+  grad_multiply         ≙ conv.py:468 (identity forward, gradient scaled)
 """
 
 from __future__ import annotations
@@ -129,3 +130,20 @@ class PositionalConv(nn.Module):
         if self.kernel_size % 2 == 0:  # SamePad: drop the trailing step
             y = y[:, :, :-1]
         return gelu_exact(y.transpose(1, 2))
+
+
+class _GradMultiply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def grad_multiply(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """x in the forward; the gradient into x is multiplied by ``scale``
+    (``feature_grad_mult``)."""
+    return _GradMultiply.apply(x, scale)

@@ -1,3 +1,3 @@
 """Python wrappers of the port's hand-written CUDA kernels (``csrc/``)."""
 
-SOURCES = ("conv_frontend", "flash_attention")  # csrc/<name>.cu
+SOURCES = ("conv_frontend", "flash_attention", "flash_attention_bwd")  # csrc/<name>.cu

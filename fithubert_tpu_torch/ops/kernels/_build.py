@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` functions and compiles
 with ``nvcc`` alone into ``build/<name>-<hash>/lib<name>.so`` inside the
 package (``build/`` is git-ignored), at first use, keyed on a hash of the
-source and the flags. The library is loaded with ``ctypes``. Nothing here
-runs at import time, so the modules import on a machine without ``nvcc``.
+source, the shared headers ``csrc/*.cuh`` and the flags. The library is
+loaded with ``ctypes``. Nothing here runs at import time, so the modules
+import on a machine without ``nvcc``.
 
 Every kernel wrapper adds one to ``LAUNCHES[<kernel name>]`` for each kernel
 launch it makes, and nowhere else, so a run can show which kernels it went
@@ -50,9 +51,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for src in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()
     return os.path.join(BUILD, f"{name}-{digest[:16]}", f"lib{name}.so")
 
 

@@ -12,6 +12,17 @@ folds the block-0 GroupNorm(C, C) in; ``gn_scale_shift`` computes it as
 
 On a CUDA tensor ``conv_stack`` launches ``csrc/conv_frontend.cu`` once per
 layer; on a CPU tensor it runs ``conv_stack_plain``.
+
+Its gradient is the counterpart of the JAX package's default backward
+(``_fused_bwd`` ``:353-357``, ``_fused_gn_bwd`` ``:444-449``): recompute the
+stack with ``F.conv1d`` and the same GELU flavour, then differentiate that.
+This is library convolution, as it is XLA convolution there, not a port of
+a Pallas kernel; the Pallas conv-stack backward (``conv_frontend_bwd.py:290``,
+K6, opt-in in the JAX package) is the kernel that will replace it. The
+gradient returns dx, dweights, dscale and dshift, and autograd carries
+dscale and dshift through ``gn_scale_shift`` into x, gamma and beta, which
+gives the GroupNorm gradient that ``_gn_prefix_bwd`` (``:216-236``) writes
+by hand.
 """
 
 from __future__ import annotations
@@ -137,6 +148,36 @@ def _conv_stack_cuda(x, weights, spec, scale, shift) -> torch.Tensor:
     return h
 
 
+class _ConvStack(torch.autograd.Function):
+    """Forward: the kernel (or the plain version on the CPU). Backward:
+    autograd through ``conv_stack_plain`` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, spec, *weights):
+        ctx.spec = spec
+        ctx.save_for_backward(x, scale, shift, *weights)
+        if x.device.type == "cuda":
+            with torch.cuda.device(x.device):  # launch on the tensors' card
+                return _conv_stack_cuda(x, weights, spec, scale, shift)
+        if x.device.type == "cpu":
+            return conv_stack_plain(x, weights, spec, scale, shift)
+        raise ValueError(f"conv_stack runs on cuda or cpu, not {x.device}")
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[4:]
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, needs)]
+        x, scale, shift, *weights = inputs
+        with torch.enable_grad():
+            y = conv_stack_plain(x, weights, ctx.spec, scale, shift)
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, grad))
+        dx, dscale, dshift, *dws = [next(grads) if t is not None and t.requires_grad else None
+                                    for t in inputs]
+        return (dx, dscale, dshift, None, *dws)
+
+
 def conv_stack(x: torch.Tensor, weights: Sequence[torch.Tensor], spec: Spec,
                scale: Optional[torch.Tensor] = None,
                shift: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -144,11 +185,6 @@ def conv_stack(x: torch.Tensor, weights: Sequence[torch.Tensor], spec: Spec,
 
     weights[i] is (k, C_in, C_out) in x's dtype; scale and shift, if given,
     are (B, C0) in x's dtype. CUDA tensors run the kernel, CPU tensors the
-    plain version."""
+    plain version. Differentiable in x, weights, scale and shift."""
     _check(x, weights, spec, scale, shift)
-    if x.device.type == "cuda":
-        with torch.cuda.device(x.device):  # launch on the tensors' card
-            return _conv_stack_cuda(x, weights, spec, scale, shift)
-    if x.device.type == "cpu":
-        return conv_stack_plain(x, weights, spec, scale, shift)
-    raise ValueError(f"conv_stack runs on cuda or cpu, not {x.device}")
+    return _ConvStack.apply(x, scale, shift, tuple(spec), *weights)

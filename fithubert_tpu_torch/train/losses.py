@@ -1,0 +1,184 @@
+"""The KD loss (``fithubert_tpu/train/losses.py:115 compute_losses``), the
+terms the release config and its neighbours use: the rec MSE / L1 over
+random or fixed layers, the -logsigmoid cosine-similarity term and the cnn
+term. The attention-tap, v_rel and CTC terms raise NotImplementedError.
+
+Parity mode (``masked_reduction=False``) reduces over padded positions as
+the reference does, but weights out rows fabricated as all padding
+(``_row_weighted_mean``, ``:51-69``); masked mode divides by valid
+positions (``:79-87``). All loss math is fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+
+from fithubert_tpu_torch.config import LossConfig, StudentConfig
+from fithubert_tpu_torch.models.student import StudentOutput
+from fithubert_tpu_torch.models.teacher import TeacherOutput
+
+
+class LossOutput(NamedTuple):
+    total: torch.Tensor
+    logs: Dict[str, torch.Tensor]  # per-term and per-layer scalars
+    last_layer_loss: torch.Tensor  # 'l{N-1}', the v_loss monitor
+
+
+def _as_stack(projections: Union[torch.Tensor, List[torch.Tensor]]) -> torch.Tensor:
+    if isinstance(projections, (list, tuple)):
+        return torch.stack(list(projections), dim=1)
+    return projections
+
+
+def _row_weighted_mean(x: torch.Tensor, rv: Optional[torch.Tensor],
+                       keep_axis1: bool = False) -> torch.Tensor:
+    """Mean over all axes (but axis 1 when ``keep_axis1``), with batch row b
+    weighted by rv[b] (1 real, 0 fabricated); a plain mean when rv is None."""
+    if rv is None:
+        return x.mean(dim=(0,) + tuple(range(2, x.dim()))) if keep_axis1 else x.mean()
+    w = rv.to(x.dtype)
+    if keep_axis1:
+        per = x.mean(dim=tuple(range(2, x.dim())))  # (B, L)
+        return (per * w[:, None]).sum(0) / w.sum().clamp_min(1.0)
+    per = x.mean(dim=tuple(range(1, x.dim())))  # (B,)
+    return (per * w).sum() / w.sum().clamp_min(1.0)
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """Mean of x over ``axes`` counting only positions where mask is False."""
+    valid = torch.logical_not(mask).to(x.dtype).expand(x.shape)
+    return (x * valid).sum(dim=tuple(axes)) / valid.sum(dim=tuple(axes)).clamp_min(1.0)
+
+
+def _layer_weights(n: int, random_layer_weight: float, device) -> torch.Tensor:
+    """(random_layer_weight,) * (n - 1) + (1,): the last slot is the final layer."""
+    w = torch.full((n,), random_layer_weight, dtype=torch.float32, device=device)
+    w[-1] = 1.0
+    return w
+
+
+def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
+                   student: StudentOutput, teacher: TeacherOutput,
+                   rand_layers: Optional[torch.Tensor] = None) -> LossOutput:
+    cfg = loss_cfg
+    if cfg.attn_loss_weight > 0 or cfg.v_rel_loss_weight > 0:
+        raise NotImplementedError("the attention-tap losses are not ported yet")
+    logs: Dict[str, torch.Tensor] = {}
+    dev = teacher.x.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    frame_mask = teacher.padding_mask if cfg.masked_reduction else None
+    # rows fabricated as all padding (pad_batch_to_full) weigh 0 in parity mode
+    row_valid = None
+    if teacher.padding_mask is not None:
+        row_valid = torch.logical_not(teacher.padding_mask.all(-1)).float()
+
+    cnn_loss = zero
+    if cfg.cnn_loss_weight > 0:
+        sf, tf = student.features.float(), teacher.features.float()
+        t_min = min(sf.shape[1], tf.shape[1])
+        diff = (sf[:, :t_min] - tf[:, :t_min]).abs()
+        if frame_mask is not None:
+            cnn_loss = _masked_mean(diff, frame_mask[:, :t_min, None], (0, 1, 2))
+        else:
+            cnn_loss = _row_weighted_mean(diff, row_valid)
+        logs["cnn_loss"] = cnn_loss
+
+    teacher_stack = torch.stack([h for (h, _, _) in teacher.layer_results], dim=1)
+    rec_loss, sim_loss = zero, zero
+    rec_layer_loss = sim_layer_loss = None
+    random_mode = cfg.distil_random_layer > 0
+    slots_perm = None  # set when the random gather is skipped as a permutation
+
+    if cfg.rec_loss_weight > 0 or cfg.sim_loss_weight > 0:
+        proj_stack = _as_stack(student.projections)
+        if random_mode:
+            if rand_layers is None:
+                raise ValueError("random-layer distillation needs rand_layers")
+            n_slots = int(rand_layers.shape[0])
+            if n_slots == teacher_stack.shape[1] - 1 == proj_stack.shape[1] - 1:
+                # k = N-1 draws every intermediate layer: rand_layers is a
+                # permutation and the slot weights are uniform, so the loss is
+                # the same without the gathers; only the logs are permuted
+                target, pred, slots_perm = teacher_stack, proj_stack, rand_layers
+            else:
+                ids = rand_layers.clamp(0, teacher_stack.shape[1] - 1)
+                target = torch.cat([teacher_stack[:, ids], teacher_stack[:, -1:]], dim=1)
+                ids = rand_layers.clamp(0, proj_stack.shape[1] - 1)
+                pred = torch.cat([proj_stack[:, ids], proj_stack[:, -1:]], dim=1)
+        else:
+            ids = torch.as_tensor(student_cfg.pred_layer_id, dtype=torch.long, device=dev)
+            target, pred = teacher_stack[:, ids], proj_stack[:, ids]
+        # the TR floor can leave either side a frame longer: crop both
+        t_s = min(pred.shape[2], target.shape[2])
+        pred, target = pred[:, :, :t_s].float(), target[:, :, :t_s].float()
+        layer_mask = frame_mask[:, None, :t_s, None] if frame_mask is not None else None
+
+    if cfg.rec_loss_weight > 0:
+        if cfg.rec_loss_type == "l1":
+            elt = (pred - target).abs()
+        elif cfg.rec_loss_type == "mse":
+            elt = (pred - target) ** 2
+        else:
+            raise NotImplementedError("rec_loss_type must be one of 'l1', 'mse'.")
+        if random_mode:
+            elt = elt * _layer_weights(elt.shape[1], cfg.random_layer_weight, dev)[
+                None, :, None, None]
+            if layer_mask is not None:
+                rec_layer_loss = _masked_mean(elt, layer_mask, (0, 2, 3))
+            else:
+                rec_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True)
+            rec_loss = rec_layer_loss.sum()
+        elif layer_mask is not None:
+            rec_layer_loss = _masked_mean(elt, layer_mask, (0, 2, 3))
+            rec_loss = rec_layer_loss.mean()
+        else:
+            rec_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True).detach()
+            rec_loss = _row_weighted_mean(elt, row_valid)
+
+    if cfg.sim_loss_weight > 0:
+        # F.cosine_similarity with torch's eps = 1e-8 clamp of the product
+        dot = (pred * target).sum(-1)
+        norms = pred.square().sum(-1).sqrt() * target.square().sum(-1).sqrt()
+        elt = -F.logsigmoid(dot / norms.clamp_min(1e-8))  # (B, N, T)
+        sim_mask = frame_mask[:, None, : elt.shape[2]] if frame_mask is not None else None
+        if random_mode:
+            elt = elt * _layer_weights(elt.shape[1], cfg.random_layer_weight, dev)[
+                None, :, None]
+            if sim_mask is not None:
+                sim_layer_loss = _masked_mean(elt, sim_mask, (0, 2))
+            else:
+                sim_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True)
+            sim_loss = sim_layer_loss.sum()
+        elif sim_mask is not None:
+            sim_layer_loss = _masked_mean(elt, sim_mask, (0, 2))
+            sim_loss = sim_layer_loss.mean()
+        else:
+            sim_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True).detach()
+            sim_loss = _row_weighted_mean(elt, row_valid)
+
+    last_layer_loss = None
+    if rec_layer_loss is not None or sim_layer_loss is not None:
+        feat_layer = sum(t for t in (rec_layer_loss, sim_layer_loss) if t is not None)
+        if slots_perm is not None:
+            # slot i distilled layer rand_layers[i]
+            feat_layer = torch.cat([feat_layer[slots_perm.clamp(0, feat_layer.shape[0] - 1)],
+                                    feat_layer[-1:]])
+        if random_mode:
+            for i in range(feat_layer.shape[0] - 1):
+                logs[f"rand_l{i}"] = feat_layer[i]
+            logs[f"l{student_cfg.encoder_layers - 1}"] = feat_layer[-1]
+        else:
+            for i, pid in enumerate(student_cfg.pred_layer_id):
+                logs[f"layer{pid}"] = feat_layer[i]
+        last_layer_loss = feat_layer[-1]
+
+    total = (cfg.rec_loss_weight * rec_loss + cfg.sim_loss_weight * sim_loss
+             + cfg.cnn_loss_weight * cnn_loss)
+    logs["total"] = total
+    if last_layer_loss is None:
+        last_layer_loss = zero if random_mode else total
+    return LossOutput(total=total, logs=logs, last_layer_loss=last_layer_loss)

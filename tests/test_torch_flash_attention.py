@@ -133,7 +133,7 @@ def test_mha_no_taps_path_matches_jax():
 
 def test_rejects_what_the_kernel_does_not_take():
     q, k, v, mask = (torch.from_numpy(a) for a in _inputs(2, 16, 2, 40, seed=1))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="needs a seed"):
         fa.flash_attention(q, k, v, mask, dropout_p=0.1)
     with pytest.raises(ValueError, match="shape"):
         fa.flash_attention(q, k[:, :8], v, mask)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
-shapes the serving path does not reach: tails in every tiled dimension of
-the conv GEMM, the teacher's widths, short and odd T, strided q/k/v views,
-and fully padded rows. Skipped where there is no CUDA card. On a machine
+shapes the main paths do not reach: tails in every tiled dimension of the
+conv GEMM, the teacher's widths, short and odd T, strided q/k/v views, fully
+padded rows, the attention backward (K3, K4) with and without dropout, and
+its determinism. Skipped where there is no CUDA card. On a machine
 with one (and without JAX, which the suite's conftest imports):
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -114,3 +115,74 @@ def test_flash_attention_rejects_head_sizes_it_is_not_built_for(dev):
     q = torch.randn(1, 8, 2, 32, device=dev)
     with pytest.raises(ValueError, match="head sizes"):
         fa.flash_attention(q, q, q)
+
+
+BWD_CASES = [(2, 1, 2, 40), (2, 63, 3, 40), (3, 65, 2, 64), (2, 130, 12, 40)]
+
+
+def _attention_inputs(case, dtype, dev, seed):
+    """q, k, v as strided views into one (B, T, 3, H, D) tensor, a ragged
+    mask with one fully padded row, and an output gradient."""
+    b, t, h, d = case
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(dev, dtype)
+    q, k, v = qkv[:, :, 0] * d ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    mask = (torch.arange(t)[None, :] >= lengths[:, None]).to(dev)
+    mask[-1] = True
+    dout = torch.randn(b, t, h, d, generator=g).to(dev, dtype)
+    return q, k, v, mask, dout
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_backward_matches_plain(dev, case, dtype, dropout_p):
+    """K2 (with and without dropout), K3 and K4 against the plain versions on
+    the same keep mask: ragged tails (T = 1, 63, 65), D = 64, strided views.
+    The fully padded row has exactly zero gradients."""
+    q, k, v, mask, dout = _attention_inputs(case, dtype, dev, seed=sum(case))
+    seed = (0xDEADBEEF, 12345) if dropout_p else None
+    _build.reset_launches()
+    out, lse = fa.flash_attention(q, k, v, mask, dropout_p=dropout_p, seed=seed,
+                                  return_lse=True)
+    want, want_lse = fa.attention_plain(q, k, v, mask, dropout_p, seed)
+    rows = ~mask.all(-1)
+    _close(out[rows], want[rows], dtype)
+    _close(lse[rows], want_lse[rows], torch.float32)
+    grads = fa._flash_bwd_cuda(q, k, v, mask, out, lse, dout, dropout_p, seed)
+    wants = fa.attention_bwd_plain(q, k, v, mask, out, lse, dout, dropout_p, seed)
+    for got, ref in zip(grads, wants):
+        _close(got[rows], ref[rows], dtype)
+        assert (got[~rows] == 0).all()
+    fwd = fa.KERNEL_DROPOUT if dropout_p else fa.KERNEL
+    assert _build.LAUNCHES == {fwd: 1, fa.KERNEL_DQ: 1, fa.KERNEL_DKV: 1}
+
+
+def test_attention_backward_is_deterministic(dev):
+    """Each gradient element is summed by one thread in a fixed order: two
+    backward runs are bit-identical."""
+    q, k, v, mask, dout = _attention_inputs((3, 299, 12, 40), torch.bfloat16, dev, seed=0)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    runs = []
+    for _ in range(2):
+        out = fa.flash_attention(qs, ks, vs, mask, dropout_p=0.1, seed=(1, 2))
+        runs.append(torch.autograd.grad(out, (qs, ks, vs), dout))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_positional_conv_bf16_at_the_teachers_width(dev):
+    """cuDNN's bf16 grouped conv at C = 768, groups 16, k = 128 against the
+    same conv in fp32 on the card: within bf16 rounding."""
+    from fithubert_tpu_torch.ops.conv import PositionalConv
+
+    g = torch.Generator().manual_seed(0)
+    pc = PositionalConv(768, 128, 16, device=dev)
+    with torch.no_grad():
+        pc._modules["0"].weight_v.copy_(torch.randn(768, 48, 128, generator=g) * 0.01)
+        x = torch.randn(2, 300, 768, generator=g).to(dev)
+        want = pc(x)
+        got = pc(x.bfloat16()).float()
+    rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+    assert rel < 2e-2, rel

@@ -18,7 +18,7 @@ from fithubert_tpu_torch.ops.kernels import SOURCES, _build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(fithubert_tpu_torch.__file__)
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fithubert_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "fithubert_tpu")
 
 
 def _port_files():
@@ -43,6 +43,18 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{os.path.relpath(path, ROOT)} imports {mod}"
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_yaml_only_inside_a_function(path):
+    """The card's machine has no yaml: a module may import it only inside
+    the one function that reads a file, never when it is imported."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        assert not any(n.split(".")[0] == "yaml" for n in names), path
 
 
 def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):

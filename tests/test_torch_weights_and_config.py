@@ -117,3 +117,14 @@ def test_full_width_parameter_shapes_equal_jax():
     assert got == want
     n_port = sum(p.numel() for p in model.parameters())
     assert n_port == sum(int(np.prod(s)) for s in want.values())
+
+
+def test_fithubert_960h_experiment_equals_yaml_field_by_field():
+    """Every field of the port's experiment preset equals the JAX package's
+    load of configs/fithubert.yaml (the port keeps a subset of each section)."""
+    port = tconfig.fithubert_960h_experiment()
+    ref = j_load_yaml(YAML)
+    for section in ("teacher", "train", "loss", "distiller", "optimizer"):
+        p, r = getattr(port, section), getattr(ref, section)
+        for f in dataclasses.fields(p):
+            assert getattr(p, f.name) == getattr(r, f.name), f"{section}.{f.name}"
