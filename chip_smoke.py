@@ -24,26 +24,40 @@ run with a non-zero exit and no final line:
      one 3 x 4 x 12 s batch; every step goes through K1, K2 (teacher p = 0,
      student p = 0.1), K3 and K4, and the loss falls; then one fp32 step
      without dropout on the card against the CPU's plain versions;
-  6. timing: serving at B = 32 x 16 s and the train step at 3 x 4 x 12 s,
-     with a profile of each, and every kernel against its bound, its plain
-     version and the library call, one row per kernel and path at that
-     path's shapes, with the launches that path's run counted;
-  7. a JSON line of the kernels, the nvidia-smi line, and last
+  6. train-k6: the same step with FITHUBERT_CONV_BWD=pallas, whose conv
+     stack backward is K6: one ragged step's conv-front-end gradients
+     against the same step under the default backward, then 3 steps, each
+     through K6 33 times besides the launches of phase 5;
+  7. train-taps: the release config with the attention-transfer losses
+     (attn kldiv 1.0, v_rel 1.0): the last layer returns its taps, the
+     student's probabilities go through K5, the step loops over its 4
+     microbatches of 3 rows; a ragged step with a fabricated row, then 3
+     steps, with every launch count checked; then fp32 steps without dropout
+     on the card against the CPU;
+  8. timing: serving at B = 32 x 16 s and the train step at 3 x 4 x 12 s,
+     with a profile of each, the steps of paths 6 and 7, and every kernel
+     against its bound, its plain version and the library call, one row per
+     kernel and path at that path's shapes, with the launches that path's
+     run counted;
+  9. a JSON line of the kernels, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 
 SR = 16000
-BF16_PEAK, HBM_BPS = 989e12, 3.35e12  # H100 SXM data sheet: bf16 tensor cores, HBM3
+# H100 SXM data sheet: bf16 tensor cores, fp32 outside the tensor cores, HBM3
+BF16_PEAK, FP32_PEAK, HBM_BPS = 989e12, 67e12, 3.35e12
 
 # Tolerances. Elementwise, |kernel - plain| <= ATOL + RTOL * |plain|:
 #   fp32: only the summation order differs (kernel tiles vs cuDNN / einsum);
@@ -85,6 +99,18 @@ TRAIN_RTOL, TRAIN_PARAM_ATOL = 1e-3, 2.5e-5
 # The dropout keep-rate over a (B, H, T, T) mask: within 4 binomial sigmas.
 KEEP_SIGMAS = 4.0
 ATTN_P = 0.1  # attention_dropout of configs/fithubert.yaml
+# K6 against its plain version, norm-wise (||kernel - plain|| / ||plain||)
+# for da0 and every dW: fp32 sums the same products in another order (dW
+# over 460788 frames); in bf16 that order can flip the rounding of z or dz
+# by one bf16 step, which moves a gradient well below 1e-2 of its norm.
+K6_LIMIT = {"float32": 1e-4, "bfloat16": 1e-2}
+# K6 against the library recompute (autograd through F.conv1d), bf16,
+# norm-wise: the library rounds each layer's cotangent to bf16 where K6
+# keeps it fp32; the JAX package's own bf16 limit for the kernel against
+# its oracle (tests/test_conv_frontend_bwd.py:155-157).
+K6_VS_LIBRARY = 5e-2
+# The tap losses on the release config (the values of tests/test_losses.py:171-172).
+TAP_LOSS = dict(attn_loss_weight=1.0, attn_loss_type="kldiv", v_rel_loss_weight=1.0)
 
 
 def fail(msg: str) -> None:
@@ -124,6 +150,24 @@ def compare(name, got, want, dtype_name, rows=None, normwise=False, tol=TOL):
           f"rel_fro={fro:.3e} tol={tol} {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version")
+    return max_abs
+
+
+def normwise(name, got, want, limit):
+    """Fail unless got is finite and ||got - want|| <= limit * ||want||."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{name}: non-finite kernel output")
+    fro = (torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)).item()
+    max_abs = (g - w).abs().max().item()
+    ok = fro <= limit
+    print(f"  {name}: rel_fro={fro:.3e} max_abs_err={max_abs:.3e} "
+          f"max|ref|={w.abs().max().item():.3e} limit={limit} {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        fail(f"{name} disagrees")
     return max_abs
 
 
@@ -397,6 +441,100 @@ def check_attention_training_kernels(fa, gen, dev, errs):
                     print(f"  fully padded row: dq = dk = dv = 0 (p={p}) ok", flush=True)
 
 
+def check_seeded_dropout(kd, shape, gen, dev):
+    """K5 against seeded_dropout_plain at ``shape``, fp32 and bf16:
+    bit-identical forward and backward, and the keep-rate within 4 sigma."""
+    import torch
+
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x = torch.rand(shape, generator=gen).to(dev, dtype).requires_grad_()
+        cot = torch.randn(shape, generator=gen).to(dev, dtype)
+        seed = seed_words(gen)
+        y = kd.seeded_dropout(x, seed, ATTN_P)
+        (dx,) = torch.autograd.grad(y, x, cot)
+        want = (kd.seeded_dropout_plain(x.detach(), seed, ATTN_P),
+                kd.seeded_dropout_plain(cot, seed, ATTN_P))
+        torch.cuda.synchronize()
+        for what, got, ref in zip(("forward", "backward"), (y, dx), want):
+            if not torch.equal(got, ref):
+                err = (got.float() - ref.float()).abs().max().item()
+                fail(f"K5 {what} {dtype_name}: max_abs_err {err:.3e}, want bit-identical")
+        keep = kd.keep_flat(x.numel(), ATTN_P, seed, dev)
+        rate = keep.float().mean().item()
+        sigma = (ATTN_P * (1 - ATTN_P) / keep.numel()) ** 0.5
+        if abs(rate - (1 - ATTN_P)) > KEEP_SIGMAS * sigma:
+            fail(f"K5 keep-rate {rate:.6f} is not within {KEEP_SIGMAS} sigma of {1 - ATTN_P}")
+        print(f"  K5 {dtype_name} {shape}: forward and backward bit-identical to "
+              f"seeded_dropout_plain, keep-rate {rate:.6f} (sigma {sigma:.2e}) ok", flush=True)
+
+
+def check_conv_backward(cf, model, wavs, gen, dev):
+    """K6 against conv_stack_bwd_plain on ``model``'s stack at the input its
+    extractor gives for ``wavs`` (the GroupNorm prefix applied), bf16 and
+    fp32, and against the library recompute in bf16. Returns the bf16 max
+    abs error against the plain version."""
+    import torch
+
+    spec = model.feature_extractor.spec[1:]
+    worst = 0.0
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        x, ws, scale, shift = stack_inputs(model, wavs, dtype, dev)
+        with torch.no_grad():
+            a0 = cf._prefix(x, scale, shift)
+        del x
+        g = torch.randn((a0.shape[0], cf.out_len(a0.shape[1], spec), spec[-1][0]),
+                        generator=gen).to(dev, dtype)
+        got = cf.conv_stack_bwd_cuda(a0, ws, g, spec)
+        want = cf.conv_stack_bwd_plain(a0, ws, g, spec)
+        torch.cuda.synchronize()
+        names = ["da0"] + [f"dW{i}" for i in range(len(spec))]
+        tag = f"{dtype_name} a0 {tuple(a0.shape)}"
+        for name, gg, ww in zip(names, [got[0], *got[1]], [want[0], *want[1]]):
+            e = normwise(f"K6 {name} {tag} vs conv_stack_bwd_plain", gg, ww,
+                         K6_LIMIT[dtype_name])
+            if dtype_name == "bfloat16":
+                worst = max(worst, e)
+        del want
+        if dtype_name == "bfloat16":
+            leaves = [t.detach().requires_grad_() for t in [a0, *ws]]
+            lib = torch.autograd.grad(cf.conv_stack_plain(leaves[0], leaves[1:], spec), leaves, g)
+            for name, gg, ww in zip(names, [got[0], *got[1]], lib):
+                normwise(f"K6 {name} {tag} vs the library recompute", gg, ww, K6_VS_LIBRARY)
+            del lib, leaves
+        del got, a0, g
+    return worst
+
+
+def conv_bwd_work(a0, spec):
+    """(flops, bytes) of the conv stack's backward from a0: the recompute,
+    dW and da are each as large as the forward's products; a0, the weights
+    and the output gradient are read once, da0 and every dW written once
+    in fp32."""
+    el = a0.element_size()
+    flops, _ = conv_work(a0, spec)
+    b, t, c = a0.shape
+    bytes_ = a0.numel() * (el + 4)
+    for (d, k, s) in spec:
+        bytes_ += k * c * d * (el + 4)
+        t, c = (t - k) // s + 1, d
+    return 3 * flops, bytes_ + b * t * c * el
+
+
+@contextlib.contextmanager
+def conv_backward(mode):
+    """FITHUBERT_CONV_BWD=mode while the block runs: "pallas" sends the
+    conv stack's backward through K6, "xla" through the library recompute."""
+    old = os.environ.get("FITHUBERT_CONV_BWD")
+    os.environ["FITHUBERT_CONV_BWD"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["FITHUBERT_CONV_BWD"]
+        else:
+            os.environ["FITHUBERT_CONV_BWD"] = old
+
+
 def train_batch(gen, a, b, seconds, ragged):
     """{"x": (A, B, T), "padding_mask": (A, B, T)}: full-length rows, or
     ragged rows (2 s up to the full length) with the last one fabricated as
@@ -430,6 +568,7 @@ def main() -> int:
         from fithubert_tpu_torch.train.step import Distiller
         from fithubert_tpu_torch.ops.kernels import SOURCES, _build
         from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+        from fithubert_tpu_torch.ops.kernels import dropout as kd
         from fithubert_tpu_torch.ops.kernels import flash_attention as fa
     except ImportError as e:
         fail(f"the fithubert_tpu_torch package is not importable here ({e})")
@@ -504,6 +643,19 @@ def main() -> int:
     print(f"[kernels] K2 with dropout p={ATTN_P}, K3 and K4 vs the plain versions on the "
           f"same keep mask, ragged masks", flush=True)
     check_attention_training_kernels(fa, gen, dev, errs)
+
+    # the student's last-layer probabilities of one microbatch of the release step
+    t_student = cf.out_len(12 * SR, cfg.conv_feature_layers) // cfg.tr_reduce_factor
+    probs_shape = (exp.train.batch_size, cfg.encoder_attention_heads, t_student, t_student)
+    print(f"[kernels] seeded_dropout_cuda (K5) vs seeded_dropout_plain, p={ATTN_P}, the "
+          f"student's last-layer probabilities of one microbatch {probs_shape}", flush=True)
+    check_seeded_dropout(kd, probs_shape, gen, dev)
+    errs[kd.KERNEL] = 0.0
+
+    print("[kernels] conv_stack_bwd_cuda (K6) vs conv_stack_bwd_plain and the library "
+          "recompute: the student's stack at its train input, 12 x 12 s", flush=True)
+    train_wavs = [torch.randn(12 * SR, generator=gen) * 0.1 for _ in range(12)]
+    errs[cf.KERNEL_BWD] = check_conv_backward(cf, cpu_model, train_wavs, gen, dev)
 
     # ---- 4. the slice end to end
     print("[e2e] UpstreamExpert(fithubert_960h(), seeded weights), bf16, 3 requests",
@@ -588,38 +740,41 @@ def main() -> int:
     distiller = Distiller(exp, t_state, s_state, device="cuda", num_training_steps=20)
     a, b = exp.train.accumulate_grad_batches, exp.train.batch_size
 
-    train_launches = {}  # the counts of the last checked step
+    # the counts of the last checked step of each training path
+    path_launches = {"train": {}, "train-k6": {}, "train-taps": {}}
 
-    def step_checked(batch, what):
+    def step_checked(d, batch, want, what, path):
+        """One train step with every count set to 0 just before it and read
+        just after; fails unless they are ``want`` and the logs finite."""
         _build.reset_launches()
-        logs = distiller.train_step(batch, rand_layers)
+        logs = d.train_step(batch, rand_layers)
         torch.cuda.synchronize()
         got = dict(_build.LAUNCHES)
-        if got != per_step:
-            fail(f"{what}: launches {got}, want {per_step} per step")
-        train_launches.clear()
-        train_launches.update(got)
-        if not all(math.isfinite(logs[k]) for k in ("loss", "grad_norm")):
-            fail(f"{what}: non-finite loss or gradients {logs}")
+        if got != want:
+            fail(f"{what}: launches {got}, want {want} per step")
+        path_launches[path] = got
+        if not all(math.isfinite(v) for v in logs.values()):
+            fail(f"{what}: non-finite logs {logs}")
         return logs
 
-    logs = step_checked(train_batch(gen, a, b, 12.0, ragged=True), "ragged step")
+    logs = step_checked(distiller, train_batch(gen, a, b, 12.0, ragged=True), per_step,
+                        "ragged step", "train")
     if not all(torch.isfinite(p).all().item() for p in distiller.params):
         fail("ragged step: non-finite parameters")
     print(f"  step 0 (ragged 3 x 4, one fabricated row, lr {logs['lr']}): loss "
           f"{logs['loss']:.6f} grad_norm {logs['grad_norm']:.6f} finite ok; launches "
-          f"{json.dumps(train_launches)} ok", flush=True)
+          f"{json.dumps(path_launches['train'])} ok", flush=True)
     fixed = train_batch(gen, a, b, 12.0, ragged=False)
     losses = []
     for i in range(10):
-        logs = step_checked(fixed, f"step {i + 1}")
+        logs = step_checked(distiller, fixed, per_step, f"step {i + 1}", "train")
         losses.append(logs["loss"])
     print(f"  steps 1-10 on one 3 x 4 x 12 s batch: loss {[round(x, 6) for x in losses]}, "
           f"lr {logs['lr']:.3e} at step 10", flush=True)
     if not losses[-1] < losses[0]:
         fail(f"the loss did not fall over 10 steps: {losses}")
     print(f"  loss fell {losses[0]:.6f} -> {losses[-1]:.6f}; every step launched "
-          f"{json.dumps(train_launches)} ok", flush=True)
+          f"{json.dumps(path_launches['train'])} ok", flush=True)
 
     print("[train] fp32 steps without dropout, card vs CPU (plain versions), full "
           "width, 1 x 2 s: step 0 at lr 0, then two at lr > 0", flush=True)
@@ -648,7 +803,81 @@ def main() -> int:
           flush=True)
     del on_card, on_cpu
 
-    # ---- 6. timing
+    # ---- 6. path A: the conv stack's backward through K6
+    print("[train-k6] the release Distiller with FITHUBERT_CONV_BWD=pallas: the conv "
+          "stack's backward runs K6", flush=True)
+    n_stack = len(exp.distiller.conv_feature_layers) - 1
+    per_step_k6 = dict(per_step, **{cf.KERNEL_BWD: 4 * n_stack + 1})
+    ragged = train_batch(gen, a, b, 12.0, ragged=True)
+    front = {}  # conv front-end gradients of one ragged step, per backward
+    for mode, want in (("xla", per_step), ("pallas", per_step_k6)):
+        d = Distiller(exp, t_state, s_state, device="cuda", num_training_steps=20)
+        with conv_backward(mode):
+            logs = step_checked(d, ragged, want, f"ragged step, {mode} backward",
+                                "train-k6" if mode == "pallas" else "train")
+        front[mode] = {n: p.grad.detach().clone()
+                       for n, p in d.student.feature_extractor.named_parameters()}
+        print(f"  ragged step ({mode} backward): loss {logs['loss']:.6f} grad_norm "
+              f"{logs['grad_norm']:.6f}", flush=True)
+        if mode == "pallas":
+            distiller_k6 = d
+        del d
+    for n in front["xla"]:
+        normwise(f"conv front-end grad {n}, K6 vs the library backward", front["pallas"][n],
+                 front["xla"][n], K6_VS_LIBRARY)
+    del front
+    with conv_backward("pallas"):
+        losses = [step_checked(distiller_k6, fixed, per_step_k6, f"K6 step {i + 1}",
+                               "train-k6")["loss"] for i in range(3)]
+    print(f"  steps 1-3 on the 3 x 4 x 12 s batch: loss {[round(x, 6) for x in losses]}; "
+          f"every step launched {json.dumps(path_launches['train-k6'])} ok", flush=True)
+
+    # ---- 7. path B: the attention-transfer losses, with K5
+    print(f"[train-taps] the release Distiller with tap losses {TAP_LOSS}: the last layer "
+          f"returns its taps, K5 drops the student's probabilities, {a} microbatches looped",
+          flush=True)
+    exp_taps = dataclasses.replace(exp, loss=dataclasses.replace(exp.loss, **TAP_LOSS))
+    l_s, l_t = exp.distiller.encoder_layers, geom.encoder_layers
+    per_step_taps = {cf.KERNEL: a * per_step[cf.KERNEL], fa.KERNEL: a * (l_t - 1),
+                     fa.KERNEL_DROPOUT: a * (l_s - 1), fa.KERNEL_DQ: a * (l_s - 1),
+                     fa.KERNEL_DKV: a * (l_s - 1), kd.KERNEL: 2 * a}
+    distiller_taps = Distiller(exp_taps, t_state, s_state, device="cuda", num_training_steps=20)
+    logs = step_checked(distiller_taps, ragged, per_step_taps, "taps ragged step", "train-taps")
+    if not all(torch.isfinite(p).all().item() for p in distiller_taps.params):
+        fail("taps ragged step: non-finite parameters")
+    print(f"  step 0 (ragged 3 x 4, one fabricated row): loss {logs['loss']:.6f} attn_loss "
+          f"{logs['attn_loss']:.6f} v_rel_loss {logs['v_rel_loss']:.6f} grad_norm "
+          f"{logs['grad_norm']:.6f}, parameters finite ok", flush=True)
+    losses = [step_checked(distiller_taps, fixed, per_step_taps, f"taps step {i + 1}",
+                           "train-taps")["loss"] for i in range(3)]
+    print(f"  steps 1-3 on the 3 x 4 x 12 s batch: loss {[round(x, 6) for x in losses]}; "
+          f"every step launched {json.dumps(path_launches['train-taps'])} ok", flush=True)
+
+    print("[train-taps] fp32 steps without dropout, card vs CPU (plain versions), full "
+          "width, 1 x 2 s: step 0 at lr 0, then one at lr > 0", flush=True)
+    exp_taps32 = dataclasses.replace(exp32, loss=exp_taps.loss)
+    on_card = Distiller(exp_taps32, t_state, s_state, device="cuda", num_training_steps=20)
+    on_cpu = Distiller(exp_taps32, t_state, s_state, device="cpu", num_training_steps=20)
+    for i in range(2):
+        lg, lc = on_card.train_step(small, rand_layers), on_cpu.train_step(small, rand_layers)
+        for key in ("loss", "grad_norm", "attn_loss", "v_rel_loss"):
+            rel = abs(lg[key] - lc[key]) / abs(lc[key])
+            if rel > TRAIN_RTOL:
+                fail(f"fp32 taps step {i}: {key} card {lg[key]} vs CPU {lc[key]} (rel {rel:.3e})")
+        print(f"  step {i}: loss {lg['loss']:.8f} vs {lc['loss']:.8f}, attn_loss "
+              f"{lg['attn_loss']:.8f} vs {lc['attn_loss']:.8f}, v_rel_loss "
+              f"{lg['v_rel_loss']:.8f} vs {lc['v_rel_loss']:.8f}, grad_norm "
+              f"{lg['grad_norm']:.8f} vs {lc['grad_norm']:.8f} tol rel {TRAIN_RTOL} ok",
+              flush=True)
+    worst = max((pg.detach().cpu() - pc.detach()).abs().max().item()
+                for pg, pc in zip(on_card.params, on_cpu.params))
+    if worst > TRAIN_PARAM_ATOL:
+        fail(f"fp32 taps step: parameters differ by {worst:.3e} > {TRAIN_PARAM_ATOL}")
+    print(f"  parameters after 2 steps: max_abs_err={worst:.3e} tol={TRAIN_PARAM_ATOL} ok",
+          flush=True)
+    del on_card, on_cpu
+
+    # ---- 8. timing
     print("[timing] B=32 x 16 s, bf16", flush=True)
     bench = [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(32)]
     for _ in range(3):
@@ -686,6 +915,25 @@ def main() -> int:
     profile_device(lambda: distiller.train_step(fixed, rand_layers), "train step", top=30,
                    unprofiled_ms=step_ms)
 
+    for what, d, mode in (("path A: the conv stack's backward through K6", distiller_k6,
+                           "pallas"),
+                          (f"path B: tap losses with K5, {a} microbatches looped",
+                           distiller_taps, "xla")):
+        print(f"[timing] train step, {what}, 3 x 4 x 12 s, bf16", flush=True)
+        times = []
+        with conv_backward(mode):
+            for _ in range(7):
+                t0 = time.perf_counter()
+                d.train_step(fixed, rand_layers)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            med = statistics.median(times)
+            print(f"  train step: median {med:.3f} ms over 7 (min {min(times):.3f}, max "
+                  f"{max(times):.3f}), {1e3 / med:.3f} steps/s, {audio_s / (med / 1e3):.1f} "
+                  f"audio-s/s; the release step above {step_ms:.3f} ms", flush=True)
+            profile_device(lambda: d.train_step(fixed, rand_layers), "train step", top=20,
+                           unprofiled_ms=med)
+
     # One row per kernel and path. "launches" is the count the path's run
     # made: over the three serving requests, or in the last checked train
     # step. Each row is timed at that path's shape.
@@ -693,9 +941,12 @@ def main() -> int:
           flush=True)
     kernels = []
 
-    def row(name, src, replaces, path, shape, err, ms, plain_ms, work, library_ms):
-        b_ms, b_by = bound(*work, BF16_PEAK)
-        launches = (main_path_launches if path == "serving" else train_launches).get(name, 0)
+    launches_of = dict(path_launches, serving=main_path_launches)
+
+    def row(name, src, replaces, path, shape, err, ms, plain_ms, work, library_ms,
+            peak=BF16_PEAK):
+        b_ms, b_by = bound(*work, peak)
+        launches = launches_of[path].get(name, 0)
         kernels.append(dict(
             name=name, route="cuda", source=f"fithubert_tpu_torch/csrc/{src}",
             replaces=f"fithubert_tpu/ops/pallas/{replaces}", launches=launches,
@@ -776,14 +1027,47 @@ def main() -> int:
         errs[fa.KERNEL_DQ], dq_ms, bwd_plain, attn_bwd_work(q, mask, 1), lib_bwd)
     row(fa.KERNEL_DKV, "flash_attention_bwd.cu", "flash_attention.py:323", "train", shape,
         errs[fa.KERNEL_DKV], dkv_ms, bwd_plain, attn_bwd_work(q, mask, 2), lib_bwd)
-    for kd in kernels:
-        print(f"  {kd['name']} ({kd['path']}, {kd['shape']}): {kd['ms']:.4f} ms (bound "
-              f"{kd['bound_ms']:.4f} ms by {kd['bound_by']}, plain {kd['plain_ms']:.4f}, "
-              f"library {kd['library_ms']:.4f}), {kd['launches']} launches "
-              f"{'over the 3 serving requests' if kd['path'] == 'serving' else 'per train step'}",
+    del q, k, v, dout, mask, qs, ks, vs, o_lib
+
+    # train-taps: K5 at the student's last-layer probabilities of one microbatch
+    x = torch.rand((b, h, t_att, t_att), generator=gen).to(dev)
+    seed = seed_words(gen)
+    with torch.no_grad():
+        k5_ms = cuda_ms(lambda: kd.seeded_dropout_cuda(x, seed, ATTN_P), reps=50)
+        k5_plain = cuda_ms(lambda: kd.seeded_dropout_plain(x, seed, ATTN_P), reps=5)
+        k5_lib = cuda_ms(lambda: F.dropout(x, ATTN_P, training=True), reps=50)
+    # one multiply per element; 4 bytes read and 4 written
+    row(kd.KERNEL, "seeded_dropout.cu", "dropout.py:83", "train-taps",
+        f"student probabilities {tuple(x.shape)} fp32, p={ATTN_P}", errs[kd.KERNEL], k5_ms,
+        k5_plain, (x.numel(), 8 * x.numel()), k5_lib, peak=FP32_PEAK)
+    del x
+
+    # train-k6: K6 over the student's stack of one step, from a0 = the prefix's output
+    spec = student_cpu.feature_extractor.spec[1:]
+    x, ws, scale, shift = stack_inputs(student_cpu, step_wavs, torch.bfloat16, dev)
+    with torch.no_grad():
+        a0 = cf._prefix(x, scale, shift)
+    del x, scale, shift
+    g = torch.randn((a0.shape[0], cf.out_len(a0.shape[1], spec), spec[-1][0]),
+                    generator=gen).to(dev, torch.bfloat16)
+    k6_ms = cuda_ms(lambda: cf.conv_stack_bwd_cuda(a0, ws, g, spec), reps=5, warmup=1)
+    k6_plain = cuda_ms(lambda: cf.conv_stack_bwd_plain(a0, ws, g, spec), reps=2, warmup=1)
+    leaves = [t.detach().requires_grad_() for t in [a0, *ws]]
+    k6_lib = cuda_ms(lambda: torch.autograd.grad(
+        cf.conv_stack_plain(leaves[0], leaves[1:], spec), leaves, g), reps=5, warmup=1)
+    row(cf.KERNEL_BWD, "conv_frontend_bwd.cu", "conv_frontend_bwd.py:290", "train-k6",
+        f"student a0 {tuple(a0.shape)}, g {tuple(g.shape)}", errs[cf.KERNEL_BWD], k6_ms,
+        k6_plain, conv_bwd_work(a0, spec), k6_lib)
+    del a0, g, leaves, ws
+
+    for kr in kernels:
+        print(f"  {kr['name']} ({kr['path']}, {kr['shape']}): {kr['ms']:.4f} ms (bound "
+              f"{kr['bound_ms']:.4f} ms by {kr['bound_by']}, plain {kr['plain_ms']:.4f}, "
+              f"library {kr['library_ms']:.4f}), {kr['launches']} launches "
+              f"{'over the 3 serving requests' if kr['path'] == 'serving' else 'per train step'}",
               flush=True)
 
-    # ---- 7. result lines
+    # ---- 9. result lines
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,17 @@
 // Philox-4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
-// 3", SC'11), the generator of the attention-dropout keep mask. The plain
-// PyTorch version is fithubert_tpu_torch/ops/kernels/flash_attention.py
-// (philox4x32, keep_mask); the two must stay the same function.
+// 3", SC'11), the generator of every dropout keep mask of the port. The plain
+// PyTorch version is fithubert_tpu_torch/ops/kernels/philox.py (philox4x32);
+// the two must stay the same function.
 //
-// The keep decision for probability (z = b * H + h, query i, key j) is word
-// j & 3 of philox4x32((j >> 2, i, z, 0), (seed0, seed1)): kept when its top
-// 24 bits are >= thr = floor(p * 2^24). A pure function of the element, so
-// every kernel that tiles the T x T matrix differently draws the same mask;
-// each kernel makes one call per 4 keys of a row.
+// An element is kept when the top 24 bits of its word are >= thr =
+// floor(p * 2^24). Its word is a pure function of the element, so every
+// kernel draws the same mask however it tiles:
+//   attention probability (z = b * H + h, query i, key j): word j & 3 of
+//     philox4x32((j >> 2, i, z, 0), (seed0, seed1)), one call per 4 keys of
+//     a row (K2, K3, K4; flash_attention.keep_mask);
+//   element e of a flat tensor: word e & 3 of
+//     philox4x32((e >> 2, e >> 34, 0, 0), (seed0, seed1)), one call per 4
+//     consecutive elements (K5; dropout.keep_flat).
 
 #pragma once
 #include <stdint.h>

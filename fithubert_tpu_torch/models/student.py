@@ -45,7 +45,7 @@ class StudentOutput(NamedTuple):
     x: torch.Tensor  # final output (projected if layerwise heads ran)
     padding_mask: Optional[torch.Tensor]  # frame-rate, time-reduced
     features: torch.Tensor  # features to distill (B, T', C): post-extract proj (+ cnn head)
-    layer_results: List  # [(hidden, None, ffn_result)] per layer
+    layer_results: List  # [(hidden, taps or None, ffn_result)] per layer
     tr_layer_results: List  # outputs of the TR layer
     projections: Optional[Union[torch.Tensor, List[torch.Tensor]]]  # (B, L, T, D)
 
@@ -133,12 +133,15 @@ class StudentModel(nn.Module):
 
     def forward_train(self, source: torch.Tensor,
                       padding_mask: Optional[torch.Tensor] = None,
-                      rng: Optional[DropoutRNG] = None) -> StudentOutput:
+                      rng: Optional[DropoutRNG] = None,
+                      need_taps: bool = False) -> StudentOutput:
         """The training forward (``deterministic=False`` in the JAX package),
-        with autograd; every dropout is drawn from ``rng``."""
-        return self._run(source, padding_mask, None, rng)
+        with autograd; every dropout is drawn from ``rng``. ``need_taps``:
+        the last encoder layer returns its attention taps in
+        ``layer_results[-1][1]``."""
+        return self._run(source, padding_mask, None, rng, need_taps)
 
-    def _run(self, source, padding_mask, layer, rng) -> StudentOutput:
+    def _run(self, source, padding_mask, layer, rng, need_taps=False) -> StudentOutput:
         cfg = self.cfg
         features = self.feature_extractor(source.to(self.compute_dtype))
         if 0 < cfg.feature_grad_mult != 1.0:
@@ -165,7 +168,8 @@ class StudentModel(nn.Module):
             features_to_distill = linear(gelu_exact(features), self.cnn_proj_head)
         features = dropout(features, cfg.dropout_input, rng)
 
-        enc = self.encoder(features, padding_mask, tgt_slot=layer, rng=rng)
+        enc = self.encoder(features, padding_mask, tgt_slot=layer, rng=rng,
+                           need_taps=need_taps)
         x = enc.x
         n_slots = len(self.encoder.layers)
         projections = None

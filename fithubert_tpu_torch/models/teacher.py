@@ -99,7 +99,7 @@ class TeacherGeometry:
 
 class TeacherOutput(NamedTuple):
     x: torch.Tensor  # last layer's hidden (B, T', D)
-    layer_results: List  # [(hidden, None, ffn_result)] per layer
+    layer_results: List  # [(hidden, taps or None, ffn_result)] per layer
     features: torch.Tensor  # post_extract_proj output (B, T', D)
     padding_mask: Optional[torch.Tensor]  # frame-rate (B, T')
 
@@ -153,16 +153,18 @@ class TeacherModel(nn.Module):
         return lengths_to_padding_mask(lengths, t_frames)
 
     @torch.no_grad()
-    def forward(self, source: torch.Tensor,
-                padding_mask: Optional[torch.Tensor] = None) -> TeacherOutput:
-        """source (B, T_wav) float; padding_mask (B, T_wav) bool, True = pad."""
+    def forward(self, source: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
+                need_taps: bool = False) -> TeacherOutput:
+        """source (B, T_wav) float; padding_mask (B, T_wav) bool, True = pad.
+        ``need_taps``: the last layer returns its attention taps in
+        ``layer_results[-1][1]`` (deterministic: no dropout)."""
         features = self.feature_extractor(source.to(self.compute_dtype))
         features = self.layer_norm(features)
         if padding_mask is not None:
             padding_mask = self._frame_mask(padding_mask, features.shape[1])
         if self.post_extract_proj is not None:
             features = linear(features, self.post_extract_proj)
-        enc = self.encoder(features, padding_mask)
+        enc = self.encoder(features, padding_mask, need_taps=need_taps)
         x = enc.layer_results[-1][0] if enc.layer_results else enc.x
         return TeacherOutput(x=x, layer_results=enc.layer_results, features=features,
                              padding_mask=enc.padding_mask)

@@ -13,23 +13,32 @@ folds the block-0 GroupNorm(C, C) in; ``gn_scale_shift`` computes it as
 On a CUDA tensor ``conv_stack`` launches ``csrc/conv_frontend.cu`` once per
 layer; on a CPU tensor it runs ``conv_stack_plain``.
 
-Its gradient is the counterpart of the JAX package's default backward
-(``_fused_bwd`` ``:353-357``, ``_fused_gn_bwd`` ``:444-449``): recompute the
-stack with ``F.conv1d`` and the same GELU flavour, then differentiate that.
-This is library convolution, as it is XLA convolution there, not a port of
-a Pallas kernel; the Pallas conv-stack backward (``conv_frontend_bwd.py:290``,
-K6, opt-in in the JAX package) is the kernel that will replace it. The
-gradient returns dx, dweights, dscale and dshift, and autograd carries
-dscale and dshift through ``gn_scale_shift`` into x, gamma and beta, which
-gives the GroupNorm gradient that ``_gn_prefix_bwd`` (``:216-236``) writes
-by hand.
+Its gradient has the JAX package's two backwards, picked by the same
+environment variable, ``FITHUBERT_CONV_BWD``, read at backward time
+(``_kernel_bwd_enabled``, a copy of ``_pallas_bwd_enabled`` ``:322-335``),
+so one setting picks the same backward in both packages:
+- ``xla`` (the default): the counterpart of ``_fused_bwd`` (``:353-357``)
+  and ``_fused_gn_bwd`` (``:444-449``), which recompute the stack with XLA
+  convolutions and differentiate that. Here the recompute is ``F.conv1d``
+  with the same GELU flavour, library convolution as it is XLA's there.
+- ``pallas``: the conv-stack backward kernel K6 (``conv_frontend_bwd.py:290
+  pallas_stack_bwd``), ``csrc/conv_frontend_bwd.cu`` on a CUDA tensor and
+  ``conv_stack_bwd_plain`` on a CPU tensor. As in the JAX package's
+  ``_fused_gn_bwd`` (``:426-443``), the GroupNorm + GELU prefix
+  a0 = gelu(x * scale + shift) is materialised once, K6 runs on a0, and
+  autograd carries da0 through the prefix into x, scale and shift.
+Either way autograd then carries dscale and dshift through
+``gn_scale_shift`` into x, gamma and beta, which gives the GroupNorm
+gradient that ``_gn_prefix_bwd`` (``:216-236``) writes by hand.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+import math
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +48,7 @@ from fithubert_tpu_torch.ops.kernels import _build
 
 Spec = Tuple[Tuple[int, int, int], ...]  # (dim, kernel, stride) per layer
 KERNEL = "conv_stack_cuda"
+KERNEL_BWD = "conv_stack_bwd_cuda"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -68,6 +78,35 @@ def gn_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def _gelu(dtype: torch.dtype):
     return gelu_exact if dtype == torch.float32 else gelu_tanh
+
+
+def gelu_grad_exact(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the exact-erf GELU: Phi(x) + x * phi(x) (``conv_frontend_bwd.py:68``)."""
+    return 0.5 * (1.0 + torch.erf(x * 0.7071067811865476)) \
+        + x * torch.exp(-0.5 * x * x) * 0.3989422804014327
+
+
+def gelu_grad_tanh(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the tanh-form GELU (``conv_frontend_bwd.py:75``)."""
+    t = torch.tanh(0.7978845608028654 * (x + 0.044715 * x * x * x))
+    du = 0.7978845608028654 * (1.0 + 3.0 * 0.044715 * x * x)
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * du
+
+
+def _gelu_grad(dtype: torch.dtype):
+    return gelu_grad_exact if dtype == torch.float32 else gelu_grad_tanh
+
+
+def _prefix(x, scale, shift):
+    """The block-0 GroupNorm + GELU prefix, gelu(x * scale + shift), in x's dtype."""
+    return _gelu(x.dtype)(x.float() * scale.float()[:, None] + shift.float()[:, None]).to(x.dtype)
+
+
+def _kernel_bwd_enabled() -> bool:
+    """Whether the conv stack's backward runs K6: ``FITHUBERT_CONV_BWD=pallas``,
+    the JAX package's switch (``_pallas_bwd_enabled``), read when the
+    backward runs. The default, ``xla``, is the library recompute."""
+    return os.environ.get("FITHUBERT_CONV_BWD", "xla").lower() == "pallas"
 
 
 def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], spec: Spec,
@@ -105,7 +144,7 @@ def conv_stack_plain(x: torch.Tensor, weights: Sequence[torch.Tensor], spec: Spe
     (``conv_frontend.py:242-259``); intermediates in x's dtype."""
     gelu = _gelu(x.dtype)
     if scale is not None:
-        x = gelu(x.float() * scale.float()[:, None] + shift.float()[:, None]).to(x.dtype)
+        x = _prefix(x, scale, shift)
     h = x.transpose(1, 2)
     for w, (_d, _k, s) in zip(weights, spec):
         h = gelu(F.conv1d(h, w.permute(2, 1, 0), stride=s))
@@ -148,9 +187,136 @@ def _conv_stack_cuda(x, weights, spec, scale, shift) -> torch.Tensor:
     return h
 
 
+def _taps(a: torch.Tensor, j: int, s: int, t_out: int) -> torch.Tensor:
+    """Rows f * s + j of a (B, T, C), f < t_out: tap j of every output frame."""
+    return a[:, j: j + (t_out - 1) * s + 1: s]
+
+
+def conv_stack_bwd_plain(a0: torch.Tensor, weights: Sequence[torch.Tensor],
+                         g: torch.Tensor, spec: Spec) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(da0, [dW_i]), all fp32, the stack's backward by K6's own steps
+    (``pallas_stack_bwd``): an up pass with explicit tap matmuls storing
+    z_i (pre-GELU) and a_{i+1} = gelu(z_i) in a0's dtype, then from the last
+    layer down dz = g * gelu'(z_i) rounded to a0's dtype, dW_i[j] =
+    tap_j(a_i)^T dz, da_i = sum_j dz W_i[j]^T placed at the rows tap j read,
+    and g = da_i, kept fp32 between layers. Not autograd."""
+    dtype = a0.dtype
+    gelu, gelu_grad = _gelu(dtype), _gelu_grad(dtype)
+    a_store, z_store = [a0], []
+    for w, (_d, k, s) in zip(weights, spec):
+        a = a_store[-1].float()
+        t_out = (a.shape[1] - k) // s + 1
+        z = sum(_taps(a, j, s, t_out) @ w[j].float() for j in range(k)).to(dtype)
+        z_store.append(z)
+        a_store.append(gelu(z.float()).to(dtype))
+    g = g.float()
+    dws = [None] * len(spec)
+    for i in reversed(range(len(spec))):
+        _d, k, s = spec[i]
+        dz = (g * gelu_grad(z_store[i].float())).to(dtype).float()
+        a, w = a_store[i].float(), weights[i].float()
+        t_out = dz.shape[1]
+        dws[i] = torch.stack([torch.einsum("btc,btd->cd", _taps(a, j, s, t_out), dz)
+                              for j in range(k)])
+        da = torch.zeros_like(a)
+        for j in range(k):
+            _taps(da, j, s, t_out).add_(dz @ w[j].t())
+        g = da
+    return g, dws
+
+
+def _dw_split(m_red: int, kdim: int, n: int, tile: int, depth: int) -> Tuple[int, int]:
+    """(chunk_len, n_chunks) of the dW reduction over m_red frames: enough
+    chunks that the (kdim, n) tiles of ``tile`` fill ~2 blocks per SM of an
+    H100 (132 SMs), each chunk a multiple of the ``depth`` frames of a stage.
+    A function of the shapes alone, so the sum order is fixed."""
+    tiles = math.ceil(kdim / tile) * math.ceil(n / tile)
+    chunks = max(1, min(math.ceil(264 / tiles), math.ceil(m_red / depth)))
+    chunk_len = math.ceil(math.ceil(m_red / chunks) / depth) * depth
+    return chunk_len, math.ceil(m_red / chunk_len)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fns():
+    lib = _build.load("conv_frontend_bwd")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sig = {"conv_bwd_up": [i32] + [ptr] * 4 + [i32] * 7 + [ptr],
+           "conv_bwd_dz": [i32] + [ptr] * 3 + [i64, ptr],
+           "conv_bwd_da": [i32] + [ptr] * 5 + [i32] * 7 + [ptr],
+           "conv_bwd_dw": [i32] + [ptr] * 3 + [i32] * 9 + [ptr],
+           "conv_bwd_dw_reduce": [ptr] * 2 + [i64, i32, ptr]}
+    fns = {}
+    for name, argtypes in sig.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_int, argtypes
+        fns[name] = fn
+    return fns
+
+
+def _launch(fn, *args) -> None:
+    _build.check(fn(*args), KERNEL_BWD)
+    _build.count_launch(KERNEL_BWD)
+
+
+def conv_stack_bwd_cuda(a0: torch.Tensor, weights: Sequence[torch.Tensor],
+                        g: torch.Tensor, spec: Spec) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """K6 on CUDA tensors: (da0, [dW_i]), fp32, in 4L + 1 launches."""
+    fns = _bwd_fns()
+    vec = 16 // a0.element_size()
+    if any(c % vec for c in [a0.shape[-1]] + [d for (d, _k, _s) in spec]):
+        raise ValueError(f"conv_stack_bwd_cuda needs every width to be a multiple of {vec}")
+    dt = _DTYPE_CODE[a0.dtype]
+    dev = a0.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    b = a0.shape[0]
+    tile, depth = (128, 32) if a0.dtype == torch.bfloat16 else (64, 16)  # the kernels' tiles
+    a_store, z_store = [a0.contiguous()], []
+    for w, (d, k, s) in zip(weights, spec):
+        a = a_store[-1]
+        t_in, c_in = a.shape[1], a.shape[2]
+        t_out = (t_in - k) // s + 1
+        wt = w.permute(2, 0, 1).contiguous()  # (C_out, k, C_in), as K1 takes it
+        z = torch.empty((b, t_out, d), dtype=a0.dtype, device=dev)
+        a_next = torch.empty_like(z)
+        _launch(fns["conv_bwd_up"], dt, a.data_ptr(), wt.data_ptr(), z.data_ptr(),
+                a_next.data_ptr(), b, t_in, c_in, t_out, d, k, s, stream)
+        z_store.append(z)
+        a_store.append(a_next)
+    g = g.float().contiguous()
+    dz = torch.empty_like(z_store[-1])
+    _launch(fns["conv_bwd_dz"], dt, g.data_ptr(), z_store[-1].data_ptr(), dz.data_ptr(),
+            dz.numel(), stream)
+    dws = [None] * len(spec)
+    for i in reversed(range(len(spec))):
+        d, k, s = spec[i]
+        a = a_store[i]
+        t_in, c_in, t_out = a.shape[1], a.shape[2], dz.shape[1]
+        chunk_len, n_chunks = _dw_split(b * t_out, k * c_in, d, tile, depth)
+        part = torch.empty((n_chunks, k * c_in, d), dtype=torch.float32, device=dev)
+        _launch(fns["conv_bwd_dw"], dt, a.data_ptr(), dz.data_ptr(), part.data_ptr(), b, t_in,
+                c_in, t_out, d, k, s, chunk_len, n_chunks, stream)
+        dws[i] = torch.empty((k, c_in, d), dtype=torch.float32, device=dev)
+        _launch(fns["conv_bwd_dw_reduce"], part.data_ptr(), dws[i].data_ptr(), k * c_in * d,
+                n_chunks, stream)
+        w = weights[i].contiguous()  # (k, C_in, C_out)
+        if i > 0:  # dz of the layer below, in the dtype
+            z_prev = z_store[i - 1]
+            out = torch.empty_like(z_prev)
+            ptrs = (z_prev.data_ptr(), out.data_ptr(), None)
+        else:  # da0, fp32
+            out = torch.empty((b, t_in, c_in), dtype=torch.float32, device=dev)
+            ptrs = (None, None, out.data_ptr())
+        _launch(fns["conv_bwd_da"], dt, dz.data_ptr(), w.data_ptr(), *ptrs, b, t_in, c_in,
+                t_out, d, k, s, stream)
+        a_store[i + 1] = z_store[i] = None  # no longer read: free them early
+        dz = out
+    return dz, dws
+
+
 class _ConvStack(torch.autograd.Function):
-    """Forward: the kernel (or the plain version on the CPU). Backward:
-    autograd through ``conv_stack_plain`` recomputed from the saved inputs."""
+    """Forward: the kernel (or the plain version on the CPU). Backward: K6
+    under ``FITHUBERT_CONV_BWD=pallas``, else autograd through
+    ``conv_stack_plain`` recomputed from the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, scale, shift, spec, *weights):
@@ -165,6 +331,8 @@ class _ConvStack(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        if _kernel_bwd_enabled():
+            return _kernel_backward(ctx, grad)
         needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[4:]
         inputs = [None if t is None else t.detach().requires_grad_(n)
                   for t, n in zip(ctx.saved_tensors, needs)]
@@ -176,6 +344,33 @@ class _ConvStack(torch.autograd.Function):
         dx, dscale, dshift, *dws = [next(grads) if t is not None and t.requires_grad else None
                                     for t in inputs]
         return (dx, dscale, dshift, None, *dws)
+
+
+def _kernel_backward(ctx, grad):
+    """The backward through K6 (``_fused_bwd`` / ``_fused_gn_bwd`` under the
+    switch, ``conv_frontend.py:345-352, 426-443``)."""
+    x, scale, shift, *weights = ctx.saved_tensors
+    if scale is not None:
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (x, scale, shift)]
+            a0 = _prefix(*leaves)
+    else:
+        a0 = x
+    if x.device.type == "cuda":
+        with torch.cuda.device(x.device):
+            da0, dws = conv_stack_bwd_cuda(a0.detach(), weights, grad, ctx.spec)
+    elif x.device.type == "cpu":
+        da0, dws = conv_stack_bwd_plain(a0.detach(), weights, grad, ctx.spec)
+    else:
+        raise ValueError(f"conv_stack runs on cuda or cpu, not {x.device}")
+    if scale is not None:
+        dx, dscale, dshift = torch.autograd.grad(a0, leaves, da0.to(a0.dtype))
+    else:
+        dx, dscale, dshift = da0.to(x.dtype), None, None
+    needs = ctx.needs_input_grad
+    return (dx if needs[0] else None, dscale if needs[1] else None,
+            dshift if needs[2] else None, None,
+            *[dw.to(w.dtype) if n else None for dw, w, n in zip(dws, weights, needs[4:])])
 
 
 def conv_stack(x: torch.Tensor, weights: Sequence[torch.Tensor], spec: Spec,

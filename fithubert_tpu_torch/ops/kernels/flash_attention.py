@@ -19,8 +19,8 @@ formulas of ``:295-357``.
 Dropout acts on the unnormalised probabilities while the normaliser keeps
 the undropped sum (``:100-106``). The keep mask is a pure function of
 (seed word 0, seed word 1, z = b * H + h, query row i, key column j):
-Philox-4x32-10 on the counter (j >> 2, i, z, 0) under the key (seed 0,
-seed 1), word j & 3, kept when its top 24 bits reach floor(p * 2^24) as in
+Philox-4x32-10 (``philox.py``) on the counter (j >> 2, i, z, 0) under the
+key (seed 0, seed 1), word j & 3, kept when its top 24 bits reach floor(p * 2^24) as in
 ``_keep_mask`` (``:49-60``). Unlike the TPU's per-block streams, this does
 not depend on how a kernel tiles, so the forward, the dQ and the dK/dV
 kernels and the plain versions all draw the same mask.
@@ -41,6 +41,15 @@ from typing import Optional, Tuple
 import torch
 
 from fithubert_tpu_torch.ops.kernels import _build
+from fithubert_tpu_torch.ops.kernels.philox import (
+    M32,
+    Seed,
+    check_rate,
+    keep_bits,
+    philox4x32,
+    pick_word,
+    threshold,
+)
 
 KERNEL = "flash_attention_fwd_cuda"
 KERNEL_DROPOUT = "flash_attention_fwd_dropout_cuda"
@@ -49,20 +58,10 @@ KERNEL_DKV = "flash_attention_bwd_dkv_cuda"
 NEG_INF = -1e30
 HEAD_DIMS = (40, 64)  # head sizes the kernels are compiled for: student, teacher
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_M32 = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-Seed = Tuple[int, int]  # two 32-bit words
 
 
 def _check(q, k, v, key_padding_mask, dropout_p, seed) -> None:
-    if not 0.0 <= dropout_p < 1.0:
-        raise ValueError(f"dropout_p must lie in [0, 1), got {dropout_p}")
-    if dropout_p > 0.0 and _threshold(dropout_p) == 0:
-        # the kernels would drop nothing and skip the 1/(1-p) scale
-        raise ValueError(f"dropout_p {dropout_p} is below 2^-24, the finest rate the "
-                         "24-bit keep test resolves")
+    check_rate(dropout_p)
     if dropout_p > 0.0 and seed is None:
         raise ValueError("dropout needs a seed: two 32-bit words")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -78,36 +77,6 @@ def _check(q, k, v, key_padding_mask, dropout_p, seed) -> None:
             raise ValueError("all inputs must lie on one device")
 
 
-def _threshold(dropout_p: float) -> int:
-    """Keep a probability when its 24-bit draw is >= this (``:59``)."""
-    return min(int(dropout_p * (1 << 24)), (1 << 24) - 1)
-
-
-def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) 32-bit words of the 64-bit product a * m, for a in
-    [0, 2^32) held in int64: 16-bit limbs keep every partial product
-    below 2^34."""
-    a_lo, a_hi = a & 0xFFFF, a >> 16
-    m_lo, m_hi = m & 0xFFFF, m >> 16
-    ll = a_lo * m_lo
-    mid = a_lo * m_hi + a_hi * m_lo + (ll >> 16)
-    lo = ((mid & 0xFFFF) << 16) | (ll & 0xFFFF)
-    hi = (a_hi * m_hi + (mid >> 16)) & _M32
-    return hi, lo
-
-
-def philox4x32(c0, c1, c2, c3, seed: Seed, rounds: int = 10):
-    """Philox-4x32 (Salmon et al., SC'11) in int64 torch ops: the same
-    function as ``philox4x32`` in ``csrc/philox.cuh``."""
-    k0, k1 = seed[0] & _M32, seed[1] & _M32
-    for _ in range(rounds):
-        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
-        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
-    return c0, c1, c2, c3
-
-
 def keep_mask(b: int, h: int, t: int, dropout_p: float, seed: Seed,
               device=None) -> torch.Tensor:
     """(B, H, T, T) bool: True where a probability is kept."""
@@ -115,10 +84,7 @@ def keep_mask(b: int, h: int, t: int, dropout_p: float, seed: Seed,
     i = torch.arange(t, device=device, dtype=torch.int64).view(1, 1, t, 1)
     j = torch.arange(t, device=device, dtype=torch.int64).view(1, 1, 1, t)
     words = philox4x32(j >> 2, i, z, torch.zeros_like(j), seed)
-    sel = (j & 3).expand(b, h, t, t)
-    word = torch.where(sel == 0, words[0], torch.where(
-        sel == 1, words[1], torch.where(sel == 2, words[2], words[3])))
-    return (word >> 8) >= _threshold(dropout_p)
+    return keep_bits(pick_word(words, (j & 3).expand(b, h, t, t)), dropout_p)
 
 
 def _logits(q, k, key_padding_mask):
@@ -211,7 +177,7 @@ def _cuda_args(q, k, v, key_padding_mask):
 def _dropout_args(dropout_p: float, seed: Optional[Seed]):
     if dropout_p <= 0.0:
         return [0, 1.0, 0, 0]
-    return [_threshold(dropout_p), 1.0 / (1.0 - dropout_p), seed[0] & _M32, seed[1] & _M32]
+    return [threshold(dropout_p), 1.0 / (1.0 - dropout_p), seed[0] & M32, seed[1] & M32]
 
 
 def _flash_cuda(q, k, v, key_padding_mask, dropout_p, seed):
@@ -322,6 +288,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     when ``return_lse``. CUDA tensors run the kernels, CPU tensors the plain
     versions."""
     _check(q, k, v, key_padding_mask, dropout_p, seed)
-    seed = None if dropout_p == 0.0 else (int(seed[0]) & _M32, int(seed[1]) & _M32)
+    seed = None if dropout_p == 0.0 else (int(seed[0]) & M32, int(seed[1]) & M32)
     out, lse = _FlashAttention.apply(q, k, v, key_padding_mask, float(dropout_p), seed)
     return (out, lse) if return_lse else out

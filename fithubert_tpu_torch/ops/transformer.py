@@ -7,7 +7,20 @@ an unrolled loop. As in the reference, the TR conv sits in
 Given a ``DropoutRNG`` a forward trains: drop1/drop2/drop3 in both LN orders
 (``:99-130``), the dropout of the encoder input (``:283``), attention
 dropout, and the layerdrop gate (``:386-389``). Without one it is
-deterministic."""
+deterministic.
+
+With ``need_taps`` only the last transformer layer that runs takes the
+attention's materialised taps branch and returns ``AttentionTaps`` in its
+``layer_results`` entry; every other layer keeps the flash kernel and its
+in-kernel dropout, and its taps entry is None. The attention-transfer
+losses read only ``layer_results[-1]``'s taps (``fithubert_tpu/train/
+losses.py:310-311,342-343``), and the JAX package leaves XLA to drop the
+other layers' taps (``transformer.py:296-298``): materialising (B*H, T, T)
+logits in every layer would cost memory and time for tensors no one reads.
+So with dropout off the output equals the JAX package's need_taps forward
+except in rows whose keys are all padding, where the other layers give what
+``flash_attention`` gives there; with dropout on the random bits differ too
+(K2's mask in the other layers where the JAX package draws K5's)."""
 
 from __future__ import annotations
 
@@ -18,7 +31,7 @@ import torch.nn as nn
 
 from fithubert_tpu_torch.config import StudentConfig
 from fithubert_tpu_torch.ops.activations import gelu_exact
-from fithubert_tpu_torch.ops.attention import MultiHeadSelfAttention, linear
+from fithubert_tpu_torch.ops.attention import AttentionTaps, MultiHeadSelfAttention, linear
 from fithubert_tpu_torch.ops.conv import Conv1D, PositionalConv
 from fithubert_tpu_torch.ops.dropout import DropoutRNG, dropout
 from fithubert_tpu_torch.ops.norms import FP32LayerNorm
@@ -31,15 +44,16 @@ from fithubert_tpu_torch.ops.padding import (
 
 class EncoderOutput(NamedTuple):
     x: torch.Tensor  # (B, T', C) final hidden states
-    # per transformer layer: (hidden, taps (always None here), ffn pre-residual)
-    layer_results: List[Tuple[torch.Tensor, None, torch.Tensor]]
+    # per transformer layer: (hidden, taps (None but in the taps layer), ffn pre-residual)
+    layer_results: List[Tuple[torch.Tensor, Optional[AttentionTaps], torch.Tensor]]
     tr_layer_results: List[torch.Tensor]
     padding_mask: Optional[torch.Tensor]  # time-reduced (B, T')
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-/post-LN block. Returns (x, layer_result), where layer_result is
-    the FFN output before drop3 and the residual."""
+    """Pre-/post-LN block. Returns (x, taps, layer_result), where taps is the
+    attention's ``AttentionTaps`` (None unless ``need_taps``) and
+    layer_result the FFN output before drop3 and the residual."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  layer_norm_first: bool = False, dropout: float = 0.0,
@@ -60,16 +74,16 @@ class TransformerEncoderLayer(nn.Module):
         return linear(h, self.fc2)
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
-                rng: Optional[DropoutRNG] = None):
+                rng: Optional[DropoutRNG] = None, need_taps: bool = False):
         if self.layer_norm_first:
-            y = self.self_attn(self.self_attn_layer_norm(x), padding_mask, rng)
+            y, taps = self.self_attn(self.self_attn_layer_norm(x), padding_mask, rng, need_taps)
             x = x + dropout(y, self.dropout, rng)
             y = self._ffn(self.final_layer_norm(x), rng)
-            return x + dropout(y, self.dropout, rng), y
-        y = self.self_attn(x, padding_mask, rng)
+            return x + dropout(y, self.dropout, rng), taps, y
+        y, taps = self.self_attn(x, padding_mask, rng, need_taps)
         x = self.self_attn_layer_norm(x + dropout(y, self.dropout, rng))
         y = self._ffn(x, rng)
-        return self.final_layer_norm(x + dropout(y, self.dropout, rng)), y
+        return self.final_layer_norm(x + dropout(y, self.dropout, rng)), taps, y
 
 
 class TransformerEncoder(nn.Module):
@@ -92,11 +106,15 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 tgt_slot: Optional[int] = None,
-                rng: Optional[DropoutRNG] = None) -> EncoderOutput:
+                rng: Optional[DropoutRNG] = None, need_taps: bool = False) -> EncoderOutput:
         """``tgt_slot`` stops after that slot of the layer list (the TR
         module counts), like the reference's tgt_layer. Deterministic
-        unless a ``rng`` is given."""
+        unless a ``rng`` is given. ``need_taps``: the last transformer
+        layer that runs returns its attention taps."""
         cfg = self.cfg
+        last = len(self.layers) - 1 if tgt_slot is None else min(tgt_slot, len(self.layers) - 1)
+        taps_slot = max((s for s in range(last + 1) if s != self.tr_slot), default=-1) \
+            if need_taps else -1
         x = apply_padding_mask(x, padding_mask)
         x = x + self.pos_conv(x)
         if not cfg.layer_norm_first:
@@ -118,15 +136,16 @@ class TransformerEncoder(nn.Module):
                 tr_layer_results.append(x)
                 padding_mask = reduce_padding_mask(padding_mask, cfg.tr_reduce_factor)
             else:
-                y, layer_result = layer(x, padding_mask, rng)
+                y, taps, layer_result = layer(x, padding_mask, rng, slot == taps_slot)
                 if rng is None or cfg.encoder_layerdrop <= 0.0 \
                         or rng.uniform() > cfg.encoder_layerdrop:
                     x = y
-                layer_results.append((x, None, layer_result))
+                layer_results.append((x, taps, layer_result))
             if tgt_slot is not None and slot >= tgt_slot:
                 break
 
-        # undo pad_to_multiple; after a TR layer the pad is folded into frames
+        # undo pad_to_multiple; after a TR layer the pad is folded into frames.
+        # The taps keep the padded length, as in the JAX package (:407-410).
         if pad_length > 0 and not cfg.enable_tr_layer:
             x = x[:, :-pad_length]
             if padding_mask is not None:

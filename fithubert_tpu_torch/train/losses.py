@@ -1,7 +1,8 @@
-"""The KD loss (``fithubert_tpu/train/losses.py:115 compute_losses``), the
-terms the release config and its neighbours use: the rec MSE / L1 over
-random or fixed layers, the -logsigmoid cosine-similarity term and the cnn
-term. The attention-tap, v_rel and CTC terms raise NotImplementedError.
+"""The KD loss (``fithubert_tpu/train/losses.py:115 compute_losses``): the
+rec MSE / L1 over random or fixed layers, the -logsigmoid cosine-similarity
+term, the cnn term, and the attention-transfer terms on the last layer's
+taps: the attention-logit loss (mse or kldiv) and the value-relation KL
+(``:307-361``). CTC is not ported.
 
 Parity mode (``masked_reduction=False``) reduces over padded positions as
 the reference does, but weights out rows fabricated as all padding
@@ -47,6 +48,63 @@ def _row_weighted_mean(x: torch.Tensor, rv: Optional[torch.Tensor],
     return (per * w).sum() / w.sum().clamp_min(1.0)
 
 
+def _taps_row_weight(row_valid: Optional[torch.Tensor], z: int, device) -> torch.Tensor:
+    """Row weights for (B*H, T, T) flattened attention taps (b-major)."""
+    if row_valid is None:
+        return torch.ones((z,), dtype=torch.float32, device=device)
+    return row_valid.repeat_interleave(z // row_valid.shape[0])
+
+
+def _crop_taps(pred: torch.Tensor, targ: torch.Tensor):
+    """Both fp32, cropped to the leading common T x T block."""
+    t_min = min(pred.shape[1], targ.shape[1])
+    return pred.float()[:, :t_min, :t_min], targ.float()[:, :t_min, :t_min]
+
+
+def _kl_rows(pred: torch.Tensor, targ: torch.Tensor, w: torch.Tensor, scrub: bool):
+    """Row-weighted mean over (Z, T) rows of KL(softmax(targ) || softmax(pred))."""
+    logp = torch.log_softmax(pred, dim=-1)
+    q = torch.softmax(targ, dim=-1)
+    kl = q * (torch.log(q.clamp_min(1e-30)) - logp)
+    if scrub:  # torch.where: the NaN branch gets no gradient
+        kl = torch.where(torch.isinf(kl) | torch.isnan(kl), 0.0, kl)
+    return (kl.sum(-1) * w[:, None]).sum() / (w.sum() * kl.shape[1]).clamp_min(1.0)
+
+
+def attention_loss(pred_a: torch.Tensor, targ_a: torch.Tensor,
+                   row_valid: Optional[torch.Tensor], loss_type: str) -> torch.Tensor:
+    """The attention-logit transfer (``:307-337``) between (B*H, T, T)
+    logits, -inf at padded keys, in fp32; rows of fabricated batch rows
+    weigh 0."""
+    pred_a, targ_a = _crop_taps(pred_a, targ_a)
+    w = _taps_row_weight(row_valid, pred_a.shape[0], pred_a.device)
+    if loss_type == "mse":
+        with torch.no_grad():
+            sq = (pred_a - targ_a) ** 2
+            isinf, isnan = torch.isinf(sq), torch.isnan(sq)
+            # the reference's scrub (train.py:337-341) counts whole key
+            # columns; fabricated rows leave numerator and denominator
+            inf_count = (isinf.any(1) * w[:, None]).sum() * sq.shape[-1]
+            nan_count = (isnan.any(1) * w[:, None]).sum() * sq.shape[-1]
+            bad = isinf | isnan
+        # the difference is zeroed before squaring, so a -inf logit gets a
+        # zero gradient rather than inf * 0
+        diff = torch.where(bad, 0.0, pred_a - targ_a)
+        denom = w.sum() * sq.shape[1] * sq.shape[2] - inf_count - nan_count
+        return (diff.square() * w[:, None, None]).sum() / denom.clamp_min(1.0)
+    if loss_type == "kldiv":
+        return _kl_rows(pred_a, targ_a, w, scrub=True)
+    raise NotImplementedError("attn_loss_type must be one of 'mse', 'kldiv'.")
+
+
+def value_relation_loss(pred_v: torch.Tensor, targ_v: torch.Tensor,
+                        row_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The value-relation KL (``:339-353``) between (B*H, T, T) relations."""
+    pred_v, targ_v = _crop_taps(pred_v, targ_v)
+    return _kl_rows(pred_v, targ_v, _taps_row_weight(row_valid, pred_v.shape[0], pred_v.device),
+                    scrub=False)
+
+
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
     """Mean of x over ``axes`` counting only positions where mask is False."""
     valid = torch.logical_not(mask).to(x.dtype).expand(x.shape)
@@ -64,8 +122,6 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
                    student: StudentOutput, teacher: TeacherOutput,
                    rand_layers: Optional[torch.Tensor] = None) -> LossOutput:
     cfg = loss_cfg
-    if cfg.attn_loss_weight > 0 or cfg.v_rel_loss_weight > 0:
-        raise NotImplementedError("the attention-tap losses are not ported yet")
     logs: Dict[str, torch.Tensor] = {}
     dev = teacher.x.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -176,7 +232,19 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
                 logs[f"layer{pid}"] = feat_layer[i]
         last_layer_loss = feat_layer[-1]
 
+    attn_loss = v_rel_loss = zero
+    if cfg.attn_loss_weight > 0:
+        attn_loss = attention_loss(student.layer_results[-1][1].attn_logits,
+                                   teacher.layer_results[-1][1].attn_logits, row_valid,
+                                   cfg.attn_loss_type)
+        logs["attn_loss"] = attn_loss
+    if cfg.v_rel_loss_weight > 0:
+        v_rel_loss = value_relation_loss(student.layer_results[-1][1].v_rel,
+                                         teacher.layer_results[-1][1].v_rel, row_valid)
+        logs["v_rel_loss"] = v_rel_loss
+
     total = (cfg.rec_loss_weight * rec_loss + cfg.sim_loss_weight * sim_loss
+             + cfg.attn_loss_weight * attn_loss + cfg.v_rel_loss_weight * v_rel_loss
              + cfg.cnn_loss_weight * cnn_loss)
     logs["total"] = total
     if last_layer_loss is None:

@@ -12,7 +12,11 @@ losses allow it (``fuse_ok``, ``:276-295``); otherwise each microbatch runs
 its own forward and backward and the summed gradients are divided by A
 (``:344-353``). Every random draw of a step comes from a ``DropoutRNG``
 seeded by (train.seed, step, microbatch), so the same seed replays the same
-step. The tap losses, CTC, SpecAug and the conformer are not ported.
+step. With an attention or value-relation loss weight the last layer of
+both models returns its attention taps (``need_taps``, ``:86-88``); an
+attention-logit loss also keeps the microbatches apart, since its scrub
+divides by a count that depends on the data. CTC, SpecAug and the conformer
+are not ported.
 """
 
 from __future__ import annotations
@@ -41,8 +45,7 @@ class Distiller:
                  teacher_geometry: Optional[TeacherGeometry] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        if cfg.loss.attn_loss_weight > 0 or cfg.loss.v_rel_loss_weight > 0:
-            raise NotImplementedError("the attention-tap losses are not ported yet")
+        self.need_taps = cfg.loss.attn_loss_weight > 0 or cfg.loss.v_rel_loss_weight > 0
         geom = teacher_geometry or TeacherGeometry.from_teacher_config(cfg.teacher)
         if cfg.train.use_fp16:
             geom = dataclasses.replace(geom, compute_dtype="bfloat16")
@@ -62,8 +65,8 @@ class Distiller:
         return ((self.cfg.train.seed * 1_000_003 + self.step) * 131_071 + micro) % (1 << 63)
 
     def _forward_loss(self, wav, mask, rand_layers, rng: Optional[DropoutRNG]) -> LossOutput:
-        t_out = self.teacher(wav, mask)
-        s_out = self.student.forward_train(wav, mask, rng)
+        t_out = self.teacher(wav, mask, need_taps=self.need_taps)
+        s_out = self.student.forward_train(wav, mask, rng, need_taps=self.need_taps)
         return compute_losses(self.cfg.loss, self.cfg.distiller, s_out, t_out, rand_layers)
 
     def _inputs(self, batch: Batch, rand_layers):

@@ -127,7 +127,8 @@ def test_mha_no_taps_path_matches_jax():
         np.ascontiguousarray(params[n]["kernel"].T if p == "weight" else params[n]["bias"]))
         for n in params for p in ("weight", "bias")})
     with torch.no_grad():
-        got = tm(torch.from_numpy(x), torch.from_numpy(mask))
+        got, taps = tm(torch.from_numpy(x), torch.from_numpy(mask))
+    assert taps is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 

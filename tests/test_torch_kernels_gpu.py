@@ -2,7 +2,9 @@
 shapes the main paths do not reach: tails in every tiled dimension of the
 conv GEMM, the teacher's widths, short and odd T, strided q/k/v views, fully
 padded rows, the attention backward (K3, K4) with and without dropout, and
-its determinism. Skipped where there is no CUDA card. On a machine
+its determinism; the seeded dropout (K5) bit for bit, forward and backward;
+the conv-stack backward (K6) on ragged T with k < s, k = s and k > s layers,
+and its determinism. Skipped where there is no CUDA card. On a machine
 with one (and without JAX, which the suite's conftest imports):
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -13,6 +15,7 @@ import torch
 
 from fithubert_tpu_torch.ops.kernels import _build
 from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+from fithubert_tpu_torch.ops.kernels import dropout as kd
 from fithubert_tpu_torch.ops.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.gpu
@@ -186,3 +189,100 @@ def test_positional_conv_bf16_at_the_teachers_width(dev):
         got = pc(x.bfloat16()).float()
     rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
     assert rel < 2e-2, rel
+
+
+DROPOUT_CASES = [(4, 12, 299, 299), (3, 5, 77), (1, 1, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", DROPOUT_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_seeded_dropout_is_bit_identical_to_plain(dev, shape, dtype):
+    """K5 and seeded_dropout_plain draw the same Philox words and compute
+    x * fp32(1/(1-p)) rounded once: exact equality, forward and backward."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g).to(dev, dtype).requires_grad_()
+    cot = torch.randn(shape, generator=g).to(dev, dtype)
+    seed, p = (0xDEADBEEF, 0x12345678), 0.1
+    _build.reset_launches()
+    y = kd.seeded_dropout(x, seed, p)
+    (dx,) = torch.autograd.grad(y, x, cot)
+    assert _build.LAUNCHES == {kd.KERNEL: 2}
+    assert torch.equal(y, kd.seeded_dropout_plain(x.detach(), seed, p))
+    assert torch.equal(dx, kd.seeded_dropout_plain(cot, seed, p))
+
+
+def test_seeded_dropout_of_an_unaligned_view(dev):
+    """A view whose start is not 16-byte aligned takes the element-wise
+    path and draws the same mask."""
+    big = torch.randn(4 * 1000 + 3, device=dev)
+    x = big[3:]
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(kd.seeded_dropout(x, (5, 6), 0.3), kd.seeded_dropout_plain(x, (5, 6), 0.3))
+
+
+# K6 against its plain version, norm-wise: fp32 sums the same products in
+# another order (dW over up to ~10^5 frames); in bf16 that order can flip
+# the rounding of z or dz by one step, which moves the gradient well below
+# 1e-2 of its norm.
+K6_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+K6_CASES = [
+    # ragged T, K and widths not multiples of the tiles, k > s, k = s, k = s = 1
+    (2, 301, 24, ((40, 3, 2), (48, 2, 2), (16, 1, 1))),
+    # k < s: the odd input rows get no gradient
+    (2, 257, 16, ((16, 1, 2), (24, 3, 2))),
+    # the student's widths
+    (3, 397, 128, ((256, 1, 1), (256, 3, 2), (512, 1, 1), (512, 2, 2))),
+]
+
+
+def _k6_inputs(case, dtype, dev, seed):
+    b, t, c0, spec = case
+    g = torch.Generator().manual_seed(seed)
+    a0 = (torch.randn(b, t, c0, generator=g) * 0.5).to(dev, dtype)
+    ws, c = [], c0
+    for (d, k, _s) in spec:
+        ws.append((torch.randn(k, c, d, generator=g) / (k * c) ** 0.5).to(dev, dtype))
+        c = d
+    cot = torch.randn(b, cf.out_len(t, spec), spec[-1][0], generator=g).to(dev, dtype)
+    return a0, ws, cot, spec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", K6_CASES, ids=["tails", "k_lt_s", "student"])
+def test_conv_stack_backward_matches_plain(dev, case, dtype):
+    a0, ws, cot, spec = _k6_inputs(case, dtype, dev, seed=case[1])
+    _build.reset_launches()
+    da0, dws = cf.conv_stack_bwd_cuda(a0, ws, cot, spec)
+    assert _build.LAUNCHES == {cf.KERNEL_BWD: 4 * len(spec) + 1}
+    want_da0, want_dws = cf.conv_stack_bwd_plain(a0, ws, cot, spec)
+    for got, want in [(da0, want_da0)] + list(zip(dws, want_dws)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+        assert rel < K6_LIMIT[dtype], rel
+    if spec[1] == (24, 3, 2):  # k < s: rows 1, 3, 5, ... of a0 feed no output
+        assert (da0[:, 1::2] == 0).all()
+
+
+def test_conv_stack_backward_is_deterministic(dev):
+    """No atomics: the dW chunks are summed in a fixed order, and every
+    element of da is written by one thread. Two runs are bit-identical."""
+    a0, ws, cot, spec = _k6_inputs(K6_CASES[2], torch.bfloat16, dev, seed=0)
+    runs = [cf.conv_stack_bwd_cuda(a0, ws, cot, spec) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_conv_stack_switch_launches_k6_on_the_card(dev, monkeypatch):
+    """Under FITHUBERT_CONV_BWD=pallas the autograd backward of conv_stack
+    goes through K6 (and K1 for its up pass's forward is not relaunched)."""
+    a0, ws, cot, spec = _k6_inputs(K6_CASES[0], torch.bfloat16, dev, seed=1)
+    x = a0.clone().requires_grad_()
+    monkeypatch.setenv("FITHUBERT_CONV_BWD", "pallas")
+    out = cf.conv_stack(x, ws, spec)
+    _build.reset_launches()
+    out.backward(cot)
+    assert _build.LAUNCHES == {cf.KERNEL_BWD: 4 * len(spec) + 1}
+    torch.testing.assert_close(x.grad.float(), cf.conv_stack_bwd_plain(a0, ws, cot, spec)[0],
+                               rtol=0.0, atol=1e-2 * x.grad.float().abs().max().item())

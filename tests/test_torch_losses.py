@@ -2,8 +2,9 @@
 package's compute_losses on the same student and teacher tensors: the
 release config's k = N-1 permutation path, the general random gather, the
 pred_layer_id path, rec MSE and L1, the cosine-sim and cnn terms, the
-common-length crop, masked reduction, and a row fabricated as all padding.
-Values, logs and the gradient into the student's projections."""
+common-length crop, masked reduction, a row fabricated as all padding, and
+the attention-transfer terms on the last layer's taps. Values, logs and the
+gradients into the student's projections and taps."""
 
 import jax
 import jax.numpy as jnp
@@ -140,7 +141,101 @@ def test_permutation_path_logs_follow_the_slots():
     assert [b[f"rand_l{i}"] for i in range(3)] == [a["rand_l2"], a["rand_l0"], a["rand_l1"]]
 
 
-def test_tap_losses_are_not_ported():
-    data = _data(seed=1)
-    with pytest.raises(NotImplementedError):
-        _port(data, dict(attn_loss_weight=1.0), None, {})
+TAP_CASES = {
+    "attn_mse": dict(rec_loss_weight=0.0, sim_loss_weight=0.0, attn_loss_weight=1.0,
+                     attn_loss_type="mse"),
+    "attn_kldiv": dict(rec_loss_weight=0.0, sim_loss_weight=0.0, attn_loss_weight=1.0,
+                       attn_loss_type="kldiv"),
+    "v_rel": dict(rec_loss_weight=0.0, sim_loss_weight=0.0, v_rel_loss_weight=1.0),
+    "release_with_taps": dict(rec_loss_type="mse", sim_loss_weight=0.0, distil_random_layer=3,
+                              random_layer_weight=0.1, attn_loss_weight=0.5,
+                              attn_loss_type="kldiv", v_rel_loss_weight=0.25),
+}
+Z_HEADS, T_S = 2, 10  # heads; student frames (the teacher's T = 21 is cropped to it)
+
+
+def _tap_data(seed):
+    """Free student logits and value relations, the teacher's taps, and key
+    masks: the teacher's at its frame rate (lengths 21, 15, 0: the last row
+    fabricated), the student's at about half of it (10, 8, 0)."""
+    data = _data(seed)
+    rng = np.random.default_rng(seed + 100)
+    z, t_t = 3 * Z_HEADS, 21
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    s_keys = np.repeat(np.arange(T_S)[None, :] >= np.array([10, 8, 0])[:, None], Z_HEADS, 0)
+    t_keys = np.repeat(data["pm"], Z_HEADS, 0)
+    t_logits = np.where(t_keys[:, None, :], -np.inf, f(z, t_t, t_t)).astype(np.float32)
+    data.update(s_logits=f(z, T_S, T_S), s_vrel=f(z, T_S, T_S), t_logits=t_logits,
+                t_vrel=f(z, t_t, t_t), s_keys=s_keys)
+    return data
+
+
+def _jax_taps(data, loss_kw):
+    from fithubert_tpu.ops.attention import AttentionTaps as JTaps
+
+    lc, sc = JLossConfig(**loss_kw), JStudentConfig(encoder_layers=L, layerwise_proj=True)
+    hiddens = [jnp.asarray(h) for h in data["hiddens"]]
+    t_taps = JTaps(jnp.asarray(data["t_logits"]), jnp.asarray(data["t_vrel"]))
+    teacher = JTeacherOutput(x=hiddens[-1], layer_results=[(h, t_taps, None) for h in hiddens],
+                             features=jnp.asarray(data["t_feat"]),
+                             padding_mask=jnp.asarray(data["pm"]))
+
+    def total(proj, logits, vrel):
+        # padded keys at -inf, as the attention's taps branch gives them
+        s_taps = JTaps(jnp.where(jnp.asarray(data["s_keys"])[:, None, :], -jnp.inf, logits),
+                       vrel)
+        student = JStudentOutput(x=proj[:, -1], padding_mask=None,
+                                 features=jnp.asarray(data["s_feat"]),
+                                 layer_results=[(None, s_taps, None)], tr_layer_results=[],
+                                 projections=proj)
+        out = j_compute_losses(lc, sc, student, teacher, rand_layers=jnp.asarray([2, 0, 1]))
+        return out.total, out
+
+    (_, out), grads = jax.value_and_grad(total, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(data[k]) for k in ("proj", "s_logits", "s_vrel")))
+    return {k: float(v) for k, v in out.logs.items()}, [np.asarray(g) for g in grads]
+
+
+def _port_taps(data, loss_kw):
+    from fithubert_tpu_torch.ops.attention import AttentionTaps
+
+    lc, sc = LossConfig(**loss_kw), StudentConfig(encoder_layers=L, layerwise_proj=True)
+    hiddens = [torch.from_numpy(h) for h in data["hiddens"]]
+    t_taps = AttentionTaps(torch.from_numpy(data["t_logits"]), torch.from_numpy(data["t_vrel"]))
+    teacher = TeacherOutput(x=hiddens[-1], layer_results=[(h, t_taps, None) for h in hiddens],
+                            features=torch.from_numpy(data["t_feat"]),
+                            padding_mask=torch.from_numpy(data["pm"]))
+    proj, logits, vrel = (torch.from_numpy(data[k]).requires_grad_()
+                          for k in ("proj", "s_logits", "s_vrel"))
+    s_taps = AttentionTaps(
+        logits.masked_fill(torch.from_numpy(data["s_keys"])[:, None, :], float("-inf")), vrel)
+    student = StudentOutput(x=proj[:, -1], padding_mask=None,
+                            features=torch.from_numpy(data["s_feat"]),
+                            layer_results=[(None, s_taps, None)], tr_layer_results=[],
+                            projections=proj)
+    out = compute_losses(lc, sc, student, teacher, torch.tensor([2, 0, 1]))
+    out.total.backward()
+    return ({k: float(v.detach()) for k, v in out.logs.items()},
+            [np.zeros(t.shape, np.float32) if t.grad is None else t.grad.numpy()
+             for t in (proj, logits, vrel)])
+
+
+@pytest.mark.parametrize("case", list(TAP_CASES))
+def test_tap_losses_match_jax(case):
+    """The attention-logit (mse, kldiv) and value-relation losses on the
+    last layer's taps, student T = 10 against teacher T = 21 (cropped to the
+    leading 10 x 10 block), padded keys at -inf and a fabricated row: logs
+    and gradients into the student's logits, value relations and heads. The
+    fabricated row's -inf logits give NaN terms, which both sides scrub, and
+    its gradients are finite (zero)."""
+    data = _tap_data(seed=len(case))
+    want_logs, want_grads = _jax_taps(data, TAP_CASES[case])
+    got_logs, got_grads = _port_taps(data, TAP_CASES[case])
+    assert set(got_logs) == set(want_logs)
+    for k in want_logs:
+        np.testing.assert_allclose(got_logs[k], want_logs[k], err_msg=k, **TOL)
+    for name, got, want in zip(("proj", "logits", "v_rel"), got_grads, want_grads):
+        assert np.isfinite(got).all(), name
+        np.testing.assert_allclose(got, want, err_msg=name, **TOL)
+    fake = slice(2 * Z_HEADS, 3 * Z_HEADS)
+    assert (got_grads[1][fake] == 0).all() and (got_grads[2][fake] == 0).all()

@@ -73,7 +73,7 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
 def test_kernel_modules_import_and_build_raises_without_nvcc(monkeypatch, tmp_path):
     import importlib
 
-    for name in ("_build", "conv_frontend", "flash_attention"):
+    for name in ("_build", "conv_frontend", "dropout", "flash_attention", "philox"):
         importlib.import_module(f"fithubert_tpu_torch.ops.kernels.{name}")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

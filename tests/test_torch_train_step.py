@@ -5,7 +5,11 @@ microbatches folded into one batch (fused accumulation), a ragged row and
 a row fabricated as all padding. Three steps compare loss, grad_norm, lr,
 the per-layer logs and every parameter after each step; the eval step's
 v_loss is compared after them. With dropout on, the port's loss is finite
-and the same seed replays the same step."""
+and the same seed replays the same step. The attention-transfer losses
+(taps of the last layer, microbatches looped) are compared the same way
+over two steps, and the conv-stack backward kernel's switch
+(``FITHUBERT_CONV_BWD=pallas``, K6's plain version on the CPU) is held to
+the default backward."""
 
 import dataclasses
 
@@ -31,6 +35,7 @@ from fithubert_tpu_torch.export.jax_params import (
 )
 from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
+from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
 from fithubert_tpu_torch.train.step import Distiller
 
 torch.set_num_threads(2)
@@ -48,6 +53,8 @@ TEACHER = dict(conv_feature_layers=T_SPEC, encoder_layers=3, encoder_embed_dim=4
                conv_pos_groups=4)
 LOSS = dict(rec_loss_type="mse", sim_loss_weight=0.0, distil_random_layer=2,
             random_layer_weight=0.1)
+# the tap losses at the values of tests/test_losses.py:171-172
+TAPS = dict(LOSS, attn_loss_weight=1.0, attn_loss_type="kldiv", v_rel_loss_weight=1.0)
 OPT = dict(lr=5e-3, warmup_proportion=0.2, betas=(0.9, 0.98), eps=1e-6, weight_decay=0.01)
 TRAIN = dict(batch_size=2, accumulate_grad_batches=2, fuse_grad_accum=True)
 N_TRAIN_STEPS = 10  # warmup 2 steps: lr 0, 2.5e-3, 5e-3
@@ -61,16 +68,16 @@ LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
 PARAM_TOL = dict(rtol=1e-4, atol=5e-5)
 
 
-def _configs(student_kw=NO_DROPOUT):
+def _configs(student_kw=NO_DROPOUT, loss=LOSS):
     jcfg = JExperimentConfig(
         teacher=JTeacherConfig(encoder_layers=3, encoder_embed_dim=48,
                                encoder_ffn_embed_dim=64, encoder_attention_heads=4),
-        train=JTrainConfig(**TRAIN), loss=JLossConfig(**LOSS),
+        train=JTrainConfig(**TRAIN), loss=JLossConfig(**loss),
         distiller=JStudentConfig(**STUDENT, **NO_DROPOUT), optimizer=JOptimizerConfig(**OPT))
     tcfg = tc.ExperimentConfig(
         teacher=tc.TeacherConfig(encoder_layers=3, encoder_embed_dim=48,
                                  encoder_ffn_embed_dim=64, encoder_attention_heads=4),
-        train=tc.TrainConfig(**TRAIN), loss=tc.LossConfig(**LOSS),
+        train=tc.TrainConfig(**TRAIN), loss=tc.LossConfig(**loss),
         distiller=tc.StudentConfig(**STUDENT, **student_kw), optimizer=tc.OptimizerConfig(**OPT))
     return jcfg, tcfg
 
@@ -89,10 +96,10 @@ def _batches(n, seed=0, fake_row=True):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The JAX Distiller's initial weights and three steps' logs and params."""
-    jcfg, _ = _configs()
+def _jax_steps(loss, n_steps):
+    """The JAX Distiller's initial weights and n steps' logs and params, and
+    the distiller and state after them."""
+    jcfg, _ = _configs(loss=loss)
     geom = JGeometry(**TEACHER, use_pallas_attention=False)
     d = JDistiller(jcfg, mesh=make_mesh(1), num_training_steps=N_TRAIN_STEPS,
                    teacher_geometry=geom)
@@ -104,19 +111,28 @@ def jax_run():
     step = d.make_train_step()
     rand = jnp.asarray(RAND, jnp.int32)
     logs, params = [], []
-    for batch in _batches(3):
+    for batch in _batches(n_steps):
         state, lg = step(state, tp, jax.tree_util.tree_map(jnp.asarray, batch), rand,
                          jax.random.PRNGKey(2))
         logs.append({k: float(v) for k, v in lg.items()})
         params.append(jax.tree_util.tree_map(np.asarray, state.params))
+    return init, logs, params, d, state, tp
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX Distiller's initial weights, three steps' logs and params,
+    and the eval step's v_loss after them."""
+    init, logs, params, d, state, tp = _jax_steps(LOSS, 3)
+    rand = jnp.asarray(RAND, jnp.int32)
     ev = _batches(1, seed=7)[0]
     ev = {k: jnp.asarray(v[0]) for k, v in ev.items()}
     v_loss = float(d.make_eval_step()(state, tp, ev, rand)["v_loss"])
     return init, logs, params, v_loss
 
 
-def _port_distiller(init, student_kw=NO_DROPOUT, seed=0):
-    _, tcfg = _configs(student_kw)
+def _port_distiller(init, student_kw=NO_DROPOUT, seed=0, loss=LOSS):
+    _, tcfg = _configs(student_kw, loss)
     tcfg = dataclasses.replace(tcfg, train=dataclasses.replace(tcfg.train, seed=seed))
     geom = TeacherGeometry(**TEACHER)
     t_sd = jax_teacher_params_to_state_dict(init[0], geom)
@@ -125,10 +141,8 @@ def _port_distiller(init, student_kw=NO_DROPOUT, seed=0):
                      teacher_geometry=geom)
 
 
-def test_three_steps_match_the_jax_distiller(jax_run):
-    init, want_logs, want_params, want_v_loss = jax_run
-    d = _port_distiller(init)
-    for i, batch in enumerate(_batches(3)):
+def _match_steps(d, want_logs, want_params):
+    for i, batch in enumerate(_batches(len(want_logs))):
         got = d.train_step(batch, RAND)
         assert set(got) == set(want_logs[i]), i
         for k, w in want_logs[i].items():
@@ -139,6 +153,12 @@ def test_three_steps_match_the_jax_distiller(jax_run):
         for k in want_sd:
             np.testing.assert_allclose(got_sd[k].numpy(), want_sd[k].numpy(),
                                        err_msg=f"step {i} {k}", **PARAM_TOL)
+
+
+def test_three_steps_match_the_jax_distiller(jax_run):
+    init, want_logs, want_params, want_v_loss = jax_run
+    d = _port_distiller(init)
+    _match_steps(d, want_logs, want_params)
     assert [lg["lr"] for lg in want_logs] == pytest.approx([0.0, 2.5e-3, 5e-3])
     ev = _batches(1, seed=7)[0]
     got = d.eval_step({k: v[0] for k, v in ev.items()}, RAND)
@@ -172,6 +192,54 @@ def test_dropout_step_is_finite_and_replays_from_its_seed(jax_run):
     assert np.isfinite(runs[0]).all()
     assert runs[0] == runs[1]
     assert runs[0] != runs[2]
+
+
+def test_tap_losses_two_looped_steps_match_the_jax_distiller():
+    """attn kldiv + v_rel on the last layer's taps: both Distillers loop over
+    the A = 2 microbatches (the attention loss rules out the fold), every
+    dropout at 0; loss, attn_loss, v_rel_loss, grad_norm and every
+    parameter after each step."""
+    init, want_logs, want_params, *_ = _jax_steps(TAPS, 2)
+    d = _port_distiller(init, loss=TAPS)
+    assert d.need_taps
+    assert {"attn_loss", "v_rel_loss"} <= set(want_logs[0])
+    _match_steps(d, want_logs, want_params)
+
+
+def test_tap_loss_step_with_dropout_is_finite_and_replays(jax_run):
+    """With dropout 0.1 the last layer's probabilities go through K5's plain
+    version; the loss is finite and the same seed replays it."""
+    init = jax_run[0]
+    kw = dict(dropout=0.1, attention_dropout=0.1, activation_dropout=0.1, dropout_input=0.05)
+    runs = []
+    for seed in (3, 3, 4):
+        d = _port_distiller(init, kw, seed=seed, loss=TAPS)
+        runs.append([d.train_step(batch, RAND)["loss"] for batch in _batches(2)])
+    assert np.isfinite(runs[0]).all()
+    assert runs[0] == runs[1]
+    assert runs[0] != runs[2]
+
+
+def test_conv_backward_switch_matches_the_default_over_two_steps(jax_run, monkeypatch):
+    """FITHUBERT_CONV_BWD=pallas runs the conv stack's backward through
+    K6's plain version; the fp32 parameters after two steps agree with the
+    default library recompute to PARAM_TOL (the same gradient summed in
+    another order, through AdamW)."""
+    init = jax_run[0]
+    monkeypatch.setenv("FITHUBERT_CONV_BWD", "xla")
+    a = _port_distiller(init)
+    la = [a.train_step(batch, RAND) for batch in _batches(2)]
+    calls = []
+    plain = cf.conv_stack_bwd_plain
+    monkeypatch.setattr(cf, "conv_stack_bwd_plain", lambda *args: calls.append(1) or plain(*args))
+    monkeypatch.setenv("FITHUBERT_CONV_BWD", "pallas")
+    b = _port_distiller(init)
+    lb = [b.train_step(batch, RAND) for batch in _batches(2)]
+    assert len(calls) == 2  # one fused microbatch per step
+    for x, y in zip(la, lb):
+        np.testing.assert_allclose(y["grad_norm"], x["grad_norm"], rtol=1e-5)
+    for (k, pa), pb in zip(a.student.state_dict().items(), b.student.state_dict().values()):
+        np.testing.assert_allclose(pb.numpy(), pa.numpy(), err_msg=k, **PARAM_TOL)
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch):
