@@ -5,44 +5,79 @@
 //   kernels _make_bwd_dq_kernel (:127, run at :304) and _make_bwd_dkv_kernel
 //   (:173, run at :323).
 //
-// Bound on the H100: memory, like the forward. At the student's training
-//   shape (B=12, T=299, H=12, D=40, bf16) the two kernels read q, k, v, dO,
-//   lse and delta and write dQ, dK, dV (~10 MB) against ~1.2 GFLOP of
-//   recomputed logits and products, so the T x T matrices P and dS must stay
-//   on chip; they are recomputed from lse instead of being stored.
+// Bound on the H100: memory. At the student's training shape (B=12, T=299,
+//   H=12, D=40, bf16, p = 0.1) dK/dV reads q, k, v, dO, lse and delta and
+//   writes dK and dV (~21 MB with the mask: 0.0063 ms at 3.35 TB/s) against
+//   ~4.1 GFLOP of recomputed logits and products (0.0042 ms at the bf16
+//   tensor-core peak). The T x T matrices P and dS never reach device
+//   memory: they are recomputed from lse.
 //
-// Design: FlashAttention-2's split, without atomics. dQ: one 64-thread
-//   block per (b, h, 64-row query tile), one thread per query row i holding
-//   q_i, dO_i and the dQ accumulator in fp32 registers; the block walks the
-//   key axis in 64-key tiles of K and V staged in shared memory as fp32
-//   (broadcast reads). dK/dV: one 64-thread block per (b, h, 64-key tile),
-//   one thread per key column j holding k_j, v_j and the dK, dV
-//   accumulators; the block walks every query tile, staging Q, dO, lse and
-//   delta. Each output element is summed by one thread in a fixed order, so
-//   the gradients are deterministic run to run. Per element:
+// Design: the split is FlashAttention-2's, without atomics: dQ and dK/dV
+//   are two kernels, each output element summed by one thread (dQ) or one
+//   warp (dK, dV) in a fixed order, so the gradients are deterministic run
+//   to run. Per element:
 //     P  = exp(s - lse), zeroed explicitly at masked keys (:148-150), so a
 //          fully padded row (lse = -1e30) gives exactly zero gradients;
 //     dP = dO . v_j, dropped and scaled like P in the forward;
 //     dS = P * (dP - delta),  delta = rowsum(dO * O) (computed by the
 //          caller, as XLA does at :302);
 //     dV += P_dropped dO,  dK += dS q_i,  dQ += dS k_j.
-//   The keep mask is philox.cuh's pure function of (seed, b*H+h, i, j), so
-//   it equals the forward's whatever the tiling. fp32 accumulation, written
-//   in q's dtype (:351-353). D in {40, 64}, any T (ragged tails masked
-//   here), q, k, v read through their (B, T, H, D) strides; dO, lse, delta
-//   and the outputs are contiguous.
+//   The keep mask is philox.cuh's pure function of (seed, z = b * H + h, i,
+//   j): counter (j >> 2, i, z, 0), word j & 3, so it equals the forward's
+//   whatever the tiling. fp32 accumulation, written in q's dtype
+//   (:351-353). D in {40, 64}, any T (ragged tails masked here), q, k, v
+//   read through their (B, T, H, D) strides; dO, lse, delta and the outputs
+//   are contiguous.
+//
+// dK/dV (K4), bf16: mma.sync m16n8k16 bf16 -> fp32, the TPU kernel's own
+//   arithmetic (bf16 operands, fp32 sums, P_dropped and dS rounded to bf16
+//   before their products, :212-220).
+//   - Block and loop: 4 warps (128 threads) per (b, h, 64-key tile), 16
+//     keys per warp. K and V are copied once (cp.async, through the ring's
+//     second stage) and held as A fragments (ldmatrix). The block walks
+//     every 64-row query tile with Q and dO in a two-stage cp.async ring,
+//     lse (times log2 e) and delta staged beside them in shared memory.
+//     Rows are padded by 16 bytes; D = 40 pads the k extent of S^T and
+//     dP^T to 48 with columns zeroed in shared memory once.
+//   - The four products, keys as rows (m) throughout:
+//       S^T  = K Q^T   (B = Q, ldmatrix), P^T = exp2(S^T log2 e - lse_i log2 e);
+//       dP^T = V dO^T  (B = dO, ldmatrix);
+//       dV  += P_dropped^T dO   (A = P^T from registers, B = dO, ldmatrix.trans);
+//       dK  += dS^T Q           (A = dS^T from registers, B = Q, ldmatrix.trans).
+//     Computing S^T and dP^T key-major, rather than FA2's query-major S,
+//     puts P^T and dS^T in C fragments whose layout is already the A
+//     fragment of the dV and dK products (two n8 tiles = one k16 step), so
+//     nothing is staged back through shared memory.
+//   - Dropout: in a C tile lanes 16a + 4u + t4 (u = 0..3) hold keys
+//     4a + u and 4a + u + 8, two j >> 2 groups, at queries 8n + 2t4, +1.
+//     Lane u draws the call (group + 2 (u >> 1), query + (u & 1)); the four
+//     lanes trade words with three __shfl_xor_sync (masks 4, 8, 12), each
+//     sender choosing the word its partner needs: one Philox call per four
+//     (i, j), as in the forward.
+//   The tile steps (row copies, the two kinds of product) are
+//   flash_tile.cuh's, shared with K2.
+// dQ (K3), and dK/dV in fp32: FMA bodies. dQ: one 64-thread block per
+//   (b, h, 64-row query tile), one thread per query row i holding q_i, dO_i
+//   and the dQ accumulator in fp32 registers; the block walks the key axis
+//   in 64-key tiles of K and V staged in shared memory as fp32 (broadcast
+//   reads). fp32 dK/dV: one 64-thread block per (b, h, 64-key tile), one
+//   thread per key column j, the block walking every query tile. fp32
+//   inputs only serve the card-vs-CPU checks (2e-3 end to end); the tensor
+//   cores would take them only as TF32, whose 10-bit mantissa breaks that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tile.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
-
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int BQ = 64, BKV = 64;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -145,7 +180,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-// ------------------------------------------------------------ dK, dV (K4)
+// ------------------------------------------------------ dK, dV (K4), fp32
 template <typename T, int D, bool DROPOUT>
 __global__ void __launch_bounds__(BKV)
 flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -248,6 +283,131 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
+// ----------------------------------------------------- dK, dV (K4), bf16
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                  const bf16* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int T_len, int H, Strides st, Dropout dr) {
+  constexpr int LD = Rows<D>::LD, KS = Rows<D>::KS, N8 = Rows<D>::N8;
+  __shared__ __align__(16) bf16 Qs[2][TILE][LD];
+  __shared__ __align__(16) bf16 dOs[2][TILE][LD];
+  __shared__ float lse_s[2][TILE], delta_s[2][TILE];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int key0 = blockIdx.x * TILE;
+
+  zero_pad<D>(Qs[0], 2 * TILE);
+  zero_pad<D>(dOs[0], 2 * TILE);
+  // K and V pass through stage 1 on their way into registers
+  load_rows<D>(Qs[1], k + b * st.kb + h * st.kh, st.kt, key0, T_len);
+  load_rows<D>(dOs[1], v + b * st.vb + h * st.vh, st.vt, key0, T_len);
+  const bf16* qb = q + b * st.qb + h * st.qh;
+  const bf16* ob = dout + static_cast<long long>(b) * T_len * H * D + static_cast<long long>(h) * D;
+  auto load_q = [&](int s, int q0) {
+    load_rows<D>(Qs[s], qb, st.qt, q0, T_len);
+    load_rows<D>(dOs[s], ob, static_cast<long long>(H) * D, q0, T_len);
+    if (threadIdx.x < TILE) {
+      const int t = q0 + threadIdx.x;
+      const long long lrow = static_cast<long long>(bh) * T_len + t;
+      // rows past T: exp2(s - 1e30) = 0, so they add nothing
+      lse_s[s][threadIdx.x] = t < T_len ? lse[lrow] * LOG2E : 1e30f;
+      delta_s[s][threadIdx.x] = t < T_len ? delta[lrow] : 0.f;
+    }
+  };
+  load_q(0, 0);
+  cp_async_commit();
+  cp_async_wait0();
+  __syncthreads();
+  uint32_t kf[KS][4], vf[KS][4];
+  load_a<D>(kf, Qs[1], warp * 16, lane);
+  load_a<D>(vf, dOs[1], warp * 16, lane);
+  __syncthreads();  // stage 1 is free for the ring
+
+  // this lane's keys: rows g and g + 8 of the warp's 16
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key0 + warp * 16 + g + 8 * r;
+    key_ok[r] = j < T_len && !(mask != nullptr && mask[static_cast<long long>(b) * T_len + j]);
+  }
+  const int u = g & 3;  // this lane's place among the 4 lanes of one key group
+  const uint32_t jg = static_cast<uint32_t>((key0 + warp * 16 + (g & ~3)) / 4 + 2 * (u >> 1));
+
+  float dka[N8][4], dva[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  const int n_qt = (T_len + TILE - 1) / TILE;
+#pragma unroll 1
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int s = qt & 1, q0 = qt * TILE;
+    if (qt + 1 < n_qt) load_q(s ^ 1, q0 + TILE);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+
+    // element e of tile n: key row g + 8 (e >> 1), query 8n + 2t4 + (e & 1)
+    float p[8][4], ds[8][4];
+    mma_a_bt<D>(p, kf, Qs[s], lane);  // S^T = K Q^T, then P^T in place
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = key_ok[e >> 1]
+                      ? exp2f(fmaf(p[n][e], LOG2E, -lse_s[s][n * 8 + 2 * t4 + (e & 1)]))
+                      : 0.f;
+    mma_a_bt<D>(ds, vf, dOs[s], lane);  // dP^T = V dO^T, then dS^T in place
+
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t keep = 0xfu;
+      if (DROPOUT) {
+        const uint32_t i = static_cast<uint32_t>(q0 + n * 8 + 2 * t4 + (u & 1));
+        const uint4 w = philox4x32(make_uint4(jg, i, static_cast<uint32_t>(bh), 0u),
+                                   dr.seed0, dr.seed1);
+        // element e of this lane is word u of lane e's call (e = u ^ r)
+        keep = ((philox_word(w, u) >> 8) >= dr.thr ? 1u : 0u) << u;
+#pragma unroll
+        for (int r = 1; r < 4; ++r) {
+          const uint32_t got = __shfl_xor_sync(FULL, philox_word(w, u ^ r), 4 * r);
+          keep |= ((got >> 8) >= dr.thr ? 1u : 0u) << (u ^ r);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float scale = DROPOUT ? ((keep >> e) & 1u ? dr.inv_keep : 0.f) : 1.f;
+        ds[n][e] = p[n][e] * (ds[n][e] * scale - delta_s[s][n * 8 + 2 * t4 + (e & 1)]);
+        p[n][e] *= scale;  // P_dropped, the operand of dV
+      }
+    }
+
+    mma_c_b<D>(dva, p, dOs[s], lane);  // dV += P_dropped^T dO
+    mma_c_b<D>(dka, ds, Qs[s], lane);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with stage s before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key0 + warp * 16 + g + 8 * r;
+    if (j >= T_len) continue;
+    const long long o = ((static_cast<long long>(b) * T_len + j) * H + h) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * n) =
+          __floats2bfloat162_rn(dka[n][2 * r], dka[n][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * n) =
+          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
 template <typename T, int D>
 void launch_dq(const void* q, const void* k, const void* v, const uint8_t* mask,
                const void* dout, const float* lse, const float* delta, void* dq, int B,
@@ -264,11 +424,19 @@ void launch_dkv(const void* q, const void* k, const void* v, const uint8_t* mask
                 const void* dout, const float* lse, const float* delta, void* dk, void* dv,
                 int B, int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
   dim3 grid((T_len + BKV - 1) / BKV, B * H);
-  auto kernel = dr.thr > 0 ? &flash_bwd_dkv<T, D, true> : &flash_bwd_dkv<T, D, false>;
-  kernel<<<grid, BKV, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      T_len, H, st, dr);
+  if constexpr (sizeof(T) == 2) {
+    auto kernel = dr.thr > 0 ? &flash_bwd_dkv_mma<D, true> : &flash_bwd_dkv_mma<D, false>;
+    kernel<<<grid, 128, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), T_len, H, st, dr);
+  } else {
+    auto kernel = dr.thr > 0 ? &flash_bwd_dkv<T, D, true> : &flash_bwd_dkv<T, D, false>;
+    kernel<<<grid, BKV, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        T_len, H, st, dr);
+  }
 }
 
 }  // namespace

@@ -12,9 +12,12 @@ custom VJP (``:271-357``). q is pre-scaled by the caller;
 On a CUDA tensor the forward launches ``csrc/flash_attention.cu`` (an fp32
 online softmax that also returns the per-row logsumexp (B, H, T)) and the
 backward launches ``csrc/flash_attention_bwd.cu``: one kernel for dQ and one
-for dK and dV. On a CPU tensor both run their plain versions, which mirror
-``_attention_reference`` (``:35-46``) with an fp32 softmax and the backward
-formulas of ``:295-357``.
+for dK and dV. In bf16 the forward and the dK/dV kernel multiply on the
+tensor cores as the TPU kernels do (bf16 operands, fp32 sums, P and dS
+rounded to bf16 before their second product) and need every (b, t, h) row
+of q, k and v on a 16-byte boundary (``rows_aligned``). On a CPU tensor
+both run their plain versions, which mirror ``_attention_reference``
+(``:35-46``) with an fp32 softmax and the backward formulas of ``:295-357``.
 
 Dropout acts on the unnormalised probabilities while the normaliser keeps
 the undropped sum (``:100-106``). The keep mask is a pure function of
@@ -161,12 +164,26 @@ def _bwd_fns():
     return fns
 
 
+def rows_aligned(shape, strides, storage_offset: int, itemsize: int, align: int = 16) -> bool:
+    """Whether every (b, t, h) row of a (B, T, H, D) view with unit stride
+    along D starts on an ``align``-byte boundary, given that its storage
+    does: the storage offset and every stride along a dimension longer than
+    1 must be whole multiples of ``align`` bytes."""
+    return (storage_offset * itemsize) % align == 0 and all(
+        (s * itemsize) % align == 0 for n, s in zip(shape[:3], strides[:3]) if n > 1)
+
+
 def _cuda_args(q, k, v, key_padding_mask):
     b, t, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"the attention kernels are built for head sizes {HEAD_DIMS}, not {d}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("q, k and v need unit stride along D")
+    if q.dtype == torch.bfloat16 and not all(
+            rows_aligned(x.shape, x.stride(), x.storage_offset(), x.element_size())
+            and x.untyped_storage().data_ptr() % 16 == 0 for x in (q, k, v)):
+        # the bf16 kernels copy rows of q, k and v in 16-byte chunks (cp.async)
+        raise ValueError("bf16 q, k and v need every (b, t, h) row on a 16-byte boundary")
     if b * h > 65535:
         raise ValueError("B * H must be at most 65535 (one grid row per (b, h))")
     mask = None if key_padding_mask is None else key_padding_mask.contiguous()
@@ -208,6 +225,8 @@ def _check_bwd(q, dout, lse, delta) -> None:
     b, t, h, _d = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype or not dout.is_contiguous():
         raise ValueError("dout must be a contiguous (B, T, H, D) tensor in q's dtype")
+    if dout.dtype == torch.bfloat16 and dout.data_ptr() % 16 != 0:
+        raise ValueError("bf16 dout must start on a 16-byte boundary")
     for name, x in (("lse", lse), ("delta", delta)):
         if tuple(x.shape) != (b, h, t) or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous (B, H, T) float32 tensor")

@@ -144,6 +144,41 @@ def test_rejects_what_the_kernel_does_not_take():
         fa.flash_attention(q, k, v, mask.int())
 
 
+def _fused_qkv(dtype):
+    return torch.zeros(2, 16, 3, 2, 40, dtype=dtype)[:, :, 1]  # k of a fused projection
+
+
+@pytest.mark.parametrize("view, aligned", [
+    (lambda: torch.zeros(2, 16, 3, 40, dtype=torch.bfloat16), True),
+    (lambda: _fused_qkv(torch.bfloat16), True),
+    (lambda: _fused_qkv(torch.float32), True),
+    # rows 41 elements apart, starting one element in
+    (lambda: torch.zeros(2, 16, 3, 41, dtype=torch.bfloat16)[..., 1:], False),
+    # a storage offset of 8 bf16 (16 bytes), then of 4 (8 bytes)
+    (lambda: torch.zeros(17 * 3 * 40 + 8, dtype=torch.bfloat16)[8:8 + 16 * 3 * 40]
+     .view(1, 16, 3, 40), True),
+    (lambda: torch.zeros(17 * 3 * 40 + 8, dtype=torch.bfloat16)[4:4 + 16 * 3 * 40]
+     .view(1, 16, 3, 40), False),
+    # B = 1: the batch stride of an odd-width parent never moves a row
+    (lambda: torch.zeros(1, 16, 3, 41, dtype=torch.bfloat16).as_strided(
+        (1, 16, 3, 40), (1, 120, 40, 1)), True),
+], ids=["contiguous", "fused_qkv_bf16", "fused_qkv_fp32", "odd_row_pitch",
+        "offset_16_bytes", "offset_8_bytes", "single_batch_odd_stride"])
+def test_rows_aligned_rule(view, aligned):
+    """The bf16 kernels copy q/k/v rows in 16-byte chunks: a view passes
+    when its storage offset and every stride of a dimension longer than 1
+    are whole 16-byte steps. The wrapper raises on the others (checked here
+    without a launch), and fp32 views are not held to it."""
+    x = view()
+    assert fa.rows_aligned(x.shape, x.stride(), x.storage_offset(), x.element_size()) \
+        is aligned
+    if aligned or x.dtype != torch.bfloat16:
+        fa._cuda_args(x, x, x, None)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._cuda_args(x, x, x, None)
+
+
 def test_cpu_path_launches_no_kernel():
     q, k, v, mask = (torch.from_numpy(a) for a in _inputs(2, 16, 2, 40, seed=2))
     _build.reset_launches()

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the main paths do not reach: tails in every tiled dimension of the
-conv GEMM, the teacher's widths, short and odd T, strided q/k/v views, fully
-padded rows, the attention backward (K3, K4) with and without dropout, and
-its determinism; the seeded dropout (K5) bit for bit, forward and backward;
+conv GEMM, the teacher's widths, short and odd T at the attention tiles'
+edges, strided q/k/v views, misaligned views (rejected), fully padded
+rows, the attention backward (K3, K4) with and without dropout, and its
+determinism; the seeded dropout (K5) bit for bit, forward and backward;
 the conv-stack backward (K6) on ragged T with k < s, k = s and k > s layers,
 and its determinism. Skipped where there is no CUDA card. On a machine
 with one (and without JAX, which the suite's conftest imports):
@@ -21,8 +22,9 @@ from fithubert_tpu_torch.ops.kernels import flash_attention as fa
 pytestmark = pytest.mark.gpu
 
 # |kernel - plain| <= atol + rtol * |plain|. fp32: summation order only.
-# bf16: both sides compute in fp32 from the same bf16 operands and round
-# once, so they differ by at most one bf16 step (2^-8 relative).
+# bf16: both sides sum in fp32 from the same bf16 operands; the attention
+# kernels also round P (and K4 dS) to bf16 before the second product, as the
+# TPU kernels do, which averages out to about one bf16 step (2^-8 relative).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 
 
@@ -87,7 +89,10 @@ def test_conv_stack_rejects_widths_the_kernel_does_not_take(dev):
         cf.conv_stack(x, [w], ((16, 1, 1),))
 
 
-ATTN_CASES = [(2, 1, 1, 40), (3, 65, 2, 40), (2, 200, 3, 64), (1, 130, 12, 40)]
+ATTN_CASES = [(2, 1, 1, 40), (3, 65, 2, 40), (2, 200, 3, 64), (1, 130, 12, 40),
+              # the tensor-core tiles' edges at the teacher's D = 64: one k16
+              # row block, one past it, one whole 64-row tile, the teacher's T
+              (2, 16, 3, 64), (2, 17, 3, 64), (2, 64, 3, 64), (2, 599, 12, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -114,13 +119,28 @@ def test_flash_attention_matches_plain_on_strided_views(dev, case, dtype):
     assert (out[~rows] == 0).all() and (lse[~rows] == fa.NEG_INF).all()
 
 
-def test_flash_attention_rejects_head_sizes_it_is_not_built_for(dev):
+def _head_size_32(dev):
     q = torch.randn(1, 8, 2, 32, device=dev)
-    with pytest.raises(ValueError, match="head sizes"):
-        fa.flash_attention(q, q, q)
+    return q, q, q
 
 
-BWD_CASES = [(2, 1, 2, 40), (2, 63, 3, 40), (3, 65, 2, 64), (2, 130, 12, 40)]
+def _misaligned_rows(dev):
+    # rows 41 elements apart, starting one element in: no row on 16 bytes
+    q = torch.randn(1, 8, 2, 41, device=dev, dtype=torch.bfloat16)[..., 1:]
+    return q, q, q
+
+
+@pytest.mark.parametrize("inputs, match", [(_head_size_32, "head sizes"),
+                                           (_misaligned_rows, "16-byte")],
+                         ids=["head_size_32", "misaligned_bf16_rows"])
+def test_flash_attention_rejects_what_the_kernels_do_not_take(dev, inputs, match):
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention(*inputs(dev))
+
+
+BWD_CASES = [(2, 1, 2, 40), (2, 63, 3, 40), (3, 65, 2, 64), (2, 130, 12, 40),
+             # the tensor-core tiles' edges at D = 64, and the student's T
+             (2, 17, 3, 64), (2, 64, 3, 64), (2, 299, 4, 40)]
 
 
 def _attention_inputs(case, dtype, dev, seed):
@@ -162,10 +182,11 @@ def test_attention_backward_matches_plain(dev, case, dtype, dropout_p):
     assert _build.LAUNCHES == {fwd: 1, fa.KERNEL_DQ: 1, fa.KERNEL_DKV: 1}
 
 
-def test_attention_backward_is_deterministic(dev):
-    """Each gradient element is summed by one thread in a fixed order: two
-    backward runs are bit-identical."""
-    q, k, v, mask, dout = _attention_inputs((3, 299, 12, 40), torch.bfloat16, dev, seed=0)
+@pytest.mark.parametrize("case", [(3, 299, 12, 40), (2, 599, 4, 64)], ids=["d40", "d64"])
+def test_attention_backward_is_deterministic(dev, case):
+    """Each gradient element is summed by one thread (dQ) or one warp (dK,
+    dV) in a fixed order: two backward runs are bit-identical."""
+    q, k, v, mask, dout = _attention_inputs(case, torch.bfloat16, dev, seed=0)
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
     runs = []
     for _ in range(2):
