@@ -17,9 +17,10 @@
 //   sequential grid of frame tiles, recomputes each tile's layers in VMEM,
 //   carries dW across grid steps and overlap-adds the tiles' dx windows. CUDA
 //   blocks run in no order, so each pass here is a whole-(B, T) launch:
-//   - up pass, one launch per layer: K1's GEMM (conv_gemm.cuh) on a_i writes
-//     z_i (the pre-GELU sum, rounded to the dtype) and a_{i+1} = gelu(z_i),
-//     the very values K1's forward produced;
+//   - up pass, one launch per layer: K1's GEMM (conv_gemm.cuh: in bf16 the
+//     wgmma + TMA kernel, on K1's tile geometry) on a_i writes z_i (the
+//     pre-GELU sum, rounded to the dtype) and a_{i+1} = gelu(z_i), the very
+//     values K1's forward produced;
 //   - dz of the last layer: g * gelu'(z), rounded to the dtype, where gelu'
 //     is the exact-erf derivative in fp32 and the tanh form's in bf16
 //     (conv_frontend_bwd.py:68-93), g fp32;
@@ -38,8 +39,9 @@
 //     dtype, so the fp32 g between layers never goes to memory; for layer 0
 //     it writes da0 in fp32.
 //   Per stack: L up launches, 1 dz, L dW, L reductions, L da: 4L + 1.
-//   bf16 operands meet in mma.sync m16n8k16 with fp32 accumulation (fp32:
-//   FMA), as in K1; wgmma, TMA and fusing the passes are later work.
+//   In dW and da, bf16 operands meet in mma.sync m16n8k16 with fp32
+//   accumulation (fp32: FMA); wgmma, TMA and fusing the passes are later
+//   work.
 
 #include "conv_gemm.cuh"
 
@@ -461,18 +463,20 @@ unsigned elementwise_blocks(long long n) {
 // (B, T_out, C_out). Each returns cudaGetLastError() after its launch.
 
 // Up pass: z (pre-GELU, rounded to dtype) and a_next = gelu(z) from a; wt is
-// the weight as (C_out, k, C_in).
+// the weight as (C_out, k, C_in). In bf16 it is K1's own launch
+// (conv_layer_bf16, with the A view of K1's conv_layer); a tensor-map error
+// comes back as its code.
 extern "C" int conv_bwd_up(int dtype, const void* a, const void* wt, void* z, void* a_next,
                            int B, int T_in, int C_in, int T_out, int C_out, int k, int s,
-                           void* stream) {
+                           long long off1, long long row_stride, long long batch_stride,
+                           int cols0, int cols1, void* stream) {
   const long long M = static_cast<long long>(B) * T_out;
   const int K = k * C_in;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    dim3 grid(static_cast<unsigned>((M + BM - 1) / BM), (C_out + BN - 1) / BN);
-    conv_layer_bf16<<<grid, 256, 0, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(wt), nullptr, nullptr,
-        static_cast<bf16*>(a_next), static_cast<bf16*>(z), T_in, C_in, T_out, C_out, K, s, M);
+    return conv_layer_bf16(static_cast<const bf16*>(a), static_cast<const bf16*>(wt),
+                           static_cast<bf16*>(a_next), static_cast<bf16*>(z), B, T_out, C_out,
+                           AView{off1, row_stride, batch_stride, cols0, cols1}, st);
   } else if (dtype == 0) {
     dim3 grid(static_cast<unsigned>((M + FBM - 1) / FBM), (C_out + FBN - 1) / FBN);
     conv_layer_f32<<<grid, 256, 0, st>>>(

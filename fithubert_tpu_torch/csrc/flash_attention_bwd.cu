@@ -5,16 +5,16 @@
 //   kernels _make_bwd_dq_kernel (:127, run at :304) and _make_bwd_dkv_kernel
 //   (:173, run at :323).
 //
-// Bound on the H100: memory. At the student's training shape (B=12, T=299,
-//   H=12, D=40, bf16, p = 0.1) dK/dV reads q, k, v, dO, lse and delta and
+// Bound on the H100: memory, for both. At the student's training shape
+//   (B=12, T=299, H=12, D=40, bf16, p = 0.1) dK/dV reads q, k, v, dO, lse and delta and
 //   writes dK and dV (~21 MB with the mask: 0.0063 ms at 3.35 TB/s) against
 //   ~4.1 GFLOP of recomputed logits and products (0.0042 ms at the bf16
 //   tensor-core peak). The T x T matrices P and dS never reach device
 //   memory: they are recomputed from lse.
 //
 // Design: the split is FlashAttention-2's, without atomics: dQ and dK/dV
-//   are two kernels, each output element summed by one thread (dQ) or one
-//   warp (dK, dV) in a fixed order, so the gradients are deterministic run
+//   are two kernels, each output element summed by one warp (by one thread
+//   in the fp32 bodies) in a fixed order, so the gradients are deterministic run
 //   to run. Per element:
 //     P  = exp(s - lse), zeroed explicitly at masked keys (:148-150), so a
 //          fully padded row (lse = -1e30) gives exactly zero gradients;
@@ -55,15 +55,43 @@
 //     sender choosing the word its partner needs: one Philox call per four
 //     (i, j), as in the forward.
 //   The tile steps (row copies, the two kinds of product) are
-//   flash_tile.cuh's, shared with K2.
-// dQ (K3), and dK/dV in fp32: FMA bodies. dQ: one 64-thread block per
-//   (b, h, 64-row query tile), one thread per query row i holding q_i, dO_i
-//   and the dQ accumulator in fp32 registers; the block walks the key axis
-//   in 64-key tiles of K and V staged in shared memory as fp32 (broadcast
-//   reads). fp32 dK/dV: one 64-thread block per (b, h, 64-key tile), one
-//   thread per key column j, the block walking every query tile. fp32
-//   inputs only serve the card-vs-CPU checks (2e-3 end to end); the tensor
-//   cores would take them only as TF32, whose 10-bit mantissa breaks that.
+//   flash_tile.cuh's, shared with K2 and K3.
+// dQ (K3), bf16: K2's forward loop without the online softmax, on the same
+//   mma.sync m16n8k16 bf16 -> fp32 tile steps. Bound, at the student's
+//   shape: bytes, ~17 MB read and written (0.0052 ms at 3.35 TB/s) against
+//   ~3.1 GFLOP of recomputed logits and products (0.0031 ms at the bf16
+//   tensor-core peak; 0.0041 with dS K done twice, below).
+//   - Block and loop: 4 warps (128 threads) per (b, h, 64-row query tile),
+//     16 query rows per warp (720 blocks at (12, 299, 12, 40)). Q and dO are
+//     copied once through the ring's second stage and held as A fragments
+//     (ldmatrix); lse (times log2 e) and delta of the lane's two rows sit in
+//     registers. K and V walk a two-stage cp.async ring of 64-key tiles.
+//   - The three products, query-major:
+//       S  = Q K^T   (B = K, ldmatrix), P = exp2(S log2 e - lse log2 e);
+//       dP = dO V^T  (B = V, ldmatrix);
+//       dQ += dS K   (A = dS from registers; B = K, ldmatrix.trans),
+//     as K2 feeds P into P V. Masked keys and keys past T get an explicit
+//     P = 0, so a fully padded row (lse = -1e30) gives dQ = 0.
+//   - dS in two bf16 parts. The TPU kernel rounds dS to bf16 before dS K
+//     (:161-163). K is not pre-scaled as q is, and where a row has few
+//     valid keys its dS terms are large, so that one rounding moved single
+//     dQ elements from attention_bwd_plain by 0.0625 (at (2, 63, 3, 40), on
+//     the card) and 0.125 (at (3, 65, 2, 64), emulated on the CPU), more than
+//     the 1e-2 + 1e-2 |dQ| limit allows there. So dS K is two products, bf16(dS) K + bf16(dS -
+//     bf16(dS)) K: dS carries ~16 bits, one more k-pass of tensor-core work
+//     on a kernel bound by bytes.
+//   - Dropout: K2's exchange on the query-major C tile (one __shfl_xor_sync
+//     mask 1 per word pair): one Philox call per four (i, j).
+//   - Each dQ element is summed by one warp in a fixed key order: no
+//     atomics, deterministic.
+// fp32 (dQ and dK/dV): FMA bodies. dQ: one 64-thread block per (b, h,
+//   64-row query tile), one thread per query row i holding q_i, dO_i and
+//   the dQ accumulator in fp32 registers; the block walks the key axis in
+//   64-key tiles of K and V staged in shared memory as fp32 (broadcast
+//   reads). dK/dV: one 64-thread block per (b, h, 64-key tile), one thread
+//   per key column j, the block walking every query tile. fp32 inputs only
+//   serve the card-vs-CPU checks (2e-3 end to end); the tensor cores would
+//   take them only as TF32, whose 10-bit mantissa breaks that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,12 +106,6 @@ namespace {
 constexpr int BQ = 64, BKV = 64;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 
 struct Strides {
   long long qb, qt, qh, kb, kt, kh, vb, vt, vh;
@@ -103,13 +125,14 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
-// ------------------------------------------------------------------ dQ (K3)
-template <typename T, int D, bool DROPOUT>
+// ------------------------------------------------------------ dQ (K3), fp32
+template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(BQ)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const uint8_t* __restrict__ mask, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int T_len, int H, Strides st, Dropout dr) {
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const uint8_t* __restrict__ mask,
+             const float* __restrict__ dout, const float* __restrict__ lse,
+             const float* __restrict__ delta, float* __restrict__ dq, int T_len, int H,
+             Strides st, Dropout dr) {
   __shared__ __align__(16) float Ks[BKV][D];
   __shared__ __align__(16) float Vs[BKV][D];
   __shared__ float valid[BKV];
@@ -121,12 +144,12 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   float qr[D], dor[D], acc[D];
   {
-    const T* qp = q + b * st.qb + row * st.qt + h * st.qh;
-    const T* dp = dout + ((static_cast<long long>(b) * T_len + row) * H + h) * D;
+    const float* qp = q + b * st.qb + row * st.qt + h * st.qh;
+    const float* dp = dout + ((static_cast<long long>(b) * T_len + row) * H + h) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      qr[d] = row_ok ? to_f(qp[d]) : 0.f;
-      dor[d] = row_ok ? to_f(dp[d]) : 0.f;
+      qr[d] = row_ok ? qp[d] : 0.f;
+      dor[d] = row_ok ? dp[d] : 0.f;
       acc[d] = 0.f;
     }
   }
@@ -134,16 +157,16 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const float lse_i = row_ok ? lse[lrow] : 0.f;
   const float delta_i = row_ok ? delta[lrow] : 0.f;
 
-  const T* kb = k + b * st.kb + h * st.kh;
-  const T* vb = v + b * st.vb + h * st.vh;
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
   for (int k0 = 0; k0 < T_len; k0 += BKV) {
     __syncthreads();
     for (int e = threadIdx.x; e < BKV * D; e += BQ) {
       const int j = e / D, d = e - j * D, kt = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (kt < T_len) {
-        kv = to_f(kb[static_cast<long long>(kt) * st.kt + d]);
-        vv = to_f(vb[static_cast<long long>(kt) * st.vt + d]);
+        kv = kb[static_cast<long long>(kt) * st.kt + d];
+        vv = vb[static_cast<long long>(kt) * st.vt + d];
       }
       Ks[j][d] = kv;
       Vs[j][d] = vv;
@@ -174,20 +197,20 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   if (row_ok) {
-    T* op = dq + ((static_cast<long long>(b) * T_len + i) * H + h) * D;
+    float* op = dq + ((static_cast<long long>(b) * T_len + i) * H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = from_f<T>(acc[d]);
+    for (int d = 0; d < D; ++d) op[d] = acc[d];
   }
 }
 
 // ------------------------------------------------------ dK, dV (K4), fp32
-template <typename T, int D, bool DROPOUT>
+template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(BKV)
-flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const uint8_t* __restrict__ mask, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dk, T* __restrict__ dv, int T_len, int H, Strides st,
-              Dropout dr) {
+flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const uint8_t* __restrict__ mask,
+              const float* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+              int T_len, int H, Strides st, Dropout dr) {
   __shared__ __align__(16) float Qs[BQ][D];
   __shared__ __align__(16) float dOs[BQ][D];
   __shared__ float lse_s[BQ], delta_s[BQ];
@@ -203,26 +226,26 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
   float kr[D], vr[D], dka[D], dva[D];
   {
-    const T* kp = k + b * st.kb + col * st.kt + h * st.kh;
-    const T* vp = v + b * st.vb + col * st.vt + h * st.vh;
+    const float* kp = k + b * st.kb + col * st.kt + h * st.kh;
+    const float* vp = v + b * st.vb + col * st.vt + h * st.vh;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      kr[d] = col_in ? to_f(kp[d]) : 0.f;
-      vr[d] = col_in ? to_f(vp[d]) : 0.f;
+      kr[d] = col_in ? kp[d] : 0.f;
+      vr[d] = col_in ? vp[d] : 0.f;
       dka[d] = 0.f;
       dva[d] = 0.f;
     }
   }
 
-  const T* qb = q + b * st.qb + h * st.qh;
+  const float* qb = q + b * st.qb + h * st.qh;
   for (int q0 = 0; q0 < T_len; q0 += BQ) {
     __syncthreads();
     for (int e = threadIdx.x; e < BQ * D; e += BKV) {
       const int r = e / D, d = e - r * D, qt = q0 + r;
       float qv = 0.f, dv_ = 0.f;
       if (qt < T_len) {
-        qv = to_f(qb[static_cast<long long>(qt) * st.qt + d]);
-        dv_ = to_f(dout[((static_cast<long long>(b) * T_len + qt) * H + h) * D + d]);
+        qv = qb[static_cast<long long>(qt) * st.qt + d];
+        dv_ = dout[((static_cast<long long>(b) * T_len + qt) * H + h) * D + d];
       }
       Qs[r][d] = qv;
       dOs[r][d] = dv_;
@@ -277,8 +300,8 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const long long o = ((static_cast<long long>(b) * T_len + j) * H + h) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      dk[o + d] = from_f<T>(dka[d]);
-      dv[o + d] = from_f<T>(dva[d]);
+      dk[o + d] = dka[d];
+      dv[o + d] = dva[d];
     }
   }
 }
@@ -408,15 +431,152 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// --------------------------------------------------------------- dQ (K3), bf16
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                 const bf16* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq, int T_len, int H,
+                 Strides st, Dropout dr) {
+  constexpr int LD = Rows<D>::LD, KS = Rows<D>::KS, N8 = Rows<D>::N8;
+  __shared__ __align__(16) bf16 Ks[2][TILE][LD];
+  __shared__ __align__(16) bf16 Vs[2][TILE][LD];
+  __shared__ float valid[2][TILE];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * TILE;
+
+  zero_pad<D>(Ks[0], 2 * TILE);
+  zero_pad<D>(Vs[0], 2 * TILE);  // dO's columns D..DP-1 and V's: both are read over DP
+  const bf16* kb = k + b * st.kb + h * st.kh;
+  const bf16* vb = v + b * st.vb + h * st.vh;
+  auto load_kv = [&](int s, int k0) {
+    load_rows<D>(Ks[s], kb, st.kt, k0, T_len);
+    load_rows<D>(Vs[s], vb, st.vt, k0, T_len);
+    if (threadIdx.x < TILE) {
+      const int t = k0 + threadIdx.x;
+      valid[s][threadIdx.x] =
+          (t < T_len && !(mask != nullptr && mask[static_cast<long long>(b) * T_len + t]))
+              ? 1.f : 0.f;
+    }
+  };
+  // Q and dO pass through stage 1 on their way into registers
+  load_rows<D>(Ks[1], q + b * st.qb + h * st.qh, st.qt, q0, T_len);
+  load_rows<D>(Vs[1],
+               dout + static_cast<long long>(b) * T_len * H * D + static_cast<long long>(h) * D,
+               static_cast<long long>(H) * D, q0, T_len);
+  load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait0();
+  __syncthreads();
+  uint32_t qf[KS][4], dof[KS][4];
+  load_a<D>(qf, Ks[1], warp * 16, lane);
+  load_a<D>(dof, Vs[1], warp * 16, lane);
+  __syncthreads();  // stage 1 is free for the ring
+
+  // this lane's query rows: g and g + 8 of the warp's 16
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + warp * 16 + g + 8 * r;
+    const long long lrow = static_cast<long long>(bh) * T_len + t;
+    // rows past T: exp2(s - 1e30) = 0, and they are not stored
+    lse_r[r] = t < T_len ? lse[lrow] * LOG2E : 1e30f;
+    delta_r[r] = t < T_len ? delta[lrow] : 0.f;
+  }
+  const bool odd = t4 & 1;
+  const uint32_t drow = static_cast<uint32_t>(q0 + warp * 16 + g + (odd ? 8 : 0));
+
+  float acc[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int n_kt = (T_len + TILE - 1) / TILE;
+#pragma unroll 1
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt & 1, k0 = kt * TILE;
+    if (kt + 1 < n_kt) load_kv(s ^ 1, k0 + TILE);
+    cp_async_commit();  // possibly empty: one group per iteration
+    cp_async_wait1();   // tile kt has landed
+    __syncthreads();
+
+    // element e of tile n: query row g + 8 (e >> 1), key 8n + 2t4 + (e & 1)
+    float p[8][4], ds[8][4];
+    mma_a_bt<D>(p, qf, Ks[s], lane);  // S = Q K^T, then P in place
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        // masked keys and keys past T get an explicit 0, not exp2 of a huge number
+        p[n][e] = valid[s][n * 8 + 2 * t4 + (e & 1)] != 0.f
+                      ? exp2f(fmaf(p[n][e], LOG2E, -lse_r[e >> 1]))
+                      : 0.f;
+    mma_a_bt<D>(ds, dof, Vs[s], lane);  // dP = dO V^T, then dS in place
+
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float scale[4] = {1.f, 1.f, 1.f, 1.f};
+      if (DROPOUT) {
+        // K2's exchange: the even lane draws row g's call, the odd lane row
+        // g + 8's, and they swap the two words the other needs
+        const uint32_t jg = static_cast<uint32_t>((k0 + n * 8) / 4 + (t4 >> 1));
+        const uint4 w = philox4x32(make_uint4(jg, drow, static_cast<uint32_t>(bh), 0u),
+                                   dr.seed0, dr.seed1);
+        const uint32_t own0 = odd ? w.z : w.x, own1 = odd ? w.w : w.y;
+        const uint32_t got0 = __shfl_xor_sync(FULL, odd ? w.x : w.z, 1);
+        const uint32_t got1 = __shfl_xor_sync(FULL, odd ? w.y : w.w, 1);
+        const uint32_t wd[4] = {odd ? got0 : own0, odd ? got1 : own1,
+                                odd ? own0 : got0, odd ? own1 : got1};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) scale[e] = (wd[e] >> 8) >= dr.thr ? dr.inv_keep : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ds[n][e] = p[n][e] * (ds[n][e] * scale[e] - delta_r[e >> 1]);
+        p[n][e] = ds[n][e] - __bfloat162float(__float2bfloat16(ds[n][e]));  // dS - bf16(dS)
+      }
+    }
+
+    mma_c_b<D>(acc, ds, Ks[s], lane);  // dQ += bf16(dS) K
+    mma_c_b<D>(acc, p, Ks[s], lane);   // dQ += bf16(dS - bf16(dS)) K
+    __syncthreads();  // every warp is done with stage s before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + warp * 16 + g + 8 * r;
+    if (t >= T_len) continue;
+    bf16* op = dq + ((static_cast<long long>(b) * T_len + t) * H + h) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < N8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
 template <typename T, int D>
 void launch_dq(const void* q, const void* k, const void* v, const uint8_t* mask,
                const void* dout, const float* lse, const float* delta, void* dq, int B,
                int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
   dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  auto kernel = dr.thr > 0 ? &flash_bwd_dq<T, D, true> : &flash_bwd_dq<T, D, false>;
-  kernel<<<grid, BQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), T_len, H, st, dr);
+  if constexpr (sizeof(T) == 2) {
+    auto kernel = dr.thr > 0 ? &flash_bwd_dq_mma<D, true> : &flash_bwd_dq_mma<D, false>;
+    kernel<<<grid, 128, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), T_len, H, st,
+        dr);
+  } else {
+    auto kernel = dr.thr > 0 ? &flash_bwd_dq<D, true> : &flash_bwd_dq<D, false>;
+    kernel<<<grid, BQ, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), mask, static_cast<const float*>(dout), lse, delta,
+        static_cast<float*>(dq), T_len, H, st, dr);
+  }
 }
 
 template <typename T, int D>
@@ -431,11 +591,11 @@ void launch_dkv(const void* q, const void* k, const void* v, const uint8_t* mask
         mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), T_len, H, st, dr);
   } else {
-    auto kernel = dr.thr > 0 ? &flash_bwd_dkv<T, D, true> : &flash_bwd_dkv<T, D, false>;
+    auto kernel = dr.thr > 0 ? &flash_bwd_dkv<D, true> : &flash_bwd_dkv<D, false>;
     kernel<<<grid, BKV, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        T_len, H, st, dr);
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), mask, static_cast<const float*>(dout), lse, delta,
+        static_cast<float*>(dk), static_cast<float*>(dv), T_len, H, st, dr);
   }
 }
 

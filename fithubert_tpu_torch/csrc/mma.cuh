@@ -1,8 +1,9 @@
 // The tensor-core and async-copy building blocks shared by the bf16 kernels:
-// K1 and K6 (conv_gemm.cuh), K2 (flash_attention.cu) and K4
-// (flash_attention_bwd.cu). All of them are sm_80+ instructions that Hopper
-// keeps: cp.async for global -> shared copies, ldmatrix to load mma.sync
-// fragments from shared memory, and mma.sync m16n8k16 bf16 -> fp32.
+// K6's da and dW (conv_gemm.cuh mma_stage), K2 (flash_attention.cu), K3 and
+// K4 (flash_attention_bwd.cu); K1 runs on wgmma and TMA (conv_gemm.cuh).
+// All of them are sm_80+ instructions that Hopper keeps: cp.async for
+// global -> shared copies, ldmatrix to load mma.sync fragments from shared
+// memory, and mma.sync m16n8k16 bf16 -> fp32.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 g + t4):
 //   A (16 x 16, row-major): a0 = (g, 2t4..2t4+1), a1 = (g+8, 2t4..),

@@ -109,7 +109,18 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(_lib_path(name))
 
 
+# Codes a launch returns besides cudaError_t (csrc/conv_gemm.cuh): a TMA
+# tensor map that cuTensorMapEncodeTiled refused (TMA_ERROR + its CUresult),
+# or a CUDA driver without that entry point.
+TMA_ERROR, TMA_MISSING = 100000, 200000
+
+
 def check(err: int, what: str) -> None:
-    """Raise if a launch returned a non-zero cudaGetLastError()."""
+    """Raise if a launch returned a non-zero cudaGetLastError() or a
+    tensor-map error."""
+    if err == TMA_MISSING:
+        raise RuntimeError(f"{what}: the CUDA driver has no cuTensorMapEncodeTiled")
+    if TMA_ERROR <= err < TMA_MISSING:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed, CUresult {err - TMA_ERROR}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

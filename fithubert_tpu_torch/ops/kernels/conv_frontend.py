@@ -11,7 +11,11 @@ folds the block-0 GroupNorm(C, C) in; ``gn_scale_shift`` computes it as
 ``_fused_gn_fwd`` does (``:406-418``).
 
 On a CUDA tensor ``conv_stack`` launches ``csrc/conv_frontend.cu`` once per
-layer; on a CPU tensor it runs ``conv_stack_plain``.
+layer; on a CPU tensor it runs ``conv_stack_plain``. In bf16 the layer is a
+wgmma GEMM fed by TMA, whose A operand is two strided views of the layer's
+input (``a_operand_view``); it takes widths that are multiples of 64 and
+raises otherwise (``check_widths``). The bf16 GroupNorm prefix is a kernel
+of its own, ``gn_prefix_cuda``, launched before the first layer.
 
 Its gradient has the JAX package's two backwards, picked by the same
 environment variable, ``FITHUBERT_CONV_BWD``, read at backward time
@@ -38,7 +42,7 @@ import ctypes
 import functools
 import math
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +53,42 @@ from fithubert_tpu_torch.ops.kernels import _build
 Spec = Tuple[Tuple[int, int, int], ...]  # (dim, kernel, stride) per layer
 KERNEL = "conv_stack_cuda"
 KERNEL_BWD = "conv_stack_bwd_cuda"
+KERNEL_PREFIX = "gn_prefix_cuda"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# What every width (C0 and each layer's d) must be a multiple of on the card:
+# bf16 K chunks are 64 elements, one 128-byte swizzled TMA row, and must lie
+# in one tap group; fp32 tiles move 16-byte vectors along C.
+WIDTH_MULTIPLE = {torch.float32: 4, torch.bfloat16: 64}
+
+
+class AView(NamedTuple):
+    """The A operand of one bf16 layer as views of its input X (B, T_in,
+    C_in): group g is the (B, T_out, cols_g) view of X's storage at element
+    offset off_g (off_0 = 0) with strides (batch_stride, row_stride, 1), and
+    A[b, f] = [group 0 | group 1] is the K = k * C_in row of frame f."""
+    off1: int
+    row_stride: int
+    batch_stride: int
+    cols0: int
+    cols1: int
+
+
+def a_operand_view(t_in: int, c_in: int, k: int, s: int) -> AView:
+    """X[b] seen as rows of s * C_in elements (the TPU kernel's pair rows,
+    ``conv_frontend.py:100-103``): taps j < s are the first min(k, s) * C_in
+    elements of row f, taps j >= s the first (k - s) * C_in of row f + 1.
+    Neither view overlaps itself, and none reads past frame f * s + k - 1 of
+    its own batch row, so the partial last row at odd T_in is read only where
+    it holds valid frames."""
+    return AView(off1=s * c_in, row_stride=s * c_in, batch_stride=t_in * c_in,
+                 cols0=min(k, s) * c_in, cols1=max(k - s, 0) * c_in)
+
+
+def check_widths(c0: int, spec: Spec, dtype: torch.dtype, what: str) -> None:
+    """Raise unless C0 and every layer's width suit the card's kernels."""
+    mult = WIDTH_MULTIPLE[dtype]
+    if any(c % mult for c in [c0] + [d for (d, _k, _s) in spec]):
+        raise ValueError(f"{what} needs every width to be a multiple of {mult} in {dtype}")
 
 
 def fusable(spec: Spec) -> bool:
@@ -151,36 +190,72 @@ def conv_stack_plain(x: torch.Tensor, weights: Sequence[torch.Tensor], spec: Spe
     return h.transpose(1, 2).contiguous()
 
 
+_I32, _I64, _PTR = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_VIEW_ARGS = [_I64] * 3 + [_I32] * 2  # an AView
+
+
 @functools.lru_cache(maxsize=None)
 def _conv_layer_fn():
     fn = _build.load("conv_frontend").conv_layer
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [_I32] + [_PTR] * 5 + [_I32] * 7 + _VIEW_ARGS + [_PTR]
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_prefix_fn():
+    fn = _build.load("conv_frontend").gn_prefix
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_PTR] * 4 + [_I32] * 3 + [_PTR]
+    return fn
+
+
+def gn_prefix_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """The block-0 GroupNorm + GELU prefix, gelu_tanh(x * scale + shift), of
+    bf16 x (B, T, C) with scale and shift (B, C): on a CUDA tensor one launch
+    of ``gn_prefix_bf16`` (``conv_frontend.cu``), on a CPU tensor ``_prefix``.
+    fp32 has no kernel of its own (K1's fp32 body applies the prefix to each
+    A tile) and raises on the card."""
+    if x.device.type == "cpu":
+        return _prefix(x, scale, shift)
+    if x.dtype != torch.bfloat16 or scale.dtype != x.dtype or shift.dtype != x.dtype:
+        raise ValueError(f"{KERNEL_PREFIX} takes bfloat16 x, scale and shift")
+    b, t, c = x.shape
+    if c % 8 or tuple(scale.shape) != (b, c) or tuple(shift.shape) != (b, c):
+        raise ValueError(f"{KERNEL_PREFIX} needs C a multiple of 8 and (B, C) scale and shift")
+    if not (x.is_contiguous() and scale.is_contiguous() and shift.is_contiguous()):
+        raise ValueError(f"{KERNEL_PREFIX} needs contiguous x, scale and shift")
+    a0 = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _gn_prefix_fn()(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), a0.data_ptr(),
+                              b, t, c, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, KERNEL_PREFIX)
+    _build.count_launch(KERNEL_PREFIX)
+    return a0
 
 
 def _conv_stack_cuda(x, weights, spec, scale, shift) -> torch.Tensor:
     fn = _conv_layer_fn()
-    vec = 16 // x.element_size()  # the kernel moves 16-byte vectors along C
-    if any(c % vec for c in [x.shape[-1]] + [d for (d, _k, _s) in spec]):
-        raise ValueError(f"conv_stack_cuda needs every width to be a multiple of {vec}")
+    check_widths(x.shape[-1], spec, x.dtype, KERNEL)
     if not x.is_contiguous() or (scale is not None and not (
             scale.is_contiguous() and shift.is_contiguous())):
         raise ValueError("conv_stack_cuda needs contiguous x, scale and shift")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     b = x.shape[0]
     h = x
+    if scale is not None and x.dtype == torch.bfloat16:
+        h, scale, shift = gn_prefix_cuda(x, scale, shift), None, None
     for i, (w, (d, k, s)) in enumerate(zip(weights, spec)):
         wt = w.permute(2, 0, 1).contiguous()  # (C_out, k, C_in): rows of K = k*C_in
         t_in, c_in = h.shape[1], h.shape[2]
         t_out = (t_in - k) // s + 1
         y = torch.empty((b, t_out, d), dtype=x.dtype, device=x.device)
-        prefix = scale is not None and i == 0
+        prefix = scale is not None and i == 0  # fp32: applied to each A tile
         err = fn(_DTYPE_CODE[x.dtype], h.data_ptr(), wt.data_ptr(),
                  scale.data_ptr() if prefix else None,
                  shift.data_ptr() if prefix else None,
-                 y.data_ptr(), b, t_in, c_in, t_out, d, k, s, stream)
+                 y.data_ptr(), b, t_in, c_in, t_out, d, k, s,
+                 *a_operand_view(t_in, c_in, k, s), stream)
         _build.check(err, KERNEL)
         _build.count_launch(KERNEL)
         h = y
@@ -239,8 +314,8 @@ def _dw_split(m_red: int, kdim: int, n: int, tile: int, depth: int) -> Tuple[int
 @functools.lru_cache(maxsize=None)
 def _bwd_fns():
     lib = _build.load("conv_frontend_bwd")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    sig = {"conv_bwd_up": [i32] + [ptr] * 4 + [i32] * 7 + [ptr],
+    ptr, i32, i64 = _PTR, _I32, _I64
+    sig = {"conv_bwd_up": [i32] + [ptr] * 4 + [i32] * 7 + _VIEW_ARGS + [ptr],
            "conv_bwd_dz": [i32] + [ptr] * 3 + [i64, ptr],
            "conv_bwd_da": [i32] + [ptr] * 5 + [i32] * 7 + [ptr],
            "conv_bwd_dw": [i32] + [ptr] * 3 + [i32] * 9 + [ptr],
@@ -258,28 +333,37 @@ def _launch(fn, *args) -> None:
     _build.count_launch(KERNEL_BWD)
 
 
+def up_pass_cuda(a: torch.Tensor, w: torch.Tensor, layer: Tuple[int, int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's up pass over one layer (d, k, s) of contiguous CUDA a (B, T_in,
+    C_in) and w (k, C_in, d): (z, gelu(z)), z the pre-GELU sum in a's dtype.
+    It is K1's launch on K1's tile geometry, so gelu(z) is K1's output bit
+    for bit. One K6 launch."""
+    d, k, s = layer
+    b, t_in, c_in = a.shape
+    t_out = (t_in - k) // s + 1
+    wt = w.permute(2, 0, 1).contiguous()  # (C_out, k, C_in), as K1 takes it
+    z = torch.empty((b, t_out, d), dtype=a.dtype, device=a.device)
+    a_next = torch.empty_like(z)
+    _launch(_bwd_fns()["conv_bwd_up"], _DTYPE_CODE[a.dtype], a.data_ptr(), wt.data_ptr(),
+            z.data_ptr(), a_next.data_ptr(), b, t_in, c_in, t_out, d, k, s,
+            *a_operand_view(t_in, c_in, k, s), torch.cuda.current_stream(a.device).cuda_stream)
+    return z, a_next
+
+
 def conv_stack_bwd_cuda(a0: torch.Tensor, weights: Sequence[torch.Tensor],
                         g: torch.Tensor, spec: Spec) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """K6 on CUDA tensors: (da0, [dW_i]), fp32, in 4L + 1 launches."""
     fns = _bwd_fns()
-    vec = 16 // a0.element_size()
-    if any(c % vec for c in [a0.shape[-1]] + [d for (d, _k, _s) in spec]):
-        raise ValueError(f"conv_stack_bwd_cuda needs every width to be a multiple of {vec}")
+    check_widths(a0.shape[-1], spec, a0.dtype, KERNEL_BWD)  # its up pass is K1's GEMM
     dt = _DTYPE_CODE[a0.dtype]
     dev = a0.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     b = a0.shape[0]
     tile, depth = (128, 32) if a0.dtype == torch.bfloat16 else (64, 16)  # the kernels' tiles
     a_store, z_store = [a0.contiguous()], []
-    for w, (d, k, s) in zip(weights, spec):
-        a = a_store[-1]
-        t_in, c_in = a.shape[1], a.shape[2]
-        t_out = (t_in - k) // s + 1
-        wt = w.permute(2, 0, 1).contiguous()  # (C_out, k, C_in), as K1 takes it
-        z = torch.empty((b, t_out, d), dtype=a0.dtype, device=dev)
-        a_next = torch.empty_like(z)
-        _launch(fns["conv_bwd_up"], dt, a.data_ptr(), wt.data_ptr(), z.data_ptr(),
-                a_next.data_ptr(), b, t_in, c_in, t_out, d, k, s, stream)
+    for w, layer in zip(weights, spec):
+        z, a_next = up_pass_cuda(a_store[-1], w, layer)
         z_store.append(z)
         a_store.append(a_next)
     g = g.float().contiguous()

@@ -12,6 +12,7 @@ import torch
 from fithubert_tpu.ops.conv import ConvFeatureExtractor as JExtractor
 from fithubert_tpu.ops.pallas import force_interpret
 from fithubert_tpu.ops.pallas.conv_frontend import (
+    _gelu_for,
     _reference_stack,
     fused_conv_stack,
     fused_conv_stack_gn,
@@ -90,6 +91,25 @@ def test_plain_stack_matches_xla_oracle(prefix, dtype):
     want = np.asarray(_reference_stack(jx, jws, REST, *g).astype(jnp.float32))
     got = _port(x, ws, gamma if prefix else None, beta, getattr(torch, dtype))
     np.testing.assert_allclose(got, want, **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_prefix_matches_the_kernels_prefix(dtype):
+    """``gn_prefix_cuda`` on CPU tensors (its plain version, no launch)
+    against the Pallas kernel's prefix (``conv_frontend.py:154-160``):
+    gelu(x * scale + shift) in fp32, exact GELU in fp32 and tanh in bf16,
+    rounded to bf16 once as the XLA oracle rounds a0."""
+    x, _ws, gamma, beta = _inputs(t=301, seed=4)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    scale, shift = cf.gn_scale_shift(tx, torch.from_numpy(gamma), torch.from_numpy(beta))
+    _build.reset_launches()
+    got = cf.gn_prefix_cuda(tx, scale, shift).float().numpy()
+    assert not _build.LAUNCHES
+    jscale, jshift = (jnp.asarray(t.float().numpy())[:, None, :] for t in (scale, shift))
+    want = _gelu_for(dtype)(jnp.asarray(tx.float().numpy()) * jscale + jshift)
+    want = np.asarray(want.astype(dtype).astype(jnp.float32))
+    tol = F32_TOL if dtype == "float32" else dict(atol=1e-3, rtol=2.0 ** -7)  # one bf16 step
+    np.testing.assert_allclose(got, want, **tol)
 
 
 def test_gn_scale_shift_folds_groupnorm():

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the main paths do not reach: tails in every tiled dimension of the
-conv GEMM, the teacher's widths, short and odd T at the attention tiles'
+conv GEMM (odd T_in, B > 1, so the last batch row's tail is read; fp32 at
+narrow widths), the teacher's widths, the bf16 GroupNorm prefix kernel,
+widths the bf16 conv GEMM does not take (rejected), K6's
+up pass against K1's output bit for bit, short and odd T at the attention tiles'
 edges, strided q/k/v views, misaligned views (rejected), fully padded
 rows, the attention backward (K3, K4) with and without dropout, and its
 determinism; the seeded dropout (K5) bit for bit, forward and backward;
@@ -44,20 +47,33 @@ def _close(got, want, dtype):
     assert bool((err <= atol + rtol * want.float().abs()).all()), err.max().item()
 
 
+def _by_dtype(cases, narrow):
+    """(case, dtype) params: every case in fp32 and bf16, and the ``narrow``
+    cases in fp32 alone, whose FMA bodies take widths that are multiples of
+    4 where the bf16 GEMM takes multiples of 64."""
+    params = [pytest.param(case, torch.float32, id=f"{name}-fp32") for name, case in narrow]
+    for name, case in cases:
+        params += [pytest.param(case, dt, id=f"{name}-{dn}")
+                   for dn, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16))]
+    return params
+
+
 CONV_CASES = [
-    # K = 72 and 80 (not multiples of the 32-deep tile), N = 40 / 48 / 16,
-    # M = B * T_out not a multiple of the 128-row tile
-    (2, 301, 24, ((40, 3, 2), (48, 2, 2), (16, 1, 1))),
+    # odd T_in with B > 1 (the partial last pair row of every batch row), N =
+    # 64 (half a 128-channel tile), T_out not a multiple of the 128-frame tile
+    ("tails", (2, 301, 64, ((64, 3, 2), (128, 2, 2), (64, 1, 1)))),
     # the student's first layers, one output frame short of a tile
-    (3, 97, 128, ((256, 1, 1), (256, 3, 2))),
+    ("student", (3, 97, 128, ((256, 1, 1), (256, 3, 2)))),
     # the teacher's widths (C0 = 512)
-    (1, 1000, 512, ((512, 3, 2), (512, 2, 2))),
+    ("teacher", (2, 1001, 512, ((512, 3, 2), (512, 2, 2)))),
 ]
+# fp32 only: K = 72 and 80 (not multiples of the FMA GEMM's 16-deep tile),
+# N = 40 / 48 / 16, M = B * T_out not a multiple of its 64-row tile
+CONV_NARROW = [("narrow", (2, 301, 24, ((40, 3, 2), (48, 2, 2), (16, 1, 1))))]
 
 
 @pytest.mark.parametrize("prefix", [True, False], ids=["gn_prefix", "no_prefix"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("case", CONV_CASES, ids=["tails", "student", "teacher"])
+@pytest.mark.parametrize("case, dtype", _by_dtype(CONV_CASES, CONV_NARROW))
 def test_conv_stack_layers_match_plain(dev, case, dtype, prefix):
     b, t, c0, spec = case
     g = torch.Generator().manual_seed(t)
@@ -72,7 +88,11 @@ def test_conv_stack_layers_match_plain(dev, case, dtype, prefix):
         ss = cf.gn_scale_shift(x, gamma.to(dev), (0.1 * torch.randn(c0, generator=g)).to(dev))
     _build.reset_launches()
     out = cf.conv_stack(x, ws, spec, *ss)
-    assert _build.LAUNCHES[cf.KERNEL] == len(spec)
+    # bf16 runs the prefix as a kernel of its own; fp32 applies it to each A tile
+    want = {cf.KERNEL: len(spec)}
+    if prefix and dtype == torch.bfloat16:
+        want[cf.KERNEL_PREFIX] = 1
+    assert _build.LAUNCHES == want
     assert tuple(out.shape) == (b, cf.out_len(t, spec), spec[-1][0])
     h = x  # layer by layer, each from the plain version's input
     for i, (w, layer) in enumerate(zip(ws, spec)):
@@ -82,11 +102,50 @@ def test_conv_stack_layers_match_plain(dev, case, dtype, prefix):
         _close(got, h, dtype)
 
 
-def test_conv_stack_rejects_widths_the_kernel_does_not_take(dev):
-    x = torch.randn(1, 50, 12, device=dev, dtype=torch.bfloat16)
-    w = torch.randn(1, 12, 16, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        cf.conv_stack(x, [w], ((16, 1, 1),))
+@pytest.mark.parametrize("shape", [(2, 301, 64), (3, 97, 128), (2, 1001, 512)],
+                         ids=["tails", "student", "teacher"])
+def test_gn_prefix_matches_plain(dev, shape):
+    """The bf16 prefix kernel against ``_prefix``, one launch; both take the
+    affine map in fp32 and round the GELU once, so they differ at most where
+    the two GELUs straddle a bf16 rounding boundary."""
+    g = torch.Generator().manual_seed(shape[1])
+    x = (torch.randn(*shape, generator=g) * 2.0).to(dev, torch.bfloat16)
+    scale, shift = ((1 + 0.3 * torch.randn(shape[0], shape[2], generator=g)).to(dev, x.dtype),
+                    (0.3 * torch.randn(shape[0], shape[2], generator=g)).to(dev, x.dtype))
+    _build.reset_launches()
+    got = cf.gn_prefix_cuda(x, scale, shift)
+    assert _build.LAUNCHES == {cf.KERNEL_PREFIX: 1}
+    _close(got, cf._prefix(x, scale, shift), torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cf.gn_prefix_cuda(x.float(), scale.float(), shift.float())
+
+
+@pytest.mark.parametrize("c0, d", [(12, 64), (96, 64), (64, 96)], ids=["c0_12", "c0_96", "d_96"])
+def test_conv_stack_rejects_widths_the_kernel_does_not_take(dev, c0, d):
+    """The bf16 GEMM reads 64-element K chunks (128-byte swizzled TMA rows)
+    that must lie in one tap group: every width a multiple of 64."""
+    x = torch.randn(2, 50, c0, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(1, c0, d, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cf.conv_stack(x, [w], ((d, 1, 1),))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cf.conv_stack_bwd_cuda(x, [w], torch.randn(2, 50, d, device=dev), ((d, 1, 1),))
+
+
+@pytest.mark.parametrize("case", [c for _n, c in CONV_CASES[1:]], ids=["student", "teacher"])
+def test_k6_up_pass_equals_k1_output(dev, case):
+    """K6's up pass launches K1's GEMM on the same tile geometry: its a_next
+    is K1's y bit for bit."""
+    b, t, c0, spec = case
+    g = torch.Generator().manual_seed(7)
+    h = (torch.randn(b, t, c0, generator=g) * 0.5).to(dev, torch.bfloat16)
+    for (d, k, s) in spec:
+        w = (torch.randn(k, h.shape[-1], d, generator=g) * (2.0 / (k * h.shape[-1])) ** 0.5
+             ).to(dev, torch.bfloat16)
+        y = cf.conv_stack(h, [w], ((d, k, s),))
+        _z, a_next = cf.up_pass_cuda(h, w, (d, k, s))
+        assert torch.equal(a_next, y)
+        h = y
 
 
 ATTN_CASES = [(2, 1, 1, 40), (3, 65, 2, 40), (2, 200, 3, 64), (1, 130, 12, 40),
@@ -182,6 +241,18 @@ def test_attention_backward_matches_plain(dev, case, dtype, dropout_p):
     assert _build.LAUNCHES == {fwd: 1, fa.KERNEL_DQ: 1, fa.KERNEL_DKV: 1}
 
 
+@pytest.mark.parametrize("case", [(12, 299, 12, 40), (2, 599, 4, 64)], ids=["d40", "d64"])
+def test_dq_kernel_is_deterministic(dev, case):
+    """K3 in bf16 on the tensor cores: each dQ element is summed by one warp
+    in a fixed key order, no atomics; two launches are bit-identical."""
+    q, k, v, mask, dout = _attention_inputs(case, torch.bfloat16, dev, seed=3)
+    seed = (11, 12)
+    out, lse = fa.flash_attention(q, k, v, mask, dropout_p=0.1, seed=seed, return_lse=True)
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    runs = [fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta, 0.1, seed) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
 @pytest.mark.parametrize("case", [(3, 299, 12, 40), (2, 599, 4, 64)], ids=["d40", "d64"])
 def test_attention_backward_is_deterministic(dev, case):
     """Each gradient element is summed by one thread (dQ) or one warp (dK,
@@ -247,13 +318,18 @@ def test_seeded_dropout_of_an_unaligned_view(dev):
 # 1e-2 of its norm.
 K6_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 K6_CASES = [
-    # ragged T, K and widths not multiples of the tiles, k > s, k = s, k = s = 1
-    (2, 301, 24, ((40, 3, 2), (48, 2, 2), (16, 1, 1))),
+    # ragged T, T_out and widths not multiples of the tiles, k > s, k = s,
+    # k = s = 1 (bf16 widths are multiples of 64: K1's up pass takes no other)
+    ("tails", (2, 301, 64, ((64, 3, 2), (128, 2, 2), (64, 1, 1)))),
     # k < s: the odd input rows get no gradient
-    (2, 257, 16, ((16, 1, 2), (24, 3, 2))),
+    ("k_lt_s", (2, 257, 64, ((64, 1, 2), (128, 3, 2)))),
     # the student's widths
-    (3, 397, 128, ((256, 1, 1), (256, 3, 2), (512, 1, 1), (512, 2, 2))),
+    ("student", (3, 397, 128, ((256, 1, 1), (256, 3, 2), (512, 1, 1), (512, 2, 2)))),
 ]
+# fp32 only: K and widths not multiples of the fp32 tiles (K = 72, 80; N =
+# 40, 48, 16, 24), with k > s, k = s, k = s = 1 and k < s
+K6_NARROW = [("narrow", (2, 301, 24, ((40, 3, 2), (48, 2, 2), (16, 1, 1)))),
+             ("narrow_k_lt_s", (2, 257, 16, ((16, 1, 2), (24, 3, 2))))]
 
 
 def _k6_inputs(case, dtype, dev, seed):
@@ -268,8 +344,7 @@ def _k6_inputs(case, dtype, dev, seed):
     return a0, ws, cot, spec
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("case", K6_CASES, ids=["tails", "k_lt_s", "student"])
+@pytest.mark.parametrize("case, dtype", _by_dtype(K6_CASES, K6_NARROW))
 def test_conv_stack_backward_matches_plain(dev, case, dtype):
     a0, ws, cot, spec = _k6_inputs(case, dtype, dev, seed=case[1])
     _build.reset_launches()
@@ -281,14 +356,14 @@ def test_conv_stack_backward_matches_plain(dev, case, dtype):
         assert torch.isfinite(got).all()
         rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
         assert rel < K6_LIMIT[dtype], rel
-    if spec[1] == (24, 3, 2):  # k < s: rows 1, 3, 5, ... of a0 feed no output
+    if spec[0][1] < spec[0][2]:  # k < s: rows 1, 3, 5, ... of a0 feed no output
         assert (da0[:, 1::2] == 0).all()
 
 
 def test_conv_stack_backward_is_deterministic(dev):
     """No atomics: the dW chunks are summed in a fixed order, and every
     element of da is written by one thread. Two runs are bit-identical."""
-    a0, ws, cot, spec = _k6_inputs(K6_CASES[2], torch.bfloat16, dev, seed=0)
+    a0, ws, cot, spec = _k6_inputs(K6_CASES[2][1], torch.bfloat16, dev, seed=0)
     runs = [cf.conv_stack_bwd_cuda(a0, ws, cot, spec) for _ in range(2)]
     assert torch.equal(runs[0][0], runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
@@ -298,7 +373,7 @@ def test_conv_stack_backward_is_deterministic(dev):
 def test_conv_stack_switch_launches_k6_on_the_card(dev, monkeypatch):
     """Under FITHUBERT_CONV_BWD=pallas the autograd backward of conv_stack
     goes through K6 (and K1 for its up pass's forward is not relaunched)."""
-    a0, ws, cot, spec = _k6_inputs(K6_CASES[0], torch.bfloat16, dev, seed=1)
+    a0, ws, cot, spec = _k6_inputs(K6_CASES[0][1], torch.bfloat16, dev, seed=1)
     x = a0.clone().requires_grad_()
     monkeypatch.setenv("FITHUBERT_CONV_BWD", "pallas")
     out = cf.conv_stack(x, ws, spec)
