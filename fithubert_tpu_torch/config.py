@@ -64,6 +64,13 @@ def conv_spec_tuple(spec: Any) -> Tuple[Tuple[int, int, int], ...]:
     return tuple(out)
 
 
+# Fields of the JAX StudentConfig (fithubert_tpu/config.py:95-169) that the
+# port has no counterpart for, with their JAX defaults: the mel front-end,
+# the teacher hint-init, int8 matmuls and a task-specific teacher.
+REFUSED = {"n_mels": 0, "enable_log_mel": False, "init_conv_layers": False,
+           "init_encoder_layers": 0, "quantize_matmuls": False, "teacher_task_agnostic": True}
+
+
 @dataclass(frozen=True)
 class StudentConfig:
     # Extractor
@@ -158,10 +165,18 @@ class StudentConfig:
     def from_dict(cls, d: Dict[str, Any], use_fp16: bool = False) -> "StudentConfig":
         """Build from a reference-style ``distiller:`` section, keeping only the
         fields this config has; ``use_fp16`` (the ``train:`` key) selects
-        bfloat16 compute as the JAX loader does."""
+        bfloat16 compute as the JAX loader does. Raises NotImplementedError
+        for a field of ``REFUSED`` set away from the JAX default: the port
+        would build another model than the reference."""
         d = dict(d)
-        if "_cnn_weight" in d:  # the reference's private field name
+        if "_teacher_task_agnostic" in d:  # the reference's private field names
+            d["teacher_task_agnostic"] = bool(d.pop("_teacher_task_agnostic"))
+        if "_cnn_weight" in d:
             d["cnn_weight"] = float(d.pop("_cnn_weight"))
+        for name, default in REFUSED.items():
+            if name in d and d[name] != default:
+                raise NotImplementedError(
+                    f"{name}={d[name]!r}: the PyTorch port supports only {default!r}")
         known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in known}
         if "conv_feature_layers" in kw:
@@ -174,13 +189,17 @@ class StudentConfig:
 
 
 def load_yaml_config(path: str) -> StudentConfig:
-    """The student config of a reference-schema YAML file."""
+    """The student config that ``UpstreamExpert`` serves from a
+    reference-schema YAML file. The teacher-init flags only tell training how
+    to start, so they are turned off first, as the JAX expert does
+    (``fithubert_tpu/export/expert.py:57-65``)."""
     import yaml
 
     with open(path) as f:
         raw = yaml.safe_load(f) or {}
+    distiller = dict(raw.get("distiller", {}), init_conv_layers=False, init_encoder_layers=0)
     return StudentConfig.from_dict(
-        raw.get("distiller", {}),
+        distiller,
         use_fp16=bool(raw.get("train", {}).get("use_fp16", False)))
 
 

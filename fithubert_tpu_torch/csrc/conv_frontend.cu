@@ -127,7 +127,7 @@ extern "C" int conv_layer(int dtype, const void* x, const void* wt, const void* 
   if (dtype == 1) {
     if (scale != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return conv_layer_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(wt),
-                           static_cast<bf16*>(y), nullptr, B, T_out, C_out,
+                           static_cast<bf16*>(y), nullptr, nullptr, B, T_out, C_out,
                            AView{off1, row_stride, batch_stride, cols0, cols1}, st);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -135,6 +135,6 @@ extern "C" int conv_layer(int dtype, const void* x, const void* wt, const void* 
   conv_layer_f32<<<grid, 256, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(wt),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<float*>(y), nullptr, T_in, C_in, T_out, C_out, K, s, M);
+      static_cast<float*>(y), nullptr, nullptr, T_in, C_in, T_out, C_out, K, s, M);
   return static_cast<int>(cudaGetLastError());
 }

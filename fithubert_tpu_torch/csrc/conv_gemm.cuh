@@ -1,10 +1,11 @@
 // The conv-layer GEMM of the waveform front-end, shared by K1
 // (conv_frontend.cu, the forward) and K6 (conv_frontend_bwd.cu, whose up
 // pass recomputes each layer's pre-GELU sum z and output a with the same
-// kernels, so the recomputed a equals K1's forward output bit for bit):
-// in bf16 conv_layer_bf16 (wgmma fed by TMA), in fp32 conv_layer_f32 (FMA).
-// The design notes are in conv_frontend.cu. K6's own da and dW GEMMs keep
-// the mma.sync tile step mma_stage below.
+// kernels, so the recomputed a equals K1's forward output bit for bit, and
+// whose last layer writes dz = g * gelu'(z) in place of z and a): in bf16
+// conv_layer_bf16 (wgmma fed by TMA), in fp32 conv_layer_f32 (FMA). The
+// design notes are in conv_frontend.cu. The mbarrier, TMA and wgmma helpers
+// here also serve K6's own dW and da GEMMs.
 
 #pragma once
 #include <cuda.h>  // CUtensorMap and its enums; the CUDA driver's entry is fetched at run time
@@ -24,6 +25,28 @@ __device__ __forceinline__ float gelu_exact(float x) {
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float u = 0.79788456080286536f * (x + 0.044715f * x * x * x);  // sqrt(2 / pi) (...)
   return __fdividef(x, 1.f + __expf(-2.f * u));  // x / inf = -0 for very negative x
+}
+
+// d/dx of the exact-erf GELU: Phi(x) + x phi(x) (conv_frontend_bwd.py:68).
+__device__ __forceinline__ float gelu_grad_exact(float x) {
+  const float phi = expf(-0.5f * x * x) * 0.3989422804014327f;  // 1 / sqrt(2 pi)
+  return 0.5f * (1.f + erff(x * 0.70710678118654752f)) + x * phi;
+}
+
+// d/dx of the tanh-form GELU (conv_frontend_bwd.py:75), 0.5 (1 + t) +
+// 0.5 x (1 - t^2) u' with t = tanh(u), u = sqrt(2 / pi) (x + 0.044715 x^3),
+// written with sg = (1 + t) / 2 = 1 / (1 + 2^(x (A + B x^2))) as
+// sg + x sg (1 - sg) 2u': nine fp32 operations and two special-function
+// ones (K6's da epilogue evaluates it on every element it writes).
+__device__ __forceinline__ float gelu_grad_tanh(float x) {
+  constexpr float A = -2.f * 0.79788456080286536f * 1.4426950408889634f;  // -2 sqrt(2/pi) log2(e)
+  constexpr float B = A * 0.044715f;
+  constexpr float C = 2.f * 0.79788456080286536f, D = C * 0.134145f;  // 2u' = C + D x^2
+  const float x2 = x * x;
+  float e, sg;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x * fmaf(B, x2, A)));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(sg) : "f"(1.f + e));  // 1 / inf = 0
+  return fmaf(x * sg * (1.f - sg), fmaf(D, x2, C), sg);
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -47,40 +70,6 @@ __device__ __forceinline__ void prefix_in_place(T* dst, int kk, int b, int C_in,
     size_t i = static_cast<size_t>(b) * C_in + c + e;
     float v = to_f(dst[e]) * to_f(scale[i]) + to_f(shift[i]);
     dst[e] = from_f<T>(gelu<T>(v));
-  }
-}
-
-// ------------------------------------------------------------------ bf16, K6's tile step
-constexpr int BM = 128, BN = 128, BK = 32, LDS = BK + 8;  // 80-byte rows: no bank conflicts
-
-// One BK-deep stage of the 128 x 128 tile product: A rows (M) and B rows (N)
-// both hold K contiguously. Warp (wm, wn) owns rows wm*32.., cols wn*64..;
-// lane (g, t4) = (lane / 4, lane % 4) as in mma.sync's fragment layout.
-__device__ __forceinline__ void mma_stage(const bf16 (&As)[BM][LDS], const bf16 (&Bs)[BN][LDS],
-                                          float (&acc)[2][8][4], int wm, int wn, int g,
-                                          int t4) {
-#pragma unroll
-  for (int ks = 0; ks < BK; ks += 16) {
-    const int c = ks + t4 * 2;
-    uint32_t af[2][4], bfr[8][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int r = wm * 32 + mi * 16 + g;
-      af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[r][c]);
-      af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][c]);
-      af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[r][c + 8]);
-      af[mi][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][c + 8]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int n = wn * 64 + ni * 8 + g;
-      bfr[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[n][c]);
-      bfr[ni][1] = *reinterpret_cast<const uint32_t*>(&Bs[n][c + 8]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
   }
 }
 
@@ -180,10 +169,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128, fp32) += A (64 x 16) B^T (16 x 128), both bf16 K-major in
-// shared memory. Thread (warp w of the warpgroup, lane l) holds, for each
+// d (64 x 128, fp32) += A (64 x 16) B^T (16 x 128), both bf16 in shared
+// memory, K-major (TRANS = 0) or M- / N-major (TRANS = 1, the descriptor's
+// transpose bit). Thread (warp w of the warpgroup, lane l) holds, for each
 // n8 block j, d[4j], d[4j+1] at row 16w + l/4, columns 8j + 2(l%4) + {0, 1},
 // and d[4j+2], d[4j+3] 8 rows below.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -198,7 +189,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n"
+      " %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -211,7 +202,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // A consumer warpgroup's 64 x 128 sums into shared memory, rounded to bf16
@@ -244,14 +235,18 @@ __device__ __forceinline__ void stage_z(const float (&d)[64], uint32_t buf, int 
 // amap0 and amap1 are the two tap groups of the A operand (K columns
 // [0, cols0) and [cols0, K)), each a (cols, T_out, B) view of the input;
 // wmap is Wt (N, K); ymap and zmap are the outputs (N, T_out, B), written by
-// TMA (zmap only when has_z).
+// TMA (zmap only when has_z). With DZ, ymap takes dz = g * gelu'(z) in
+// place of gelu(z), g (B, T_out, N) fp32 (K6's last layer); a template
+// argument, so that K1's own epilogue carries no branch for it.
+template <bool DZ>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 conv_layer_wgmma(const __grid_constant__ CUtensorMap amap0,
                  const __grid_constant__ CUtensorMap amap1,
                  const __grid_constant__ CUtensorMap wmap,
                  const __grid_constant__ CUtensorMap ymap,
-                 const __grid_constant__ CUtensorMap zmap, int has_z, int T_out, int N, int K,
-                 int cols0, int n_tiles, int f_tiles, int tiles) {
+                 const __grid_constant__ CUtensorMap zmap, int has_z,
+                 const float* __restrict__ g, int T_out, int N, int K, int cols0, int n_tiles,
+                 int f_tiles, int tiles) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], zfull[2], zempty[2];
   // the ring's stage s at ring + s * STAGE_BYTES, then the two hand-off buffers
@@ -299,9 +294,9 @@ conv_layer_wgmma(const __grid_constant__ CUtensorMap amap0,
   const uint32_t zbase = ring + STAGES * STAGE_BYTES;  // ZBUF per consumer warpgroup
   if (warp > CONSUMER_WARPS) {
     // the epilogue warps: for each tile and warpgroup, z (K6's up pass) as it
-    // is, then y = gelu(z) in place, both stored by TMA, which clips frames
-    // past T_out and channels past N; once TMA has read the buffer it goes
-    // back to its warpgroup
+    // is, then y = gelu(z) (or dz = g * gelu'(z)) in place, both stored by
+    // TMA, which clips frames past T_out and channels past N; once TMA has
+    // read the buffer it goes back to its warpgroup
     const int et = threadIdx.x - 32 * (CONSUMER_WARPS + 1);
     int ti = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
@@ -330,8 +325,24 @@ conv_layer_wgmma(const __grid_constant__ CUtensorMap amap0,
           asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
                        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(buf + 16 * i) : "memory");
           bf16* e = reinterpret_cast<bf16*>(&v);
+          if constexpr (DZ) {
+            // chunk i of the two swizzled 64 x 64 boxes: box i / 512, row
+            // (i / 8) % 64, logical 8-column chunk (i % 8) ^ (row % 8)
+            const int r = (i >> 3) & 63;
+            const int f = fr + r, n = n0 + 64 * (i >> 9) + 8 * ((i & 7) ^ (r & 7));
+            if (f < T_out && n < N) {  // what lies past them TMA does not store
+              const float4* gp =
+                  reinterpret_cast<const float4*>(g + (static_cast<long long>(b) * T_out + f) * N + n);
+              const float4 g0 = __ldg(gp), g1 = __ldg(gp + 1);
+              const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
 #pragma unroll
-          for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16(gelu_tanh(__bfloat162float(e[k])));
+              for (int k = 0; k < 8; ++k)
+                e[k] = __float2bfloat16(gv[k] * gelu_grad_tanh(__bfloat162float(e[k])));
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16(gelu_tanh(__bfloat162float(e[k])));
+          }
           asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(buf + 16 * i), "r"(v.x),
                        "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
         }
@@ -426,12 +437,26 @@ int encode_map(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint
   return res == CUDA_SUCCESS ? 0 : TMA_ERROR + static_cast<int>(res);
 }
 
+// The card's SM count, asked once per process.
+int sm_count(int* sms) {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  *sms = count;
+  return 0;
+}
+
 // K1's bf16 layer GEMM, shared with K6's up pass so that both launch one
 // kernel on one tile geometry: y = gelu(z) (B, T_out, N) and, if z is not
-// null, z itself. wt is (N, K) with K = cols0 + cols1, every width a
+// null, z itself; or, if g (B, T_out, N) fp32 is not null, y = dz = g *
+// gelu'(z) and no z. wt is (N, K) with K = cols0 + cols1, every width a
 // multiple of WBK (the wrapper checks). Returns 0 or an error code.
-int conv_layer_bf16(const bf16* x, const bf16* wt, bf16* y, bf16* z, int B, int T_out, int N,
-                    AView av, cudaStream_t stream) {
+int conv_layer_bf16(const bf16* x, const bf16* wt, bf16* y, bf16* z, const float* g, int B,
+                    int T_out, int N, AView av, cudaStream_t stream) {
   const int K = av.cols0 + av.cols1;
   CUtensorMap amap0, amap1, wmap;
   const cuuint64_t astrides[2] = {static_cast<cuuint64_t>(av.row_stride) * 2,
@@ -463,26 +488,23 @@ int conv_layer_bf16(const bf16* x, const bf16* wt, bf16* y, bf16* z, int B, int 
   zmap = ymap;
   if (z != nullptr && (err = encode_map(&zmap, z, 3, odims, ostrides, obox)) != 0) return err;
 
-  static bool smem_set = false;  // above 48 KB only after opting in, once per process
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv_layer_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  const bool dz = g != nullptr;
+  auto kernel = dz ? conv_layer_wgmma<true> : conv_layer_wgmma<false>;
+  static bool smem_set[2] = {false, false};  // above 48 KB only after opting in, once per process
+  if (!smem_set[dz]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
+    smem_set[dz] = true;
   }
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  int sms = 0;
+  if (const int e = sm_count(&sms)) return e;
   const int n_tiles = (N + WBN - 1) / WBN, f_tiles = (T_out + WBM - 1) / WBM;
   const long long tiles = static_cast<long long>(B) * f_tiles * n_tiles;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  conv_layer_wgmma<<<blocks, WG_THREADS, WG_SMEM, stream>>>(
-      amap0, amap1, wmap, ymap, zmap, z != nullptr, T_out, N, K, av.cols0, n_tiles, f_tiles,
+  kernel<<<blocks, WG_THREADS, WG_SMEM, stream>>>(
+      amap0, amap1, wmap, ymap, zmap, z != nullptr, g, T_out, N, K, av.cols0, n_tiles, f_tiles,
       static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
@@ -512,8 +534,8 @@ __device__ __forceinline__ void fma_stage(const float (&As)[FBM][FLDS],
 __global__ void __launch_bounds__(256)
 conv_layer_f32(const float* __restrict__ x, const float* __restrict__ wt,
                const float* __restrict__ scale, const float* __restrict__ shift,
-               float* __restrict__ y, float* __restrict__ z, int T_in, int C_in, int T_out,
-               int N, int K, int s, long long M) {
+               float* __restrict__ y, float* __restrict__ z, const float* __restrict__ g,
+               int T_in, int C_in, int T_out, int N, int K, int s, long long M) {
   __shared__ __align__(16) float As[2][FBM][FLDS];
   __shared__ __align__(16) float Bs[2][FBN][FLDS];
   const int tid = threadIdx.x;
@@ -567,8 +589,9 @@ conv_layer_f32(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int cn = n0 + tn + 16 * j;
-      if (r < M && cn < N) {
-        y[r * N + cn] = gelu_exact(acc[i][j]);
+      if (r < M && cn < N) {  // with g: y is K6's dz = g * gelu'(z)
+        y[r * N + cn] = g != nullptr ? g[r * N + cn] * gelu_grad_exact(acc[i][j])
+                                     : gelu_exact(acc[i][j]);
         if (z != nullptr) z[r * N + cn] = acc[i][j];
       }
     }

@@ -1,14 +1,18 @@
 """s3prl-style upstream expert (``fithubert_tpu/export/expert.py:33``).
 
+    UpstreamExpert(ckpt, model_config, *args, device="cuda", length_quantum=16000, **kwargs)
     forward(wavs: list of 1-D waveforms, 16 kHz) ->
         {'last_hidden_state': (B, T, D_out) at 50 Hz,
          'hidden_states':     tuple of per-layer (B, T', D) hiddens,
          'padding_mask':      (B, T') bool, True = padding}
     get_downsample_rates(key) -> 320
 
-Built from a student config (or a reference-schema YAML path) and a torch
-state dict (or a ``.pt`` file of one). Every projection head but the last
-is dropped, as the reference's export does. The outputs are tensors on the
+The arguments come in the reference's order, as the s3prl hub hook passes
+them (``hubconf.py:8-12``): ``ckpt`` is a torch state dict or a ``.pt`` file
+of one, ``model_config`` a reference-schema YAML path or a
+``StudentConfig``. Extra hub arguments are accepted and ignored, as the JAX
+expert ignores its ``**kwargs``. Every projection head but the last is
+dropped, as the reference's export does. The outputs are tensors on the
 expert's device.
 """
 
@@ -34,15 +38,23 @@ def quantize_length(length: int, quantum: int, max_length: int = 0) -> int:
 
 
 class UpstreamExpert:
-    def __init__(self, cfg: Union[StudentConfig, str],
-                 weights: Union[Mapping[str, torch.Tensor], str],
-                 device: Union[str, torch.device] = "cuda",
-                 length_quantum: int = 16000):
+    def __init__(self, ckpt: Union[Mapping[str, torch.Tensor], str],
+                 model_config: Union[StudentConfig, str], *args: Any,
+                 device: Union[str, torch.device] = "cuda", length_quantum: int = 16000,
+                 **kwargs: Any):
+        if isinstance(ckpt, str) and ckpt.endswith(".ckpt"):
+            raise NotImplementedError(
+                f"{ckpt}: the reference's Lightning .ckpt is not read yet (ROADMAP Queue 1 "
+                "item 5); pass a torch state dict or a .pt file of one")
+        if kwargs.get("int8"):
+            raise NotImplementedError("int8=True (quantize_matmuls): the PyTorch port "
+                                      "serves only unquantized matmuls")
         self.device = resolve_device(device)
-        self.cfg = load_yaml_config(cfg) if isinstance(cfg, str) else cfg
+        self.cfg = load_yaml_config(model_config) if isinstance(model_config, str) \
+            else model_config
         self.length_quantum = length_quantum
-        sd = (torch.load(weights, map_location="cpu", weights_only=True)
-              if isinstance(weights, str) else weights)
+        sd = (torch.load(ckpt, map_location="cpu", weights_only=True)
+              if isinstance(ckpt, str) else ckpt)
         last = f"proj_head.{self.cfg.encoder_layers - 1}."
         sd = {k: v for k, v in sd.items()
               if not k.startswith("proj_head.") or k.startswith(last)}

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` functions and compiles
 with ``nvcc`` alone into ``build/<name>-<hash>/lib<name>.so`` inside the
 package (``build/`` is git-ignored), at first use, keyed on a hash of the
 source, the shared headers ``csrc/*.cuh`` and the flags. The library is
-loaded with ``ctypes``. Nothing here runs at import time, so the modules
-import on a machine without ``nvcc``.
+loaded with ``ctypes``; ptxas's report of each kernel's registers and
+spills (``-Xptxas -v``) is kept beside it (``ptxas_usage``). Nothing here
+runs at import time, so the modules import on a machine without ``nvcc``.
 
 Every kernel wrapper adds one to ``LAUNCHES[<kernel name>]`` for each kernel
 launch it makes, and nowhere else, so a run can show which kernels it went
@@ -18,16 +19,17 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {}
 
@@ -86,6 +88,8 @@ def _finish_build(build: Optional[_Build]) -> None:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n"
                            + log.decode(errors="replace"))
+    with open(os.path.join(os.path.dirname(out), "nvcc.log"), "wb") as f:
+        f.write(log)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
@@ -100,6 +104,49 @@ def build_all(names: Iterable[str]) -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def _kernel_name(mangled: str) -> str:
+    """The unqualified name of a mangled kernel symbol: the last
+    <length><identifier> of its nested name (``_ZN ... E``), or its one
+    name (``_Z``), with literal template arguments (``ILb1EE``: ``<1>``)."""
+    nested = mangled.startswith("_ZN")
+    i, name = (3 if nested else 2), mangled
+    while (m := re.compile(r"\d+").match(mangled, i)):
+        n = int(m.group())
+        name, i = mangled[m.end():m.end() + n], m.end() + n
+        if not nested:
+            break
+    args = re.compile(r"I((?:L[a-z]+\d+E)+)E").match(mangled, i)
+    if args:
+        name += "<" + ", ".join(re.findall(r"L[a-z]+(\d+)E", args.group(1))) + ">"
+    return name
+
+
+def parse_ptxas(log: str) -> List[Tuple[str, int, int, int]]:
+    """(kernel, registers, spill-store bytes, spill-load bytes) of each entry
+    function in an ``nvcc -Xptxas -v`` log, in the log's order."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if entry:
+            cur = [_kernel_name(entry.group(1)), 0, 0, 0]
+        elif cur and spill:
+            cur[2], cur[3] = int(spill.group(1)), int(spill.group(2))
+        elif cur and regs:
+            cur[1] = int(regs.group(1))
+            rows.append(tuple(cur))
+            cur = None
+    return rows
+
+
+def ptxas_usage(name: str) -> List[Tuple[str, int, int, int]]:
+    """``parse_ptxas`` of the report kept when ``csrc/<name>.cu`` was built."""
+    with open(os.path.join(os.path.dirname(_lib_path(name)), "nvcc.log"),
+              errors="replace") as f:
+        return parse_ptxas(f.read())
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,21 +17,26 @@ input (``a_operand_view``); it takes widths that are multiples of 64 and
 raises otherwise (``check_widths``). The bf16 GroupNorm prefix is a kernel
 of its own, ``gn_prefix_cuda``, launched before the first layer.
 
-Its gradient has the JAX package's two backwards, picked by the same
-environment variable, ``FITHUBERT_CONV_BWD``, read at backward time
-(``_kernel_bwd_enabled``, a copy of ``_pallas_bwd_enabled`` ``:322-335``),
-so one setting picks the same backward in both packages:
-- ``xla`` (the default): the counterpart of ``_fused_bwd`` (``:353-357``)
-  and ``_fused_gn_bwd`` (``:444-449``), which recompute the stack with XLA
-  convolutions and differentiate that. Here the recompute is ``F.conv1d``
-  with the same GELU flavour, library convolution as it is XLA's there.
-- ``pallas``: the conv-stack backward kernel K6 (``conv_frontend_bwd.py:290
+Its gradient has the JAX package's two backwards. ``conv_backward_kind``,
+a function of ``FITHUBERT_CONV_BWD`` (the JAX package's variable, read at
+backward time) and the tensors' device, picks one:
+- ``kernel``: the conv-stack backward kernel K6 (``conv_frontend_bwd.py:290
   pallas_stack_bwd``), ``csrc/conv_frontend_bwd.cu`` on a CUDA tensor and
   ``conv_stack_bwd_plain`` on a CPU tensor. As in the JAX package's
   ``_fused_gn_bwd`` (``:426-443``), the GroupNorm + GELU prefix
   a0 = gelu(x * scale + shift) is materialised once, K6 runs on a0, and
   autograd carries da0 through the prefix into x, scale and shift.
-Either way autograd then carries dscale and dshift through
+- ``library``: the counterpart of ``_fused_bwd`` (``:353-357``) and
+  ``_fused_gn_bwd`` (``:444-449``), which recompute the stack with XLA
+  convolutions and differentiate that. Here the recompute is ``F.conv1d``
+  with the same GELU flavour, library convolution as it is XLA's there.
+``pallas`` selects the kernel and ``xla`` the library, as in the JAX
+package. Unset, the two packages differ on the card: the port runs K6 there
+(2.3x faster than the recompute on an H100), where the JAX package's
+default is the recompute, set because its Pallas kernel lost on a TPU v5e
+(``_pallas_bwd_enabled``, ``:322-335``). On a CPU tensor the unset default
+stays the recompute, so the CPU parity tests pin the JAX package's
+default. Either way autograd then carries dscale and dshift through
 ``gn_scale_shift`` into x, gamma and beta, which gives the GroupNorm
 gradient that ``_gn_prefix_bwd`` (``:216-236``) writes by hand.
 """
@@ -141,11 +146,16 @@ def _prefix(x, scale, shift):
     return _gelu(x.dtype)(x.float() * scale.float()[:, None] + shift.float()[:, None]).to(x.dtype)
 
 
-def _kernel_bwd_enabled() -> bool:
-    """Whether the conv stack's backward runs K6: ``FITHUBERT_CONV_BWD=pallas``,
-    the JAX package's switch (``_pallas_bwd_enabled``), read when the
-    backward runs. The default, ``xla``, is the library recompute."""
-    return os.environ.get("FITHUBERT_CONV_BWD", "xla").lower() == "pallas"
+def conv_backward_kind(env: Optional[str], device_type: str) -> str:
+    """Which backward the conv stack takes: ``"kernel"`` (K6) or
+    ``"library"`` (autograd through the ``F.conv1d`` recompute), from the
+    value of ``FITHUBERT_CONV_BWD`` (``None`` when unset) and the device
+    type of the tensors. ``pallas`` is K6 and any other value the library,
+    as the JAX package reads its variable; unset, K6 on the card and the
+    library on the CPU (the module docstring says why)."""
+    if env:
+        return "kernel" if env.lower() == "pallas" else "library"
+    return "kernel" if device_type == "cuda" else "library"
 
 
 def _check(x: torch.Tensor, weights: Sequence[torch.Tensor], spec: Spec,
@@ -271,24 +281,26 @@ def conv_stack_bwd_plain(a0: torch.Tensor, weights: Sequence[torch.Tensor],
                          g: torch.Tensor, spec: Spec) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(da0, [dW_i]), all fp32, the stack's backward by K6's own steps
     (``pallas_stack_bwd``): an up pass with explicit tap matmuls storing
-    z_i (pre-GELU) and a_{i+1} = gelu(z_i) in a0's dtype, then from the last
-    layer down dz = g * gelu'(z_i) rounded to a0's dtype, dW_i[j] =
-    tap_j(a_i)^T dz, da_i = sum_j dz W_i[j]^T placed at the rows tap j read,
-    and g = da_i, kept fp32 between layers. Not autograd."""
+    z_i (pre-GELU) and a_{i+1} = gelu(z_i) in a0's dtype, whose last layer
+    gives dz = g * gelu'(z) rounded to a0's dtype in their place; then from
+    the last layer down dW_i[j] = tap_j(a_i)^T dz, da_i = sum_j dz W_i[j]^T
+    placed at the rows tap j read, kept fp32, and the next dz = da_i *
+    gelu'(z_{i-1}) rounded to a0's dtype. Not autograd."""
     dtype = a0.dtype
     gelu, gelu_grad = _gelu(dtype), _gelu_grad(dtype)
     a_store, z_store = [a0], []
-    for w, (_d, k, s) in zip(weights, spec):
+    for i, (w, (_d, k, s)) in enumerate(zip(weights, spec)):
         a = a_store[-1].float()
         t_out = (a.shape[1] - k) // s + 1
         z = sum(_taps(a, j, s, t_out) @ w[j].float() for j in range(k)).to(dtype)
-        z_store.append(z)
-        a_store.append(gelu(z.float()).to(dtype))
-    g = g.float()
+        if i == len(spec) - 1:
+            dz = (g.float() * gelu_grad(z.float())).to(dtype).float()
+        else:
+            z_store.append(z)
+            a_store.append(gelu(z.float()).to(dtype))
     dws = [None] * len(spec)
     for i in reversed(range(len(spec))):
         _d, k, s = spec[i]
-        dz = (g * gelu_grad(z_store[i].float())).to(dtype).float()
         a, w = a_store[i].float(), weights[i].float()
         t_out = dz.shape[1]
         dws[i] = torch.stack([torch.einsum("btc,btd->cd", _taps(a, j, s, t_out), dz)
@@ -296,17 +308,26 @@ def conv_stack_bwd_plain(a0: torch.Tensor, weights: Sequence[torch.Tensor],
         da = torch.zeros_like(a)
         for j in range(k):
             _taps(da, j, s, t_out).add_(dz @ w[j].t())
-        g = da
-    return g, dws
+        if i == 0:
+            return da, dws
+        dz = (da * gelu_grad(z_store[i - 1].float())).to(dtype).float()
 
 
-def _dw_split(m_red: int, kdim: int, n: int, tile: int, depth: int) -> Tuple[int, int]:
-    """(chunk_len, n_chunks) of the dW reduction over m_red frames: enough
-    chunks that the (kdim, n) tiles of ``tile`` fill ~2 blocks per SM of an
-    H100 (132 SMs), each chunk a multiple of the ``depth`` frames of a stage.
-    A function of the shapes alone, so the sum order is fixed."""
-    tiles = math.ceil(kdim / tile) * math.ceil(n / tile)
-    chunks = max(1, min(math.ceil(264 / tiles), math.ceil(m_red / depth)))
+# The dW kernels' geometry: (tile rows, tile columns, reduction rows a chunk
+# is a multiple of, blocks to aim for). bf16 reduces over (batch row,
+# 64-frame tile) steps, one block per SM of an H100 (132 SMs); fp32 over
+# frames, 16 a stage, two blocks per SM.
+DW_GEOMETRY = {torch.bfloat16: (128, 256, 1, 132), torch.float32: (64, 64, 16, 264)}
+
+
+def _dw_split(m_red: int, kdim: int, n: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(chunk_len, n_chunks) of the dW reduction over m_red rows (bf16:
+    steps, fp32: frames): as many chunks as let the (kdim, n) tiles fill the
+    card's blocks once, each chunk a whole number of stages. A function of
+    the shapes alone, so the sum order is fixed."""
+    tile_m, tile_n, depth, blocks = DW_GEOMETRY[dtype]
+    tiles = math.ceil(kdim / tile_m) * math.ceil(n / tile_n)
+    chunks = max(1, min(blocks // tiles, math.ceil(m_red / depth)))
     chunk_len = math.ceil(math.ceil(m_red / chunks) / depth) * depth
     return chunk_len, math.ceil(m_red / chunk_len)
 
@@ -315,10 +336,9 @@ def _dw_split(m_red: int, kdim: int, n: int, tile: int, depth: int) -> Tuple[int
 def _bwd_fns():
     lib = _build.load("conv_frontend_bwd")
     ptr, i32, i64 = _PTR, _I32, _I64
-    sig = {"conv_bwd_up": [i32] + [ptr] * 4 + [i32] * 7 + _VIEW_ARGS + [ptr],
-           "conv_bwd_dz": [i32] + [ptr] * 3 + [i64, ptr],
+    sig = {"conv_bwd_up": [i32] + [ptr] * 5 + [i32] * 7 + _VIEW_ARGS + [ptr],
            "conv_bwd_da": [i32] + [ptr] * 5 + [i32] * 7 + [ptr],
-           "conv_bwd_dw": [i32] + [ptr] * 3 + [i32] * 9 + [ptr],
+           "conv_bwd_dw": [i32] + [ptr] * 3 + [i32] * 7 + _VIEW_ARGS + [i32] * 2 + [ptr],
            "conv_bwd_dw_reduce": [ptr] * 2 + [i64, i32, ptr]}
     fns = {}
     for name, argtypes in sig.items():
@@ -333,73 +353,106 @@ def _launch(fn, *args) -> None:
     _build.count_launch(KERNEL_BWD)
 
 
-def up_pass_cuda(a: torch.Tensor, w: torch.Tensor, layer: Tuple[int, int, int]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def up_cuda(a: torch.Tensor, wt: torch.Tensor, layer: Tuple[int, int, int],
+            g: Optional[torch.Tensor] = None):
     """K6's up pass over one layer (d, k, s) of contiguous CUDA a (B, T_in,
-    C_in) and w (k, C_in, d): (z, gelu(z)), z the pre-GELU sum in a's dtype.
-    It is K1's launch on K1's tile geometry, so gelu(z) is K1's output bit
-    for bit. One K6 launch."""
+    C_in), wt the weight as (d, k, C_in): (z, gelu(z)) in a's dtype, z the
+    pre-GELU sum; or, given g (B, T_out, d) fp32, dz = g * gelu'(z) alone.
+    K1's launch on K1's tile geometry. One K6 launch."""
     d, k, s = layer
     b, t_in, c_in = a.shape
     t_out = (t_in - k) // s + 1
-    wt = w.permute(2, 0, 1).contiguous()  # (C_out, k, C_in), as K1 takes it
-    z = torch.empty((b, t_out, d), dtype=a.dtype, device=a.device)
-    a_next = torch.empty_like(z)
+    out = torch.empty((b, t_out, d), dtype=a.dtype, device=a.device)
+    z = None if g is not None else torch.empty_like(out)
     _launch(_bwd_fns()["conv_bwd_up"], _DTYPE_CODE[a.dtype], a.data_ptr(), wt.data_ptr(),
-            z.data_ptr(), a_next.data_ptr(), b, t_in, c_in, t_out, d, k, s,
+            None if z is None else z.data_ptr(), out.data_ptr(),
+            None if g is None else g.data_ptr(), b, t_in, c_in, t_out, d, k, s,
             *a_operand_view(t_in, c_in, k, s), torch.cuda.current_stream(a.device).cuda_stream)
-    return z, a_next
+    return out if g is not None else (z, out)
+
+
+def up_pass_cuda(a: torch.Tensor, w: torch.Tensor, layer: Tuple[int, int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's up pass over one layer of contiguous CUDA a and w (k, C_in, d):
+    (z, gelu(z)); gelu(z) is K1's output bit for bit."""
+    return up_cuda(a, w.permute(2, 0, 1).contiguous(), layer)
+
+
+def dw_partials_cuda(a: torch.Tensor, dz: torch.Tensor, layer: Tuple[int, int, int]
+                     ) -> torch.Tensor:
+    """K6's dW launch for one layer (d, k, s): fp32 partials (n_chunks, k *
+    C_in, d) of tap(a)^T dz over fixed chunks of the frames (``_dw_split``).
+    One K6 launch."""
+    d, k, s = layer
+    b, t_in, c_in = a.shape
+    t_out = dz.shape[1]
+    m_red = b * (math.ceil(t_out / 64) if a.dtype == torch.bfloat16 else t_out)
+    chunk_len, n_chunks = _dw_split(m_red, k * c_in, d, a.dtype)
+    part = torch.empty((n_chunks, k * c_in, d), dtype=torch.float32, device=a.device)
+    _launch(_bwd_fns()["conv_bwd_dw"], _DTYPE_CODE[a.dtype], a.data_ptr(), dz.data_ptr(),
+            part.data_ptr(), b, t_in, c_in, t_out, d, k, s, *a_operand_view(t_in, c_in, k, s),
+            chunk_len, n_chunks, torch.cuda.current_stream(a.device).cuda_stream)
+    return part
+
+
+def dw_reduce_cuda(part: torch.Tensor, layer: Tuple[int, int, int]) -> torch.Tensor:
+    """The ordered sum of the dW partials: dW (k, C_in, d) fp32. One K6 launch."""
+    d, k, _s = layer
+    dw = torch.empty((k, part.shape[1] // k, d), dtype=torch.float32, device=part.device)
+    _launch(_bwd_fns()["conv_bwd_dw_reduce"], part.data_ptr(), dw.data_ptr(), dw.numel(),
+            part.shape[0], torch.cuda.current_stream(part.device).cuda_stream)
+    return dw
+
+
+def da_cuda(dz: torch.Tensor, wk: torch.Tensor, layer: Tuple[int, int, int], t_in: int,
+            z_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6's da launch for one layer (d, k, s) from dz (B, T_out, d) and wk =
+    w (k, C_in, d) contiguous: with z_prev (B, t_in, C_in), the layer
+    below's dz = da * gelu'(z_prev) in the dtype; without, da0 in fp32. One
+    K6 launch."""
+    d, k, s = layer
+    b, t_out = dz.shape[0], dz.shape[1]
+    c_in = wk.shape[1]
+    if z_prev is not None:
+        out = torch.empty_like(z_prev)
+        ptrs = (z_prev.data_ptr(), out.data_ptr(), None)
+    else:
+        out = torch.empty((b, t_in, c_in), dtype=torch.float32, device=dz.device)
+        ptrs = (None, None, out.data_ptr())
+    _launch(_bwd_fns()["conv_bwd_da"], _DTYPE_CODE[dz.dtype], dz.data_ptr(), wk.data_ptr(),
+            *ptrs, b, t_in, c_in, t_out, d, k, s, torch.cuda.current_stream(dz.device).cuda_stream)
+    return out
 
 
 def conv_stack_bwd_cuda(a0: torch.Tensor, weights: Sequence[torch.Tensor],
                         g: torch.Tensor, spec: Spec) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """K6 on CUDA tensors: (da0, [dW_i]), fp32, in 4L + 1 launches."""
-    fns = _bwd_fns()
+    """K6 on CUDA tensors: (da0, [dW_i]), fp32, in 4L launches: L up passes
+    (the last writes dz), L dW, L ordered sums of its chunks, L da."""
     check_widths(a0.shape[-1], spec, a0.dtype, KERNEL_BWD)  # its up pass is K1's GEMM
-    dt = _DTYPE_CODE[a0.dtype]
-    dev = a0.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    b = a0.shape[0]
-    tile, depth = (128, 32) if a0.dtype == torch.bfloat16 else (64, 16)  # the kernels' tiles
+    # the weights' layouts, once per backward: (C_out, k, C_in) rows of K for
+    # the up pass, (k, C_in, C_out) with C_out contiguous for da
+    wts = [w.permute(2, 0, 1).contiguous() for w in weights]
+    wks = [w.contiguous() for w in weights]
     a_store, z_store = [a0.contiguous()], []
-    for w, layer in zip(weights, spec):
-        z, a_next = up_pass_cuda(a_store[-1], w, layer)
+    for i, layer in enumerate(spec[:-1]):
+        z, a_next = up_cuda(a_store[-1], wts[i], layer)
         z_store.append(z)
         a_store.append(a_next)
-    g = g.float().contiguous()
-    dz = torch.empty_like(z_store[-1])
-    _launch(fns["conv_bwd_dz"], dt, g.data_ptr(), z_store[-1].data_ptr(), dz.data_ptr(),
-            dz.numel(), stream)
+    dz = up_cuda(a_store[-1], wts[-1], spec[-1], g.float().contiguous())
     dws = [None] * len(spec)
     for i in reversed(range(len(spec))):
-        d, k, s = spec[i]
-        a = a_store[i]
-        t_in, c_in, t_out = a.shape[1], a.shape[2], dz.shape[1]
-        chunk_len, n_chunks = _dw_split(b * t_out, k * c_in, d, tile, depth)
-        part = torch.empty((n_chunks, k * c_in, d), dtype=torch.float32, device=dev)
-        _launch(fns["conv_bwd_dw"], dt, a.data_ptr(), dz.data_ptr(), part.data_ptr(), b, t_in,
-                c_in, t_out, d, k, s, chunk_len, n_chunks, stream)
-        dws[i] = torch.empty((k, c_in, d), dtype=torch.float32, device=dev)
-        _launch(fns["conv_bwd_dw_reduce"], part.data_ptr(), dws[i].data_ptr(), k * c_in * d,
-                n_chunks, stream)
-        w = weights[i].contiguous()  # (k, C_in, C_out)
-        if i > 0:  # dz of the layer below, in the dtype
-            z_prev = z_store[i - 1]
-            out = torch.empty_like(z_prev)
-            ptrs = (z_prev.data_ptr(), out.data_ptr(), None)
-        else:  # da0, fp32
-            out = torch.empty((b, t_in, c_in), dtype=torch.float32, device=dev)
-            ptrs = (None, None, out.data_ptr())
-        _launch(fns["conv_bwd_da"], dt, dz.data_ptr(), w.data_ptr(), *ptrs, b, t_in, c_in,
-                t_out, d, k, s, stream)
-        a_store[i + 1] = z_store[i] = None  # no longer read: free them early
-        dz = out
+        dws[i] = dw_reduce_cuda(dw_partials_cuda(a_store[i], dz, spec[i]), spec[i])
+        t_in = a_store[i].shape[1]
+        a_store[i] = None  # no longer read: free it early
+        dz = da_cuda(dz, wks[i], spec[i], t_in, z_store[i - 1] if i > 0 else None)
+        if i > 0:
+            z_store[i - 1] = None
     return dz, dws
 
 
 class _ConvStack(torch.autograd.Function):
-    """Forward: the kernel (or the plain version on the CPU). Backward: K6
-    under ``FITHUBERT_CONV_BWD=pallas``, else autograd through
+    """Forward: the kernel (or the plain version on the CPU). Backward, as
+    ``conv_backward_kind`` picks: K6, or autograd through
     ``conv_stack_plain`` recomputed from the saved inputs."""
 
     @staticmethod
@@ -415,7 +468,7 @@ class _ConvStack(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        if _kernel_bwd_enabled():
+        if conv_backward_kind(os.environ.get("FITHUBERT_CONV_BWD"), grad.device.type) == "kernel":
             return _kernel_backward(ctx, grad)
         needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[4:]
         inputs = [None if t is None else t.detach().requires_grad_(n)
@@ -431,8 +484,8 @@ class _ConvStack(torch.autograd.Function):
 
 
 def _kernel_backward(ctx, grad):
-    """The backward through K6 (``_fused_bwd`` / ``_fused_gn_bwd`` under the
-    switch, ``conv_frontend.py:345-352, 426-443``)."""
+    """The backward through K6 (``_fused_bwd`` / ``_fused_gn_bwd`` under
+    ``FITHUBERT_CONV_BWD=pallas``, ``conv_frontend.py:345-352, 426-443``)."""
     x, scale, shift, *weights = ctx.saved_tensors
     if scale is not None:
         with torch.enable_grad():

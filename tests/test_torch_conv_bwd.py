@@ -134,9 +134,40 @@ def test_release_student_spec_matches_the_library_recompute(monkeypatch, dtype):
 
 
 def test_dw_split_is_fixed_by_the_shapes():
-    """The dW reduction's chunks cover every frame once, each a whole number
-    of stages, and depend on nothing but the shapes."""
-    for m_red, kdim, n in ((12 * 38399, 128, 256), (12 * 599, 1024, 512), (5, 16, 8)):
-        chunk_len, n_chunks = cf._dw_split(m_red, kdim, n, 128, 32)
-        assert chunk_len % 32 == 0 and (n_chunks - 1) * chunk_len < m_red <= n_chunks * chunk_len
-        assert (chunk_len, n_chunks) == cf._dw_split(m_red, kdim, n, 128, 32)
+    """The dW reduction's chunks cover every row once, each a whole number
+    of stages, fill the card's blocks at most once, and depend on nothing
+    but the shapes (bf16 rows are (batch row, 64-frame tile) steps)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        tile_m, tile_n, depth, blocks = cf.DW_GEOMETRY[dtype]
+        for m_red, kdim, n in ((12 * 600, 128, 256), (12 * 10, 1024, 512), (5, 64, 64),
+                               (12 * 38399, 768, 256)):
+            chunk_len, n_chunks = cf._dw_split(m_red, kdim, n, dtype)
+            assert chunk_len % depth == 0
+            assert (n_chunks - 1) * chunk_len < m_red <= n_chunks * chunk_len
+            tiles = -(-kdim // tile_m) * -(-n // tile_n)
+            assert n_chunks == 1 or tiles * n_chunks <= blocks
+            assert (chunk_len, n_chunks) == cf._dw_split(m_red, kdim, n, dtype)
+
+
+@pytest.mark.parametrize("env, device, want", [
+    (None, "cuda", "kernel"), ("pallas", "cuda", "kernel"), ("xla", "cuda", "library"),
+    (None, "cpu", "library"), ("pallas", "cpu", "kernel"), ("xla", "cpu", "library"),
+], ids=lambda v: str(v))
+def test_conv_backward_kind_by_variable_and_device(env, device, want):
+    """Unset or ``pallas``, K6 on the card; ``xla`` the library recompute;
+    unset on the CPU the library, the JAX package's default."""
+    assert cf.conv_backward_kind(env, device) == want
+    if env is not None:  # any case, as the JAX package reads it
+        assert cf.conv_backward_kind(env.upper(), device) == want
+
+
+def test_unset_variable_on_the_cpu_runs_the_library_recompute(monkeypatch):
+    """Without FITHUBERT_CONV_BWD a CPU backward never reaches K6's plain
+    version, so the CPU parity tests pin the JAX package's default."""
+    x, ws, g = _inputs(SPEC_SMALL)
+    monkeypatch.delenv("FITHUBERT_CONV_BWD", raising=False)
+    calls = []
+    monkeypatch.setattr(cf, "conv_stack_bwd_plain", lambda *a: calls.append(1))
+    xs = x.clone().requires_grad_()
+    cf.conv_stack(xs, ws, SPEC_SMALL).backward(g)
+    assert calls == [] and torch.isfinite(xs.grad).all()

@@ -7,8 +7,10 @@ up pass against K1's output bit for bit, short and odd T at the attention tiles'
 edges, strided q/k/v views, misaligned views (rejected), fully padded
 rows, the attention backward (K3, K4) with and without dropout, and its
 determinism; the seeded dropout (K5) bit for bit, forward and backward;
-the conv-stack backward (K6) on ragged T with k < s, k = s and k > s layers,
-and its determinism. Skipped where there is no CUDA card. On a machine
+the conv-stack backward (K6) on ragged T with k < s, k = s and k > s layers
+and on the whole student stack at odd T_in with B > 1, its determinism, and
+its selection as the card's default backward, down to a train step.
+Skipped where there is no CUDA card. On a machine
 with one (and without JAX, which the suite's conftest imports):
 
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
@@ -317,6 +319,7 @@ def test_seeded_dropout_of_an_unaligned_view(dev):
 # the rounding of z or dz by one step, which moves the gradient well below
 # 1e-2 of its norm.
 K6_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+STUDENT_STACK = ((256, 1, 1),) + ((256, 3, 2),) * 4 + ((512, 1, 1),) + ((512, 2, 2),) * 2
 K6_CASES = [
     # ragged T, T_out and widths not multiples of the tiles, k > s, k = s,
     # k = s = 1 (bf16 widths are multiples of 64: K1's up pass takes no other)
@@ -325,6 +328,8 @@ K6_CASES = [
     ("k_lt_s", (2, 257, 64, ((64, 1, 2), (128, 3, 2)))),
     # the student's widths
     ("student", (3, 397, 128, ((256, 1, 1), (256, 3, 2), (512, 1, 1), (512, 2, 2)))),
+    # every layer shape of the student's stack, odd T_in with B > 1
+    ("student_stack", (2, 1001, 128, STUDENT_STACK)),
 ]
 # fp32 only: K and widths not multiples of the fp32 tiles (K = 72, 80; N =
 # 40, 48, 16, 24), with k > s, k = s, k = s = 1 and k < s
@@ -349,7 +354,7 @@ def test_conv_stack_backward_matches_plain(dev, case, dtype):
     a0, ws, cot, spec = _k6_inputs(case, dtype, dev, seed=case[1])
     _build.reset_launches()
     da0, dws = cf.conv_stack_bwd_cuda(a0, ws, cot, spec)
-    assert _build.LAUNCHES == {cf.KERNEL_BWD: 4 * len(spec) + 1}
+    assert _build.LAUNCHES == {cf.KERNEL_BWD: 4 * len(spec)}
     want_da0, want_dws = cf.conv_stack_bwd_plain(a0, ws, cot, spec)
     for got, want in [(da0, want_da0)] + list(zip(dws, want_dws)):
         assert got.dtype == torch.float32 and got.shape == want.shape
@@ -363,7 +368,7 @@ def test_conv_stack_backward_matches_plain(dev, case, dtype):
 def test_conv_stack_backward_is_deterministic(dev):
     """No atomics: the dW chunks are summed in a fixed order, and every
     element of da is written by one thread. Two runs are bit-identical."""
-    a0, ws, cot, spec = _k6_inputs(K6_CASES[2][1], torch.bfloat16, dev, seed=0)
+    a0, ws, cot, spec = _k6_inputs(K6_CASES[3][1], torch.bfloat16, dev, seed=0)
     runs = [cf.conv_stack_bwd_cuda(a0, ws, cot, spec) for _ in range(2)]
     assert torch.equal(runs[0][0], runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
@@ -379,6 +384,66 @@ def test_conv_stack_switch_launches_k6_on_the_card(dev, monkeypatch):
     out = cf.conv_stack(x, ws, spec)
     _build.reset_launches()
     out.backward(cot)
-    assert _build.LAUNCHES == {cf.KERNEL_BWD: 4 * len(spec) + 1}
+    assert _build.LAUNCHES == {cf.KERNEL_BWD: 4 * len(spec)}
     torch.testing.assert_close(x.grad.float(), cf.conv_stack_bwd_plain(a0, ws, cot, spec)[0],
                                rtol=0.0, atol=1e-2 * x.grad.float().abs().max().item())
+
+
+@pytest.mark.parametrize("env, k6", [(None, True), ("pallas", True), ("xla", False)],
+                         ids=["unset", "pallas", "xla"])
+def test_conv_stack_backward_default_on_the_card(dev, monkeypatch, env, k6):
+    """On CUDA tensors K6 is the default backward; FITHUBERT_CONV_BWD=xla
+    selects the library recompute, which launches no K6 kernel."""
+    a0, ws, cot, spec = _k6_inputs(K6_CASES[2][1], torch.bfloat16, dev, seed=2)
+    if env is None:
+        monkeypatch.delenv("FITHUBERT_CONV_BWD", raising=False)
+    else:
+        monkeypatch.setenv("FITHUBERT_CONV_BWD", env)
+    x = a0.clone().requires_grad_()
+    out = cf.conv_stack(x, ws, spec)
+    _build.reset_launches()
+    out.backward(cot)
+    assert _build.LAUNCHES.get(cf.KERNEL_BWD, 0) == (4 * len(spec) if k6 else 0)
+    assert torch.isfinite(x.grad.float()).all()
+
+
+def test_train_step_runs_k6_with_the_variable_unset(dev, monkeypatch):
+    """A bf16 Distiller step on the card (a narrow teacher and student whose
+    conv widths suit the card's GEMMs) runs the student's conv-stack
+    backward through K6 with FITHUBERT_CONV_BWD unset: 4 launches per layer
+    after block 0, one fused backward per step."""
+    from fithubert_tpu_torch import config as tc
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
+    from fithubert_tpu_torch.train.step import Distiller
+
+    monkeypatch.delenv("FITHUBERT_CONV_BWD", raising=False)
+    s_spec, t_spec = ((64, 10, 5), (64, 3, 2), (128, 2, 2)), ((64, 10, 5), (128, 3, 2), (128, 2, 2))
+    student = tc.StudentConfig(
+        conv_feature_layers=s_spec, encoder_layers=2, encoder_embed_dim=80,
+        encoder_ffn_embed_dim=128, encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4,
+        layerwise_proj=True, enable_tr_layer=True, tr_layer_type="conv1d", tr_layer_index=0,
+        pred_head_final_dim=128, pred_layer_id=(1,), required_seq_len_multiple=1,
+        compute_dtype="bfloat16")
+    teacher = dict(encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=128,
+                   encoder_attention_heads=2)
+    cfg = tc.ExperimentConfig(
+        teacher=tc.TeacherConfig(**teacher),
+        train=tc.TrainConfig(batch_size=2, accumulate_grad_batches=2, use_fp16=True),
+        loss=tc.LossConfig(rec_loss_type="mse", sim_loss_weight=0.0, distil_random_layer=1,
+                           random_layer_weight=0.1),
+        distiller=student)
+    gen = torch.Generator().manual_seed(0)
+    geom = TeacherGeometry(conv_feature_layers=t_spec, conv_pos=16, conv_pos_groups=4, **teacher)
+    t_state = TeacherModel(geom, device="cpu").init_weights(gen).state_dict()
+    s_state = StudentModel(student, device="cpu").init_weights(gen).state_dict()
+    d = Distiller(cfg, t_state, s_state, device="cuda", num_training_steps=10,
+                  teacher_geometry=geom)
+    batch = {"x": torch.randn(2, 2, 4000, generator=gen) * 0.1,
+             "padding_mask": torch.zeros(2, 2, 4000, dtype=torch.bool)}
+    for _ in range(2):
+        _build.reset_launches()
+        logs = d.train_step(batch, torch.tensor([0]))
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[cf.KERNEL_BWD] == 4 * (len(s_spec) - 1)
+        assert all(torch.isfinite(torch.tensor(v)) for v in logs.values())

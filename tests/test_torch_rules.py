@@ -65,7 +65,7 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StudentModel(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        UpstreamExpert(cfg, {})
+        UpstreamExpert({}, cfg)
     assert resolve_device("cpu").type == "cpu"
     assert next(StudentModel(cfg, device="cpu").parameters()).device.type == "cpu"
 
@@ -105,3 +105,24 @@ def test_build_path_is_keyed_on_the_source(tmp_path, monkeypatch):
     (src / "k.cu").write_text("int b;")
     assert _build._lib_path("k") != first
     assert os.path.basename(first) == "libk.so"
+
+
+def test_ptxas_report_gives_each_kernels_registers_and_spills():
+    """The ``-Xptxas -v`` lines of entry functions in an anonymous namespace
+    whose hash ends in digits, one of them a template, and at global scope."""
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__68b50a81_16_conv_frontend_cu_ec84f43916conv_layer_wgmmaE14CUtensorMap_stS0_i' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__68b50a81_16_conv_frontend_cu_ec84f43916conv_layer_wgmmaE14CUtensorMap_stS0_i
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 2 barriers, 128 bytes smem
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__68b50a81_16_conv_frontend_cu_ec84f43916conv_layer_wgmmaILb1EEEv14CUtensorMap_stS0_i' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 92 registers, used 2 barriers, 128 bytes smem
+ptxas info    : Compiling entry function '_Z13bwd_dw_reducePKfPfxi' for 'sm_90a'
+ptxas info    : Function properties for _Z13bwd_dw_reducePKfPfxi
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers
+"""
+    assert _build.parse_ptxas(log) == [("conv_layer_wgmma", 90, 0, 0),
+                                       ("conv_layer_wgmma<1>", 92, 0, 0),
+                                       ("bwd_dw_reduce", 255, 12, 16)]

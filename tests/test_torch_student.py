@@ -154,7 +154,7 @@ def test_upstream_expert_matches_jax_export_model():
     params = jax_params(jcfg, seed=3)
     rng = np.random.default_rng(4)
     wavs = [rng.standard_normal(n).astype(np.float32) * 0.3 for n in (3000, 4321, 1700)]
-    expert = UpstreamExpert(tcfg, jax_student_params_to_state_dict(params, tcfg),
+    expert = UpstreamExpert(jax_student_params_to_state_dict(params, tcfg), tcfg,
                             device="cpu", length_quantum=1600)
     got = expert(wavs)
 

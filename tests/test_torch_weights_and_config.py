@@ -4,6 +4,7 @@ the .pt path, the FitHuBERT-960h preset, spec parsing, and full-width
 parameter shapes."""
 
 import dataclasses
+import glob
 
 import jax
 import jax.numpy as jnp
@@ -54,11 +55,11 @@ def test_pt_file_loads_with_plain_torch_load(tmp_path):
     path = str(tmp_path / "student.pt")
     torch.save(sd, path)
     wavs = [np.random.default_rng(0).standard_normal(n).astype(np.float32) for n in (2000, 900)]
-    a = UpstreamExpert(tcfg, path, device="cpu", length_quantum=800)(wavs)
-    b = UpstreamExpert(tcfg, sd, device="cpu", length_quantum=800)(wavs)
+    a = UpstreamExpert(path, tcfg, device="cpu", length_quantum=800)(wavs)
+    b = UpstreamExpert(sd, tcfg, device="cpu", length_quantum=800)(wavs)
     torch.testing.assert_close(a["last_hidden_state"], b["last_hidden_state"], rtol=0, atol=0)
     # only the last projection head is kept
-    kept = [k for k in UpstreamExpert(tcfg, sd, device="cpu").model.state_dict()
+    kept = [k for k in UpstreamExpert(sd, tcfg, device="cpu").model.state_dict()
             if k.startswith("proj_head.")]
     assert kept and all(k.startswith(f"proj_head.{tcfg.encoder_layers - 1}.") for k in kept)
 
@@ -128,3 +129,83 @@ def test_fithubert_960h_experiment_equals_yaml_field_by_field():
         p, r = getattr(port, section), getattr(ref, section)
         for f in dataclasses.fields(p):
             assert getattr(p, f.name) == getattr(r, f.name), f"{section}.{f.name}"
+
+
+def test_expert_from_pt_and_yaml_matches_the_jax_expert(tmp_path):
+    """UpstreamExpert(ckpt, model_config) in the reference's order: the JAX
+    package's export pair (yaml + msgpack) serves through the JAX expert, the
+    same weights as a .pt state dict with the same yaml through the port, on
+    ragged waveforms. fp32, summation order only: 1e-4 (F32_TOL of
+    tests/test_torch_student.py)."""
+    from fithubert_tpu.config import ExperimentConfig
+    from fithubert_tpu.export.expert import UpstreamExpert as JExpert
+    from fithubert_tpu.train.checkpoint import export_student
+
+    jcfg, tcfg = configs()
+    params = jax_params(jcfg, seed=5)
+    yaml_path, weights_path = export_student(ExperimentConfig(distiller=jcfg), params,
+                                             str(tmp_path), tag="student")
+    pt_path = str(tmp_path / "student.pt")
+    torch.save(jax_student_params_to_state_dict(params, tcfg), pt_path)
+    rng = np.random.default_rng(6)
+    wavs = [rng.standard_normal(n).astype(np.float32) * 0.3 for n in (3000, 4321, 1700)]
+    want = JExpert(weights_path, yaml_path, length_quantum=1600)(wavs)
+    got = UpstreamExpert(pt_path, yaml_path, device="cpu", length_quantum=1600)(wavs)
+    np.testing.assert_array_equal(got["padding_mask"].numpy(), want["padding_mask"])
+    np.testing.assert_allclose(got["last_hidden_state"].numpy(), want["last_hidden_state"],
+                               atol=1e-4, rtol=1e-4)
+    assert len(got["hidden_states"]) == len(want["hidden_states"]) == jcfg.encoder_layers
+    for h, jh in zip(got["hidden_states"], want["hidden_states"]):
+        np.testing.assert_allclose(h.numpy(), jh, atol=1e-4, rtol=1e-4)
+
+
+def test_expert_accepts_and_ignores_hub_arguments():
+    """s3prl's hub hook passes its own arguments through (hubconf.py:8-12)."""
+    jcfg, tcfg = configs()
+    sd = jax_student_params_to_state_dict(jax_params(jcfg, seed=1), tcfg)
+    wavs = [np.random.default_rng(0).standard_normal(1200).astype(np.float32)]
+    plain = UpstreamExpert(sd, tcfg, device="cpu", length_quantum=800)(wavs)
+    hub = UpstreamExpert(sd, tcfg, "extra", device="cpu", length_quantum=800, refresh=True)(wavs)
+    torch.testing.assert_close(hub["last_hidden_state"], plain["last_hidden_state"],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(ckpt="released-checkpoint.ckpt"), "Queue 1 item 5"),
+    (dict(int8=True), "quantize_matmuls"),
+], ids=["lightning_ckpt", "int8"])
+def test_expert_refuses_what_the_port_cannot_serve(kwargs, match):
+    _jcfg, tcfg = configs()
+    ckpt = kwargs.pop("ckpt", {})
+    with pytest.raises(NotImplementedError, match=match):
+        UpstreamExpert(ckpt, tcfg, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("field, value", [
+    ("n_mels", 80), ("enable_log_mel", True), ("init_conv_layers", True),
+    ("init_encoder_layers", 2), ("quantize_matmuls", True), ("teacher_task_agnostic", False),
+    ("_teacher_task_agnostic", False),
+])
+def test_from_dict_refuses_fields_the_port_lacks(field, value):
+    """A field the port has no counterpart for, set away from its JAX
+    default, raises and names itself; at the default it loads."""
+    import yaml
+
+    with open(YAML) as f:
+        section = yaml.safe_load(f)["distiller"]
+    name = field.lstrip("_")
+    assert tconfig.StudentConfig.from_dict({**section, field: tconfig.REFUSED[name]}) \
+        == tconfig.StudentConfig.from_dict(section)
+    with pytest.raises(NotImplementedError, match=name):
+        tconfig.StudentConfig.from_dict({**section, field: value})
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob("configs/*.yaml")))
+def test_every_config_loads_to_the_jax_loaders_values(path):
+    """Each file of configs/ loads for serving (ex.yaml's teacher-init flags
+    are turned off, as the JAX expert does), and every field the port keeps
+    equals the JAX loader's."""
+    port = tconfig.load_yaml_config(path)
+    ref = j_load_yaml(path).distiller
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
