@@ -731,6 +731,269 @@ def train_batch(gen, a, b, seconds, ragged):
     return {"x": x, "padding_mask": mask}
 
 
+# The loop's resumed steps hold the uninterrupted run's logged loss,
+# grad_norm and lr bit for bit. The state at the resume point is restored
+# exactly; the resumed epoch redraws its 11 distill layers fresh, as the JAX
+# loop does, which with distil_random_layer 11 over 11 layers is the same
+# set in another order, and the loss then takes the layers in layer order
+# (losses.py skips the gather as a permutation), so the draw's order enters
+# only the per-slot logs rand_l<i>. The step's own kernels use no atomics
+# (K6 is bit for bit across calls), and its library calls gave the same
+# bits in every run of this script on the card. A lost
+# optimizer state moves step 4 (the first update that reads the restored
+# moments); a lost step moves step 3's dropout masks and lr.
+LOOP_RESUME_KEYS = ("loss", "grad_norm", "lr")
+# The loop's rate: a run of this many 2-step epochs, logging (and so
+# holding a device barrier) every LOOP_RATE_LOG_EVERY steps.
+LOOP_RATE_EPOCHS = 10
+LOOP_RATE_LOG_EVERY = 10
+
+
+def write_wav16(path, wav):
+    """A 16 kHz mono 16-bit PCM WAV (stdlib wave)."""
+    import wave
+
+    import numpy as np
+
+    pcm = np.clip(np.round(wav.numpy() * 32767.0), -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes(pcm.tobytes())
+
+
+def write_corpus(root, gen, counts):
+    """A LibriSpeech-shaped tree of WAVs, ragged 2-12 s:
+    <root>/<split>/<spk>/<chap>/<spk>-<chap>-<utt>.wav."""
+    import torch
+
+    for split, n in counts.items():
+        for u in range(n):
+            spk, chap = 100 + u % 3, 7
+            d = os.path.join(root, split, str(spk), str(chap))
+            os.makedirs(d, exist_ok=True)
+            seconds = 2.0 + 10.0 * torch.rand((), generator=gen).item()
+            wav = torch.randn(int(seconds * SR), generator=gen) * 0.1
+            write_wav16(os.path.join(d, f"{spk}-{chap}-{u:04d}.wav"), wav)
+
+
+def logged(run_dir):
+    """Train records of <run_dir>/metrics.jsonl by step, and the val ones."""
+    train, val = {}, []
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        for rec in map(json.loads, f):
+            if "loss" in rec:
+                train[rec["step"]] = rec
+            elif "val/v_loss" in rec:
+                val.append(rec)
+    return train, val
+
+
+def fairseq_cfg(geom):
+    """The fairseq model config of a teacher of ``geom``, as a checkpoint's
+    cfg carries it."""
+    return {"_name": geom.model_type, "extractor_mode": geom.extractor_mode,
+            "conv_feature_layers": str(list(geom.conv_feature_layers)),
+            "encoder_layers": geom.encoder_layers, "encoder_embed_dim": geom.encoder_embed_dim,
+            "encoder_ffn_embed_dim": geom.encoder_ffn_embed_dim,
+            "encoder_attention_heads": geom.encoder_attention_heads,
+            "activation_fn": geom.activation_fn, "layer_norm_first": geom.layer_norm_first,
+            "conv_pos": geom.conv_pos, "conv_pos_groups": geom.conv_pos_groups}
+
+
+def loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi):
+    """The training loop end to end on ``exp``: a fairseq HuBERT .pt written
+    from ``teacher_cpu``'s weights, a WAV corpus decoded by the native
+    decoder, three runs (1 epoch; resumed to 2; 2 from scratch), the
+    launches of every step (``per_step``) and eval batch (``per_eval``), the
+    export served against the student's own forward, and a 20-step run at
+    the default logging cadence for the loop's rates."""
+    import tempfile
+
+    import torch
+
+    from fithubert_tpu_torch.export.expert import UpstreamExpert
+    from fithubert_tpu_torch.export.fairseq_import import load_fairseq_teacher
+    from fithubert_tpu_torch.data.librispeech import quantize_length
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.train.checkpoint import CheckpointManager
+    from fithubert_tpu_torch.train.loop import run_training
+    from fithubert_tpu_torch.train.step import Distiller
+
+    gen = torch.Generator().manual_seed(7)
+    e = geom.encoder_embed_dim
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
+        pt = os.path.join(tmp, "hubert_base_seeded.pt")
+        # HuBERT's pretraining heads ride along, as in a released checkpoint
+        sd = dict(teacher_cpu.state_dict(), label_embs_concat=torch.randn(504, 256, generator=gen),
+                  mask_emb=torch.randn(e, generator=gen),
+                  **{"final_proj.weight": torch.randn(256, e, generator=gen),
+                     "final_proj.bias": torch.zeros(256)})
+        torch.save({"model": sd, "cfg": {"model": fairseq_cfg(geom)}}, pt)
+        loaded_geom, _ = load_fairseq_teacher(pt)
+        if loaded_geom != geom:
+            fail(f"the fairseq teacher's geometry {loaded_geom} is not HuBERT-Base's {geom}")
+        libri = os.path.join(tmp, "LibriSpeech")
+        write_corpus(libri, gen, {"train-clean-100": 24, "dev-clean": 6})
+        print(f"  wrote a fairseq HuBERT .pt ({os.path.getsize(pt) / 2 ** 20:.0f} MiB, "
+              f"geometry read back ok) and 24 + 6 WAVs of 2-12 s", flush=True)
+
+        def config(run, epochs, log_every):
+            return dataclasses.replace(
+                exp, teacher=dataclasses.replace(exp.teacher, teacher_model=pt),
+                data=dataclasses.replace(exp.data, libri_root=libri,
+                                         bucketing_path=os.path.join(tmp, "len_for_bucket"),
+                                         train_set=("train-clean-100",),
+                                         dev_set=("dev-clean",)),
+                train=dataclasses.replace(exp.train, output_dir=os.path.join(tmp, run),
+                                          num_epochs=epochs, log_every=log_every))
+
+        step_launches = []
+        pauses = []  # (what, seconds) of each eval batch and checkpoint write
+        plain_step = Distiller.train_step_async
+        plain_eval = Distiller.eval_step
+        plain_save = CheckpointManager.save
+
+        def counted_step(self, batch, rand):
+            before = dict(_build.LAUNCHES)
+            out = plain_step(self, batch, rand)
+            step_launches.append({n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items()
+                                  if c != before.get(n, 0)})
+            return out
+
+        def timed(what, fn):
+            # the queued steps finish first, so their time is not the pause's
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                pauses.append((what, time.perf_counter() - t0))
+                return out
+            return wrapper
+
+        def run(name, run_dir, epochs, resume, want_steps, n_steps, n_evals, log_every=1):
+            step_launches.clear()
+            pauses.clear()
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            Distiller.train_step_async = counted_step
+            Distiller.eval_step = timed("eval", plain_eval)
+            CheckpointManager.save = timed("save", plain_save)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                result = run_training(config(run_dir, epochs, log_every), resume=resume,
+                                      device="cuda")
+            finally:
+                Distiller.train_step_async = plain_step
+                Distiller.eval_step = plain_eval
+                CheckpointManager.save = plain_save
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            total = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            if result["steps"] != want_steps or result["preempted"]:
+                fail(f"loop {name}: {result}, want {want_steps} steps")
+            if len(step_launches) != n_steps or any(d != per_step for d in step_launches):
+                fail(f"loop {name}: launches per step {step_launches}, want {per_step}")
+            want_total = {n: len(step_launches) * per_step.get(n, 0) + 2 * n_evals * per_eval.get(
+                n, 0) for n in set(per_step) | set(per_eval)}
+            if total != want_total:
+                fail(f"loop {name}: launches {total}, want {want_total} ({len(step_launches)} "
+                     f"steps, {n_evals} evals of 2 batches)")
+            train, val = logged(os.path.join(tmp, run_dir))
+            values = [v for rec in train.values() for k, v in rec.items()
+                      if k not in ("step", "time")] + [r["val/v_loss"] for r in val]
+            if not all(math.isfinite(v) for v in values):
+                fail(f"loop {name}: a logged value is not finite")
+            last = max(train)
+            timed_steps = last - (want_steps - n_steps) - 1  # the first step anchors the clock
+            print(f"  {name}: {result['steps']} steps, {len(step_launches)} in this run, each "
+                  f"launching {json.dumps(per_step)}; {n_evals} eval(s) of 2 batches; all "
+                  f"launches {json.dumps(total)} ok; losses "
+                  f"{[round(train[s]['loss'], 6) for s in sorted(train)]}, val v_loss "
+                  f"{[round(r['val/v_loss'], 6) for r in val]} finite; StepTimer at step "
+                  f"{last} over {timed_steps} timed step(s), a barrier every {log_every}: "
+                  f"{train[last]['steps_per_sec']:.3f} steps/s, "
+                  f"{train[last]['audio_sec_per_sec']:.1f} audio-s/s; wall {wall:.1f} s; peak "
+                  f"memory {peak / 2 ** 30:.2f} GiB ({resident / 2 ** 30:.2f} GiB resident "
+                  f"before); {smi}", flush=True)
+            return train, timed_steps
+
+        print("[loop] run 1: 1 epoch (2 steps of 3 x 4), eval, best/ + last/, export",
+              flush=True)
+        run("run 1", "resumed", 1, True, 2, 2, 1)
+        ckpt = os.path.join(tmp, "resumed", "ckpt")
+        for sub, want in (("best", {"index.json", "step_2.pt"}), ("last", {"step_2.pt"})):
+            if set(os.listdir(os.path.join(ckpt, sub))) != want:
+                fail(f"loop run 1: {sub}/ holds {os.listdir(os.path.join(ckpt, sub))}")
+        for name in ("student.yaml", "student.pt", "config.yaml"):
+            if not os.path.exists(os.path.join(tmp, "resumed", name)):
+                fail(f"loop run 1: {name} was not written")
+        print("[loop] run 2: resumed to 2 epochs", flush=True)
+        resumed, _ = run("run 2", "resumed", 2, True, 4, 2, 1)
+        print("[loop] run 3: 2 epochs from scratch", flush=True)
+        straight, _ = run("run 3", "straight", 2, False, 4, 4, 2)
+        for s in (1, 2, 3, 4):
+            for key in LOOP_RESUME_KEYS:
+                if resumed[s][key] != straight[s][key]:
+                    fail(f"loop: step {s} {key} {resumed[s][key]!r} (runs 1 + 2) vs "
+                         f"{straight[s][key]!r} (run 3): a resume must give the same bits")
+        print(f"  steps 1-4, runs 1 + 2 vs run 3: {', '.join(LOOP_RESUME_KEYS)} bit for bit; "
+              f"loss {[resumed[s]['loss'] for s in (1, 2, 3, 4)]}", flush=True)
+
+        print("[loop] the export pair served on the card against the student's own bf16 "
+              "forward from the loop's final weights", flush=True)
+        state = CheckpointManager(ckpt).restore()
+        if state is None or state["step"] != 4:
+            fail("loop: no checkpoint at step 4")
+        student = StudentModel(exp.distiller, device="cuda")
+        student.load_state_dict(state["student"])
+        student.eval()
+        wavs = [torch.randn(int(s * SR), generator=gen) * 0.1 for s in (3.3, 7.9, 5.1)]
+        _build.reset_launches()
+        expert = UpstreamExpert(os.path.join(tmp, "resumed", "student.pt"), exp.distiller,
+                                device="cuda")
+        got = expert(wavs)
+        served = dict(_build.LAUNCHES)
+        t_pad = quantize_length(max(len(w) for w in wavs), SR)
+        x = torch.zeros(len(wavs), t_pad)
+        mask = torch.ones(len(wavs), t_pad, dtype=torch.bool)
+        for i, w in enumerate(wavs):
+            x[i, : len(w)], mask[i, : len(w)] = w, False
+        want = student(x.cuda(), mask.cuda())
+        torch.cuda.synchronize()
+        if not torch.equal(got["last_hidden_state"], want.x) or \
+                not torch.equal(got["padding_mask"], want.padding_mask):
+            err = (got["last_hidden_state"].float() - want.x.float()).abs().max().item()
+            fail(f"loop: the export's features differ from the student's by {err:.3e}")
+        if not torch.isfinite(want.x).all().item():
+            fail("loop: the exported student's features are not finite")
+        print(f"  UpstreamExpert(student.pt) B=3 ragged: last_hidden_state "
+              f"{tuple(want.x.shape)} equal to the student's forward, bit for bit; launches "
+              f"{json.dumps(served)} ok", flush=True)
+        del student, expert
+
+        print(f"[loop] rate: {LOOP_RATE_EPOCHS} epochs from scratch ({2 * LOOP_RATE_EPOCHS} "
+              f"steps), log_every {LOOP_RATE_LOG_EVERY}", flush=True)
+        train, timed_steps = run("rate", "rate", LOOP_RATE_EPOCHS, False, 2 * LOOP_RATE_EPOCHS,
+                                 2 * LOOP_RATE_EPOCHS, LOOP_RATE_EPOCHS, LOOP_RATE_LOG_EVERY)
+        # the window runs from step 1's tick to the last step's; every epoch
+        # but the last ends inside it with its eval (2 batches) and its save
+        window = timed_steps / train[max(train)]["steps_per_sec"]
+        inside = pauses[:-3]
+        evals = sum(t for what, t in inside if what == "eval")
+        saves = sum(t for what, t in inside if what == "save")
+        print(f"  rate: StepTimer window {window:.3f} s over {timed_steps} steps holds "
+              f"{LOOP_RATE_EPOCHS - 1} evals ({evals:.3f} s) and checkpoint saves "
+              f"({saves:.3f} s); the steps alone {timed_steps / (window - evals - saves):.3f} "
+              f"steps/s; {smi}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1074,7 +1337,14 @@ def main() -> int:
           flush=True)
     del on_card, on_cpu
 
-    # ---- 8. timing
+    # ---- 8. the training loop
+    print("[loop] run_training on the release config: a fairseq HuBERT-Base .pt teacher, "
+          "a WAV corpus, FITHUBERT_CONV_BWD unset", flush=True)
+    per_eval = {cf.KERNEL_PREFIX: 2, cf.KERNEL: per_step[cf.KERNEL],  # teacher + student
+                fa.KERNEL: geom.encoder_layers + exp.distiller.encoder_layers}  # p = 0
+    loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi)
+
+    # ---- 9. timing
     print("[timing] B=32 x 16 s, bf16", flush=True)
     bench = [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(32)]
     for _ in range(3):
@@ -1312,7 +1582,7 @@ def main() -> int:
               f"goal <= {goal} ms {met(ms <= goal)}, acceptance <= {accept} ms "
               f"{met(ms <= accept)}", flush=True)
 
-    # ---- 9. result lines
+    # ---- 10. result lines
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

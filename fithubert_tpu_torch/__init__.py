@@ -1,4 +1,5 @@
-"""PyTorch / CUDA port of fithubert_tpu's serving forward.
+"""PyTorch / CUDA port of fithubert_tpu: serving, the KD train step and the
+training loop around it.
 
 Layout mirrors ``fithubert_tpu`` module for module. Every Pallas kernel on
 the ported path has a hand-written CUDA counterpart under ``csrc/`` with a

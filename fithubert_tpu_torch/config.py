@@ -1,23 +1,31 @@
 """Configuration of the PyTorch port.
 
-Copies of the fields of ``fithubert_tpu.config`` that the serving forward
-and the KD train step read, with the same names and defaults:
-``StudentConfig``, ``LossConfig``, ``OptimizerConfig``, ``TrainConfig``,
-``TeacherConfig`` and ``ExperimentConfig``. The presets are
-``fithubert_960h()`` (the student of ``configs/fithubert.yaml``'s
-``distiller`` section as ``load_yaml_config`` resolves it; ``use_fp16: True``
-selects bfloat16 compute) and ``fithubert_960h_experiment()`` (the whole
-file: teacher, train, loss and optimizer). ``yaml`` is imported only inside
-the function that reads a file, so the package runs where ``yaml`` is not
-installed.
+Copies of ``fithubert_tpu.config``'s dataclasses, with the same names and
+defaults: ``StudentConfig`` (the fields the port's student has),
+``LossConfig``, ``TrainConfig``, ``OptimizerConfig``, ``DataConfig``,
+``SpecAugConfig``, ``TeacherConfig`` and ``ExperimentConfig``.
+
+    config_from_yaml_dict(raw)  a reference-schema dict -> ExperimentConfig
+    load_experiment_yaml(path)  the same from a file (needs PyYAML)
+    load_yaml_config(path)      the student that UpstreamExpert serves
+    dump_config(cfg, path)      a YAML file, written without a YAML library
+
+The presets are ``fithubert_960h()`` (the student of
+``configs/fithubert.yaml`` as ``load_yaml_config`` resolves it;
+``use_fp16: True`` selects bfloat16 compute) and
+``fithubert_960h_experiment()`` (the whole file). ``yaml`` is imported only
+inside the functions that read a file, so the package runs where ``yaml``
+is not installed.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 def _eval_node(node: ast.AST) -> Any:
@@ -187,6 +195,15 @@ class StudentConfig:
             kw["compute_dtype"] = "bfloat16"
         return cls(**kw)
 
+    def to_dict(self) -> Dict[str, Any]:
+        """The reference's ``distiller:`` field names and spec strings, as
+        the JAX package's ``StudentConfig.to_dict`` writes them."""
+        d = dataclasses.asdict(self)
+        d["_cnn_weight"] = d.pop("cnn_weight")
+        d["conv_feature_layers"] = str([tuple(t) for t in self.conv_feature_layers])
+        d["pred_layer_id"] = str(list(self.pred_layer_id))
+        return d
+
 
 def load_yaml_config(path: str) -> StudentConfig:
     """The student config that ``UpstreamExpert`` serves from a
@@ -259,15 +276,30 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields of ``fithubert_tpu/config.py:256 TrainConfig`` that the
-    train step reads."""
+    """``fithubert_tpu/config.py:256 TrainConfig``: the loop's settings and
+    the train step's."""
 
+    output_dir: str = "results/pretrain/test"
+    checkpoint: Optional[str] = None
+    num_epochs: int = 100
+    num_devices: int = 0  # 0 = every visible card ('gpus' in the reference yaml)
     batch_size: int = 4
     accumulate_grad_batches: int = 1
     use_fp16: bool = False  # -> bfloat16 compute for teacher and student
+    monitor_losses: bool = True
     delete_projections: bool = False
+    specaug: bool = False
+    early_stop_patience: int = 15
+    save_top_k: int = 3
+    log_every: int = 50
     seed: int = 0
+    max_steps: int = 0  # 0 = no cap
+    profile_steps: int = 0  # trace steps [2, 2 + N) into <output_dir>/trace
     fuse_grad_accum: bool = True
+    # K optimizer steps per launch in the JAX package; the port runs them
+    # one call at a time, which the JAX package documents as byte-identical
+    steps_per_launch: int = 1
+    rng_impl: str = "auto"  # the JAX package's PRNG; the port's draws are ops/dropout.py's
 
 
 @dataclass(frozen=True)
@@ -281,13 +313,57 @@ class OptimizerConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """``fithubert_tpu/config.py:316 DataConfig``."""
+
+    bucketing_path: str = "./data/len_for_bucket"
+    libri_root: str = "../LibriSpeech"
+    train_set: Tuple[str, ...] = ("train-clean-100", "train-clean-360", "train-other-500")
+    test_set: Tuple[str, ...] = ("test-clean",)
+    dev_set: Tuple[str, ...] = ("dev-clean",)
+    length_quantum: int = 40960  # padded lengths are multiples of this (128 frames)
+    max_wav_length: int = 0  # 0 = no crop
+    num_workers: int = 4
+    prefetch: int = 2
+    synthetic: bool = False  # sine + noise batches, no corpus
+    synthetic_num_batches: int = 64
+    synthetic_wav_length: int = 163840
+    load_labels: bool = False
+    label_quantum: int = 64
+    dict_path: str = ""
+
+
+@dataclass(frozen=True)
+class SpecAugConfig:
+    """``fithubert_tpu/config.py:341 SpecAugConfig`` (read, not applied:
+    ``train.specaug: true`` is refused)."""
+
+    apply_time_warp: bool = False
+    time_warp_window: int = 5
+    time_warp_mode: str = "bicubic"
+    apply_freq_mask: bool = True
+    freq_mask_width_range: Tuple[int, int] = (0, 20)
+    num_freq_mask: int = 2
+    apply_time_mask: bool = True
+    time_mask_width_range: Tuple[int, int] = (0, 100)
+    num_time_mask: int = 2
+    adaptive: bool = False
+    adaptive_number_ratio: float = 0.04
+    adaptive_size_ratio: float = 0.04
+    max_n_time_masks: int = 20
+    replace_with_zero: bool = False
+
+
+@dataclass(frozen=True)
 class TeacherConfig:
-    teacher_model: str = "hubert_base_ls960.pt"
-    model_type: str = "hubert"  # 'hubert' | 'wav2vec2'
+    teacher_model: str = "hubert_base_ls960.pt"  # fairseq .pt, or a converted .json
+    model_type: str = "hubert"  # 'hubert' | 'wav2vec2' ('wav2vec_ctc' is refused)
     encoder_layers: int = 12
     encoder_embed_dim: int = 768
     encoder_ffn_embed_dim: int = 3072
     encoder_attention_heads: int = 12
+    vocab_size: int = 32
+    quantize_int8: bool = False
 
 
 @dataclass(frozen=True)
@@ -297,16 +373,138 @@ class ExperimentConfig:
     loss: LossConfig = field(default_factory=LossConfig)
     distiller: StudentConfig = field(default_factory=StudentConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    specaug: SpecAugConfig = field(default_factory=SpecAugConfig)
+
+    def check_supported(self) -> None:
+        """Raise NotImplementedError, naming the field and the ROADMAP item
+        that will bring it, for a setting the port's loop cannot honour."""
+        refused = (
+            ("teacher.model_type='wav2vec_ctc'", self.teacher.model_type == "wav2vec_ctc",
+             "Queue 1 item 6 (CTC)"),
+            ("data.load_labels", self.data.load_labels, "Queue 1 item 6 (CTC)"),
+            ("train.specaug", self.train.specaug, "Queue 1 item 6 (ops/specaug.py)"),
+            ("teacher.quantize_int8", self.teacher.quantize_int8,
+             "Queue 1 item 6 (ops/quant.py)"),
+        )
+        for name, on, item in refused:
+            if on:
+                raise NotImplementedError(
+                    f"{name}: the PyTorch port does not run it yet (ROADMAP {item})")
+
+
+_LOSS_KEYS = {f.name for f in dataclasses.fields(LossConfig)}
+
+
+def _section(cls, d: Dict[str, Any]):
+    """``cls`` from the known keys of a YAML section, lists as tuples where
+    the field is a tuple."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name in d:
+            v = d[f.name]
+            kw[f.name] = tuple(v) if isinstance(v, list) else v
+    return cls(**kw)
+
+
+def config_from_yaml_dict(raw: Dict[str, Any]) -> ExperimentConfig:
+    """A reference-schema dict (teacher / train / distiller / optimizer /
+    data / specaug) -> ``ExperimentConfig``, resolved as the JAX package's
+    ``config_from_yaml_dict`` (``fithubert_tpu/config.py:390``) resolves it.
+    Raises NotImplementedError for what the port cannot run
+    (``ExperimentConfig.check_supported``, ``REFUSED``)."""
+    raw = dict(raw or {})
+    teacher = _section(TeacherConfig, raw.get("teacher") or {})
+    train_d = dict(raw.get("train") or {})
+    if "gpus" in train_d:
+        g = train_d.pop("gpus")
+        train_d["num_devices"] = len(g) if isinstance(g, list) else int(g)
+    loss = _section(LossConfig, {k: v for k, v in train_d.items() if k in _LOSS_KEYS})
+    if "output_dir" in train_d and "/" not in str(train_d["output_dir"]):
+        train_d["output_dir"] = "results/pretrain/" + str(train_d["output_dir"])
+    train = _section(TrainConfig, train_d)
+    distiller_d = raw.get("distiller") or {}
+    if loss.distil_random_layer > 0 and not distiller_d.get("layerwise_proj", False):
+        raise ValueError("distil_random_layer > 0 requires layerwise_proj: true (random-"
+                         "layer distillation gathers per-layer projection heads)")
+    distiller = dataclasses.replace(StudentConfig.from_dict(distiller_d, use_fp16=train.use_fp16),
+                                    cnn_weight=float(loss.cnn_loss_weight))
+    data = _section(DataConfig, raw.get("data") or {})
+    if teacher.model_type == "wav2vec_ctc":
+        data = dataclasses.replace(data, load_labels=True)
+    cfg = ExperimentConfig(teacher=teacher, train=train, loss=loss, distiller=distiller,
+                           optimizer=_section(OptimizerConfig, raw.get("optimizer") or {}),
+                           data=data, specaug=_section(SpecAugConfig, raw.get("specaug") or {}))
+    cfg.check_supported()
+    return cfg
+
+
+def load_experiment_yaml(path: str) -> ExperimentConfig:
+    """The whole experiment of a reference-schema YAML file (needs PyYAML;
+    ``load_yaml_config`` is the expert's reader of the student alone)."""
+    import yaml
+
+    with open(path) as f:
+        return config_from_yaml_dict(yaml.safe_load(f))
+
+
+def timestamp_tag() -> str:
+    """Asia/Seoul run tag, as the reference's ``utils/utils.py:182-184``
+    (a fixed UTC+9 offset: Seoul keeps no daylight saving time)."""
+    from datetime import datetime, timedelta, timezone
+
+    return datetime.now(timezone(timedelta(hours=9))).strftime("%Y-%m-%d-%H%M%S")
+
+
+def _yaml_scalar(v: Any) -> str:
+    """One value in the YAML subset that JSON is, readable by PyYAML: a
+    float keeps a '.' (PyYAML reads '1e-06' as a string)."""
+    if isinstance(v, float):
+        text = repr(v)
+        if "." not in text:
+            mant, _, exp = text.partition("e")
+            text = f"{mant}.0" + (f"e{exp}" if exp else "")
+        return text
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_scalar(x) for x in v) + "]"
+    return json.dumps(v)
+
+
+def dump_config(cfg: ExperimentConfig, path: str) -> Dict[str, Dict[str, Any]]:
+    """Write ``cfg`` as a reference-schema YAML file, with no YAML library:
+    ``section:`` then ``  key: value`` with JSON values. PyYAML and the JAX
+    package's ``load_yaml_config`` read it back. The counterpart of
+    ``fithubert_tpu/config.py:463 dump_yaml_config``; this file is the
+    model-config half of the export pair."""
+    sections = {
+        "teacher": dataclasses.asdict(cfg.teacher),
+        "train": {**dataclasses.asdict(cfg.train), **dataclasses.asdict(cfg.loss)},
+        "distiller": cfg.distiller.to_dict(),
+        "optimizer": dataclasses.asdict(cfg.optimizer),
+        "data": dataclasses.asdict(cfg.data),
+        "specaug": dataclasses.asdict(cfg.specaug),
+    }
+    lines = []
+    for name, sect in sections.items():
+        lines.append(f"{name}:")
+        lines += [f"  {k}: {_yaml_scalar(v)}" for k, v in sect.items()]
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    os.replace(tmp, path)
+    return sections
 
 
 def fithubert_960h_experiment() -> ExperimentConfig:
-    """The whole of ``configs/fithubert.yaml`` that the train step reads:
+    """The whole of ``configs/fithubert.yaml``: a HuBERT-Base teacher,
     random-layer rec-MSE over all 12 layers, AdamW 5e-4 with 5% warmup,
-    batch 3 x 4 accumulated, bf16."""
+    batch 3 x 4 accumulated, bf16, LibriSpeech 960 h."""
     return ExperimentConfig(
         teacher=TeacherConfig(teacher_model="hubert_base_ls960.pt", model_type="hubert"),
-        train=TrainConfig(batch_size=3, accumulate_grad_batches=4, use_fp16=True,
-                          delete_projections=False),
+        train=TrainConfig(output_dir="results/pretrain/FitHuBERT-960h", num_epochs=100,
+                          num_devices=2, batch_size=3, accumulate_grad_batches=4,
+                          use_fp16=True, monitor_losses=True, delete_projections=False,
+                          specaug=False),
         loss=LossConfig(cnn_loss_weight=0.0, rec_loss_weight=1.0, rec_loss_type="mse",
                         sim_loss_weight=0.0, attn_loss_weight=0.0, attn_loss_type="kldiv",
                         v_rel_loss_weight=0.0, distil_random_layer=11,
@@ -315,4 +513,9 @@ def fithubert_960h_experiment() -> ExperimentConfig:
         optimizer=OptimizerConfig(name="AdamW_with_schedule", lr=5e-4,
                                   warmup_proportion=0.05, betas=(0.9, 0.98), eps=1e-6,
                                   weight_decay=1e-6),
+        data=DataConfig(bucketing_path="./data/len_for_bucket", libri_root="../LibriSpeech",
+                        train_set=("train-clean-100", "train-clean-360", "train-other-500"),
+                        test_set=("test-clean",), dev_set=("dev-clean",),
+                        length_quantum=40960),
+        specaug=SpecAugConfig(freq_mask_width_range=(0, 27)),
     )

@@ -24,17 +24,9 @@ import numpy as np
 import torch
 
 from fithubert_tpu_torch.config import StudentConfig, load_yaml_config
+from fithubert_tpu_torch.data.librispeech import quantize_length
 from fithubert_tpu_torch.device import resolve_device
 from fithubert_tpu_torch.models.student import StudentModel
-
-
-def quantize_length(length: int, quantum: int, max_length: int = 0) -> int:
-    """Round a padded length up to a multiple of ``quantum``
-    (``fithubert_tpu/data/librispeech.py:159``)."""
-    q = ((length + quantum - 1) // quantum) * quantum if quantum > 1 else length
-    if max_length > 0:
-        q = min(q, max_length)
-    return max(q, quantum if quantum > 1 else length)
 
 
 class UpstreamExpert:

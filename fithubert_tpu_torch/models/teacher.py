@@ -7,7 +7,8 @@ layer and no heads.
 
 ``TeacherOutput.x`` is the last layer's hidden (``:194``), the hook value
 the reference distills to. Parameters are named by the fairseq state-dict
-keys, so ``export/jax_params.py`` and, later, a fairseq ``.pt`` fill them.
+keys, so ``export/jax_params.py`` and a fairseq ``.pt``
+(``export/fairseq_import.py``) fill them.
 The teacher runs under ``torch.no_grad()``; ``freeze()`` casts its matmul
 weights to the compute dtype once, as ``Distiller.prepare_teacher_params``
 does (``fithubert_tpu/train/step.py:128-153``).
@@ -16,7 +17,7 @@ does (``fithubert_tpu/train/step.py:128-153``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -68,6 +69,15 @@ class TeacherGeometry:
                    encoder_ffn_embed_dim=tc.encoder_ffn_embed_dim,
                    encoder_attention_heads=tc.encoder_attention_heads)
 
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TeacherGeometry":
+        """From a checkpoint's geometry fields (``dataclasses.asdict`` of one,
+        as JSON keeps it: lists for tuples)."""
+        d = dict(d)
+        d["conv_feature_layers"] = tuple(tuple(int(x) for x in c)
+                                         for c in d["conv_feature_layers"])
+        return cls(**d)
+
     def to_student_config(self) -> StudentConfig:
         """The encoder view in the student's config: no TR layer, no heads,
         no dropout, no layerdrop, required_seq_len_multiple 1 (the reference
@@ -111,7 +121,7 @@ class TeacherModel(nn.Module):
         if geometry.model_type not in ("hubert", "wav2vec2"):
             raise NotImplementedError(
                 f"teacher model_type={geometry.model_type!r}: the PyTorch port supports "
-                "'hubert' and 'wav2vec2'")
+                "'hubert' and 'wav2vec2' (CTC is ROADMAP Queue 1 item 6)")
         cfg = geometry.to_student_config()
         cfg.check_supported()
         dev = resolve_device(device)

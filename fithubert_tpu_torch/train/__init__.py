@@ -1,1 +1,2 @@
-"""The KD train step: losses, optimizer and the Distiller."""
+"""Training: the KD train step (losses, optimizer, the Distiller), checkpoints
+and the export pair, and the loop."""

@@ -6,6 +6,7 @@ loss, and AdamW under the warmup/decay schedule.
     logs = d.train_step({"x": (A, B, T_wav), "padding_mask": (A, B, T_wav)},
                         rand_layers)
     logs = d.eval_step({"x": (B, T_wav), "padding_mask": (B, T_wav)}, rand_layers)
+    d.load_state_dict(d.state_dict())  # what a checkpoint holds
 
 The A accumulation microbatches fold into one batch of A * B rows when the
 losses allow it (``fuse_ok``, ``:276-295``); otherwise each microbatch runs
@@ -22,7 +23,7 @@ are not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -35,6 +36,19 @@ from fithubert_tpu_torch.train.losses import LossOutput, compute_losses
 from fithubert_tpu_torch.train.optim import build_optimizer, optimizer_step
 
 Batch = Mapping[str, torch.Tensor]
+
+
+class StepLogs(NamedTuple):
+    """A train step's logs: ``values`` on the device, one per name."""
+
+    names: Tuple[str, ...]
+    values: torch.Tensor
+    lr: float
+
+    def to_floats(self) -> Dict[str, float]:
+        out = dict(zip(self.names, self.values.tolist()))
+        out["lr"] = self.lr
+        return out
 
 
 class Distiller:
@@ -78,7 +92,13 @@ class Distiller:
 
     def train_step(self, batch: Batch, rand_layers) -> Dict[str, float]:
         """One optimizer step over A microbatches. Returns the mean of the
-        loss logs over microbatches, ``loss``, ``grad_norm`` and ``lr``."""
+        loss logs over microbatches, ``loss``, ``grad_norm`` and ``lr``;
+        reading them waits for the device."""
+        return self.train_step_async(batch, rand_layers).to_floats()
+
+    def train_step_async(self, batch: Batch, rand_layers) -> "StepLogs":
+        """``train_step`` whose logs stay on the device until asked for, so
+        a loop that reads them every few steps does not wait for each."""
         cfg = self.cfg
         x, mask, rand = self._inputs(batch, rand_layers)
         if x.dim() != 3:
@@ -109,9 +129,18 @@ class Distiller:
         names = list(logs[0])
         values = torch.stack([torch.stack([lg[k].detach().float() for lg in logs]).mean()
                               for k in names] + [torch.stack(losses).mean(), grad_norm.float()])
-        out = dict(zip(names + ["loss", "grad_norm"], values.tolist()))
-        out["lr"] = lr
-        return out
+        return StepLogs(tuple(names) + ("loss", "grad_norm"), values, lr)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a resume needs: the student's weights, AdamW's moments and
+        the step count, which seeds dropout (``_seed``) and sets the lr."""
+        return {"student": self.student.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        self.student.load_state_dict(state["student"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
 
     @torch.no_grad()
     def eval_step(self, batch: Batch, rand_layers) -> Dict[str, float]:

@@ -22,7 +22,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "fithubert_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "train_torch.py")]
     for d, _dirs, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -68,6 +68,33 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
         UpstreamExpert({}, cfg)
     assert resolve_device("cpu").type == "cpu"
     assert next(StudentModel(cfg, device="cpu").parameters()).device.type == "cpu"
+
+
+def test_loop_and_teacher_checkpoints_need_the_card_unless_cpu_is_asked(monkeypatch,
+                                                                       tmp_path):
+    """run_training, and a teacher built from a fairseq checkpoint, raise
+    without a card before they write anything, unless device='cpu'."""
+    from fithubert_tpu_torch.config import ExperimentConfig, TrainConfig
+    from fithubert_tpu_torch.export.fairseq_import import load_fairseq_teacher
+    from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
+    from fithubert_tpu_torch.train.loop import run_training
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "run"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training(ExperimentConfig(train=TrainConfig(output_dir=str(out))))
+    assert not out.exists()
+    geom = TeacherGeometry(conv_feature_layers=((32, 10, 5), (48, 3, 2)), encoder_layers=1,
+                           encoder_embed_dim=64, encoder_ffn_embed_dim=64,
+                           encoder_attention_heads=1, conv_pos=16, conv_pos_groups=4)
+    sd = TeacherModel(geom, device="cpu").init_weights(torch.Generator().manual_seed(0))
+    torch.save({"model": {**sd.state_dict(), "label_embs_concat": torch.zeros(2, 64)},
+                "cfg": {"model": {"encoder_attention_heads": 1}}}, tmp_path / "t.pt")
+    loaded, state = load_fairseq_teacher(str(tmp_path / "t.pt"))
+    assert loaded == geom and all(v.device.type == "cpu" for v in state.values())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TeacherModel(loaded)
+    TeacherModel(loaded, device="cpu").load_state_dict(state)
 
 
 def test_kernel_modules_import_and_build_raises_without_nvcc(monkeypatch, tmp_path):
