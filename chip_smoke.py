@@ -39,7 +39,10 @@ run with a non-zero exit and no final line:
      microbatches of 3 rows; a ragged step with a fabricated row, then 3
      steps, with every launch count checked (K6 once per microbatch); then
      fp32 steps without dropout on the card against the CPU;
-  8. timing: serving at B = 32 x 16 s and the train step at 3 x 4 x 12 s,
+  8. the training loop: run_training on the release config, a seeded
+     fairseq HuBERT-Base .pt and WAVs it writes, resumed runs bit for bit,
+     the export served, a 20-step rate run;
+  9. timing: serving at B = 32 x 16 s and the train step at 3 x 4 x 12 s,
      with a profile of each, the steps of paths 6 and 7, and every kernel
      against its bound, its plain version and the library call, one row per
      kernel and path at that path's shapes, with the launches that path's
@@ -47,7 +50,18 @@ run with a non-zero exit and no final line:
      beside its own floor, each K6 launch's time beside its own floor, and
      the goals: K2's, K3's and K4's times as multiples of SDPA's, K1's (the
      conv_stack call with its prefix) and K6's in ms;
-  9. a JSON line of the kernels, the nvidia-smi line, and last
+  10. data parallelism: NCCL as one rank on the card, two release steps
+     through the data-parallel path bit for bit against the plain step;
+     two gloo ranks sharing the card (spawned by ``launch``), fp32 against
+     one process on the same global batch, and the bf16 release step with
+     its parameters bit-identical across the ranks, each rank's launches
+     the release step's and the ranks' keep masks differing; the loop over
+     two gloo ranks for one epoch, one checkpoint, an export that serves;
+  11. export: a full-width Lightning .ckpt through the torch.hub entry,
+     bit for bit against UpstreamExpert on the state dict, and
+     ``python -m fithubert_tpu_torch.export.extract_features`` on the WAVs,
+     each .npy against the expert's forward;
+  12. a JSON line of the kernels, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -61,6 +75,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SR = 16000
@@ -802,15 +817,26 @@ def fairseq_cfg(geom):
             "conv_pos": geom.conv_pos, "conv_pos_groups": geom.conv_pos_groups}
 
 
-def loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi):
+def loop_config(exp, tmp, pt, libri, run, epochs, log_every):
+    """``exp`` on the loop phase's teacher ``pt`` and corpus ``libri``, its
+    run in ``<tmp>/<run>``."""
+    return dataclasses.replace(
+        exp, teacher=dataclasses.replace(exp.teacher, teacher_model=pt),
+        data=dataclasses.replace(exp.data, libri_root=libri,
+                                 bucketing_path=os.path.join(tmp, "len_for_bucket"),
+                                 train_set=("train-clean-100",), dev_set=("dev-clean",)),
+        train=dataclasses.replace(exp.train, output_dir=os.path.join(tmp, run),
+                                  num_epochs=epochs, log_every=log_every))
+
+
+def loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi, tmp):
     """The training loop end to end on ``exp``: a fairseq HuBERT .pt written
     from ``teacher_cpu``'s weights, a WAV corpus decoded by the native
-    decoder, three runs (1 epoch; resumed to 2; 2 from scratch), the
-    launches of every step (``per_step``) and eval batch (``per_eval``), the
-    export served against the student's own forward, and a 20-step run at
-    the default logging cadence for the loop's rates."""
-    import tempfile
-
+    decoder (both in ``tmp``), three runs (1 epoch; resumed to 2; 2 from
+    scratch), the launches of every step (``per_step``) and eval batch
+    (``per_eval``), the export served against the student's own forward, and
+    a 20-step run at the default logging cadence for the loop's rates.
+    Returns the teacher's .pt and the corpus root."""
     import torch
 
     from fithubert_tpu_torch.export.expert import UpstreamExpert
@@ -824,174 +850,606 @@ def loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi):
 
     gen = torch.Generator().manual_seed(7)
     e = geom.encoder_embed_dim
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
-        pt = os.path.join(tmp, "hubert_base_seeded.pt")
-        # HuBERT's pretraining heads ride along, as in a released checkpoint
-        sd = dict(teacher_cpu.state_dict(), label_embs_concat=torch.randn(504, 256, generator=gen),
-                  mask_emb=torch.randn(e, generator=gen),
-                  **{"final_proj.weight": torch.randn(256, e, generator=gen),
-                     "final_proj.bias": torch.zeros(256)})
-        torch.save({"model": sd, "cfg": {"model": fairseq_cfg(geom)}}, pt)
-        loaded_geom, _ = load_fairseq_teacher(pt)
-        if loaded_geom != geom:
-            fail(f"the fairseq teacher's geometry {loaded_geom} is not HuBERT-Base's {geom}")
-        libri = os.path.join(tmp, "LibriSpeech")
-        write_corpus(libri, gen, {"train-clean-100": 24, "dev-clean": 6})
-        print(f"  wrote a fairseq HuBERT .pt ({os.path.getsize(pt) / 2 ** 20:.0f} MiB, "
-              f"geometry read back ok) and 24 + 6 WAVs of 2-12 s", flush=True)
+    pt = os.path.join(tmp, "hubert_base_seeded.pt")
+    # HuBERT's pretraining heads ride along, as in a released checkpoint
+    sd = dict(teacher_cpu.state_dict(), label_embs_concat=torch.randn(504, 256, generator=gen),
+              mask_emb=torch.randn(e, generator=gen),
+              **{"final_proj.weight": torch.randn(256, e, generator=gen),
+                 "final_proj.bias": torch.zeros(256)})
+    torch.save({"model": sd, "cfg": {"model": fairseq_cfg(geom)}}, pt)
+    loaded_geom, _ = load_fairseq_teacher(pt)
+    if loaded_geom != geom:
+        fail(f"the fairseq teacher's geometry {loaded_geom} is not HuBERT-Base's {geom}")
+    libri = os.path.join(tmp, "LibriSpeech")
+    write_corpus(libri, gen, {"train-clean-100": 24, "dev-clean": 6})
+    print(f"  wrote a fairseq HuBERT .pt ({os.path.getsize(pt) / 2 ** 20:.0f} MiB, "
+          f"geometry read back ok) and 24 + 6 WAVs of 2-12 s", flush=True)
 
-        def config(run, epochs, log_every):
-            return dataclasses.replace(
-                exp, teacher=dataclasses.replace(exp.teacher, teacher_model=pt),
-                data=dataclasses.replace(exp.data, libri_root=libri,
-                                         bucketing_path=os.path.join(tmp, "len_for_bucket"),
-                                         train_set=("train-clean-100",),
-                                         dev_set=("dev-clean",)),
-                train=dataclasses.replace(exp.train, output_dir=os.path.join(tmp, run),
-                                          num_epochs=epochs, log_every=log_every))
+    step_launches = []
+    pauses = []  # (what, seconds) of each eval batch and checkpoint write
+    plain_step = Distiller.train_step_async
+    plain_eval = Distiller.eval_step
+    plain_save = CheckpointManager.save
 
-        step_launches = []
-        pauses = []  # (what, seconds) of each eval batch and checkpoint write
-        plain_step = Distiller.train_step_async
-        plain_eval = Distiller.eval_step
-        plain_save = CheckpointManager.save
+    def counted_step(self, batch, rand):
+        before = dict(_build.LAUNCHES)
+        out = plain_step(self, batch, rand)
+        step_launches.append({n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items()
+                              if c != before.get(n, 0)})
+        return out
 
-        def counted_step(self, batch, rand):
-            before = dict(_build.LAUNCHES)
-            out = plain_step(self, batch, rand)
-            step_launches.append({n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items()
-                                  if c != before.get(n, 0)})
-            return out
-
-        def timed(what, fn):
-            # the queued steps finish first, so their time is not the pause's
-            def wrapper(*args, **kwargs):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                pauses.append((what, time.perf_counter() - t0))
-                return out
-            return wrapper
-
-        def run(name, run_dir, epochs, resume, want_steps, n_steps, n_evals, log_every=1):
-            step_launches.clear()
-            pauses.clear()
+    def timed(what, fn):
+        # the queued steps finish first, so their time is not the pause's
+        def wrapper(*args, **kwargs):
             torch.cuda.synchronize()
-            resident = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            Distiller.train_step_async = counted_step
-            Distiller.eval_step = timed("eval", plain_eval)
-            CheckpointManager.save = timed("save", plain_save)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            pauses.append((what, time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    def run(name, run_dir, epochs, resume, want_steps, n_steps, n_evals, log_every=1):
+        step_launches.clear()
+        pauses.clear()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        Distiller.train_step_async = counted_step
+        Distiller.eval_step = timed("eval", plain_eval)
+        CheckpointManager.save = timed("save", plain_save)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            result = run_training(loop_config(exp, tmp, pt, libri, run_dir, epochs, log_every),
+                                  resume=resume, device="cuda")
+        finally:
+            Distiller.train_step_async = plain_step
+            Distiller.eval_step = plain_eval
+            CheckpointManager.save = plain_save
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if result["steps"] != want_steps or result["preempted"]:
+            fail(f"loop {name}: {result}, want {want_steps} steps")
+        if len(step_launches) != n_steps or any(d != per_step for d in step_launches):
+            fail(f"loop {name}: launches per step {step_launches}, want {per_step}")
+        want_total = {n: len(step_launches) * per_step.get(n, 0) + 2 * n_evals * per_eval.get(
+            n, 0) for n in set(per_step) | set(per_eval)}
+        if total != want_total:
+            fail(f"loop {name}: launches {total}, want {want_total} ({len(step_launches)} "
+                 f"steps, {n_evals} evals of 2 batches)")
+        train, val = logged(os.path.join(tmp, run_dir))
+        values = [v for rec in train.values() for k, v in rec.items()
+                  if k not in ("step", "time")] + [r["val/v_loss"] for r in val]
+        if not all(math.isfinite(v) for v in values):
+            fail(f"loop {name}: a logged value is not finite")
+        last = max(train)
+        timed_steps = last - (want_steps - n_steps) - 1  # the first step anchors the clock
+        print(f"  {name}: {result['steps']} steps, {len(step_launches)} in this run, each "
+              f"launching {json.dumps(per_step)}; {n_evals} eval(s) of 2 batches; all "
+              f"launches {json.dumps(total)} ok; losses "
+              f"{[round(train[s]['loss'], 6) for s in sorted(train)]}, val v_loss "
+              f"{[round(r['val/v_loss'], 6) for r in val]} finite; StepTimer at step "
+              f"{last} over {timed_steps} timed step(s), a barrier every {log_every}: "
+              f"{train[last]['steps_per_sec']:.3f} steps/s, "
+              f"{train[last]['audio_sec_per_sec']:.1f} audio-s/s; wall {wall:.1f} s; peak "
+              f"memory {peak / 2 ** 30:.2f} GiB ({resident / 2 ** 30:.2f} GiB resident "
+              f"before); {smi}", flush=True)
+        return train, timed_steps
+
+    print("[loop] run 1: 1 epoch (2 steps of 3 x 4), eval, best/ + last/, export",
+          flush=True)
+    run("run 1", "resumed", 1, True, 2, 2, 1)
+    ckpt = os.path.join(tmp, "resumed", "ckpt")
+    for sub, want in (("best", {"index.json", "step_2.pt"}), ("last", {"step_2.pt"})):
+        if set(os.listdir(os.path.join(ckpt, sub))) != want:
+            fail(f"loop run 1: {sub}/ holds {os.listdir(os.path.join(ckpt, sub))}")
+    for name in ("student.yaml", "student.pt", "config.yaml"):
+        if not os.path.exists(os.path.join(tmp, "resumed", name)):
+            fail(f"loop run 1: {name} was not written")
+    print("[loop] run 2: resumed to 2 epochs", flush=True)
+    resumed, _ = run("run 2", "resumed", 2, True, 4, 2, 1)
+    print("[loop] run 3: 2 epochs from scratch", flush=True)
+    straight, _ = run("run 3", "straight", 2, False, 4, 4, 2)
+    for s in (1, 2, 3, 4):
+        for key in LOOP_RESUME_KEYS:
+            if resumed[s][key] != straight[s][key]:
+                fail(f"loop: step {s} {key} {resumed[s][key]!r} (runs 1 + 2) vs "
+                     f"{straight[s][key]!r} (run 3): a resume must give the same bits")
+    print(f"  steps 1-4, runs 1 + 2 vs run 3: {', '.join(LOOP_RESUME_KEYS)} bit for bit; "
+          f"loss {[resumed[s]['loss'] for s in (1, 2, 3, 4)]}", flush=True)
+
+    print("[loop] the export pair served on the card against the student's own bf16 "
+          "forward from the loop's final weights", flush=True)
+    state = CheckpointManager(ckpt).restore()
+    if state is None or state["step"] != 4:
+        fail("loop: no checkpoint at step 4")
+    student = StudentModel(exp.distiller, device="cuda")
+    student.load_state_dict(state["student"])
+    student.eval()
+    wavs = [torch.randn(int(s * SR), generator=gen) * 0.1 for s in (3.3, 7.9, 5.1)]
+    _build.reset_launches()
+    expert = UpstreamExpert(os.path.join(tmp, "resumed", "student.pt"), exp.distiller,
+                            device="cuda")
+    got = expert(wavs)
+    served = dict(_build.LAUNCHES)
+    t_pad = quantize_length(max(len(w) for w in wavs), SR)
+    x = torch.zeros(len(wavs), t_pad)
+    mask = torch.ones(len(wavs), t_pad, dtype=torch.bool)
+    for i, w in enumerate(wavs):
+        x[i, : len(w)], mask[i, : len(w)] = w, False
+    want = student(x.cuda(), mask.cuda())
+    torch.cuda.synchronize()
+    if not torch.equal(got["last_hidden_state"], want.x) or \
+            not torch.equal(got["padding_mask"], want.padding_mask):
+        err = (got["last_hidden_state"].float() - want.x.float()).abs().max().item()
+        fail(f"loop: the export's features differ from the student's by {err:.3e}")
+    if not torch.isfinite(want.x).all().item():
+        fail("loop: the exported student's features are not finite")
+    print(f"  UpstreamExpert(student.pt) B=3 ragged: last_hidden_state "
+          f"{tuple(want.x.shape)} equal to the student's forward, bit for bit; launches "
+          f"{json.dumps(served)} ok", flush=True)
+    del student, expert
+
+    print(f"[loop] rate: {LOOP_RATE_EPOCHS} epochs from scratch ({2 * LOOP_RATE_EPOCHS} "
+          f"steps), log_every {LOOP_RATE_LOG_EVERY}", flush=True)
+    train, timed_steps = run("rate", "rate", LOOP_RATE_EPOCHS, False, 2 * LOOP_RATE_EPOCHS,
+                             2 * LOOP_RATE_EPOCHS, LOOP_RATE_EPOCHS, LOOP_RATE_LOG_EVERY)
+    # the window runs from step 1's tick to the last step's; every epoch
+    # but the last ends inside it with its eval (2 batches) and its save
+    window = timed_steps / train[max(train)]["steps_per_sec"]
+    inside = pauses[:-3]
+    evals = sum(t for what, t in inside if what == "eval")
+    saves = sum(t for what, t in inside if what == "save")
+    print(f"  rate: StepTimer window {window:.3f} s over {timed_steps} steps holds "
+          f"{LOOP_RATE_EPOCHS - 1} evals ({evals:.3f} s) and checkpoint saves "
+          f"({saves:.3f} s); the steps alone {timed_steps / (window - evals - saves):.3f} "
+          f"steps/s; {smi}", flush=True)
+    return pt, libri
+
+
+# ---- data parallelism ([dp]) and the rest of export ([export])
+# The [dp] gloo ranks share the one card and stage every collective through
+# the host, so their times measure gloo on this host, not data-parallel
+# speed; NCCL runs here as one rank only (two NCCL ranks on one card are
+# refused), so no number below is a scaling number.
+DP_WORLD = 2
+DP_RANK_TIMEOUT = 300  # seconds for a launch of ranks; a lost rendezvous would hang
+ALL_REDUCE_REPS = 3
+LIGHTNING_MODULE = "pytorch_lightning.callbacks.model_checkpoint"
+
+
+def gloo_rank_setup():
+    """This spawned rank's gloo group on the one card: (DataParallel, device)."""
+    import torch
+    import torch.distributed as dist
+
+    from fithubert_tpu_torch.parallel.distributed import DataParallel
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method="env://", rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return DataParallel.from_process_group(), dev
+
+
+def gloo_step_rank(spec_path, out_dir):
+    """One of the [dp] gloo ranks: for each case of the spec, a data-parallel
+    Distiller takes one step per global batch on this rank's stripe of rows;
+    per step its logs, launches (counts zeroed just before), wall time, and
+    whether its parameters equal rank 0's bit for bit. Rank 0 saves the fp32
+    case's final parameters; then both time the gradient all-reduce, and
+    draw their first dropout keep mask. The result holds no tensor: a
+    tensor would reach the parent through shared memory that this process,
+    which exits next, owns."""
+    import torch
+    import torch.distributed as dist
+
+    from fithubert_tpu_torch.ops.dropout import DropoutRNG
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.train.step import Distiller
+
+    dp, dev = gloo_rank_setup()
+    spec = torch.load(spec_path, weights_only=False)
+    out = {}
+    for case in ("fp32", "bf16"):
+        c = spec[case]
+        d = Distiller(c["exp"], spec["t_state"], spec["s_state"], device=dev,
+                      num_training_steps=20, dp=dp)
+        steps = []
+        for batch in c["batches"]:
+            local = {k: v[:, dp.rank::dp.world] for k, v in batch.items()}
+            torch.cuda.synchronize()
             _build.reset_launches()
             t0 = time.perf_counter()
-            try:
-                result = run_training(config(run_dir, epochs, log_every), resume=resume,
-                                      device="cuda")
-            finally:
-                Distiller.train_step_async = plain_step
-                Distiller.eval_step = plain_eval
-                CheckpointManager.save = plain_save
+            logs = d.train_step(local, spec["rand"])
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            total = dict(_build.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated()
-            if result["steps"] != want_steps or result["preempted"]:
-                fail(f"loop {name}: {result}, want {want_steps} steps")
-            if len(step_launches) != n_steps or any(d != per_step for d in step_launches):
-                fail(f"loop {name}: launches per step {step_launches}, want {per_step}")
-            want_total = {n: len(step_launches) * per_step.get(n, 0) + 2 * n_evals * per_eval.get(
-                n, 0) for n in set(per_step) | set(per_eval)}
-            if total != want_total:
-                fail(f"loop {name}: launches {total}, want {want_total} ({len(step_launches)} "
-                     f"steps, {n_evals} evals of 2 batches)")
-            train, val = logged(os.path.join(tmp, run_dir))
-            values = [v for rec in train.values() for k, v in rec.items()
-                      if k not in ("step", "time")] + [r["val/v_loss"] for r in val]
-            if not all(math.isfinite(v) for v in values):
-                fail(f"loop {name}: a logged value is not finite")
-            last = max(train)
-            timed_steps = last - (want_steps - n_steps) - 1  # the first step anchors the clock
-            print(f"  {name}: {result['steps']} steps, {len(step_launches)} in this run, each "
-                  f"launching {json.dumps(per_step)}; {n_evals} eval(s) of 2 batches; all "
-                  f"launches {json.dumps(total)} ok; losses "
-                  f"{[round(train[s]['loss'], 6) for s in sorted(train)]}, val v_loss "
-                  f"{[round(r['val/v_loss'], 6) for r in val]} finite; StepTimer at step "
-                  f"{last} over {timed_steps} timed step(s), a barrier every {log_every}: "
-                  f"{train[last]['steps_per_sec']:.3f} steps/s, "
-                  f"{train[last]['audio_sec_per_sec']:.1f} audio-s/s; wall {wall:.1f} s; peak "
-                  f"memory {peak / 2 ** 30:.2f} GiB ({resident / 2 ** 30:.2f} GiB resident "
-                  f"before); {smi}", flush=True)
-            return train, timed_steps
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(_build.LAUNCHES)
+            flat = torch.cat([p.detach().reshape(-1) for p in d.params])
+            ref = flat.clone()
+            dist.broadcast(ref, 0)
+            steps.append(dict(logs=logs, launches=launches, ms=ms,
+                              same_as_rank0=bool(torch.equal(flat, ref))))
+        out[case] = {"steps": steps}
+        if case == "fp32" and dp.rank == 0:
+            torch.save({n: p.detach().cpu() for n, p in d.student.state_dict().items()},
+                       os.path.join(out_dir, "fp32_params.pt"))
+        if case == "bf16":
+            grads = [p.grad for p in d.params]
+            times = []
+            for _ in range(ALL_REDUCE_REPS):
+                dp.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dp.all_reduce_grads(grads)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            rng = DropoutRNG(d._seed(0), dev)
+            out[case].update(
+                all_reduce_ms=times, grad_bytes=sum(g.numel() * g.element_size() for g in grads),
+                seed_words=rng.seed_words(),
+                keep=(rng.dropout(torch.ones(1 << 16, device=dev), ATTN_P) != 0).cpu().numpy())
+        del d
+        torch.cuda.empty_cache()
+    return out
 
-        print("[loop] run 1: 1 epoch (2 steps of 3 x 4), eval, best/ + last/, export",
+
+def dp_nccl_phase(exp, t_state, s_state, batches, rand_layers, per_step, smi):
+    """[dp] NCCL, one rank: the process group on the card, two release steps
+    through the data-parallel path against the plain Distiller on the same
+    batches, bit for bit, each launching the release step's kernels; the
+    world-1 gradient all-reduce timed on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.parallel.distributed import DataParallel, free_port
+    from fithubert_tpu_torch.train.step import Distiller
+
+    dev = torch.device("cuda", 0)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        dp = DataParallel.from_process_group()
+        print(f"  process group: {dist.get_backend()}, rank {dp.rank} of {dp.world} on {dev}",
               flush=True)
-        run("run 1", "resumed", 1, True, 2, 2, 1)
-        ckpt = os.path.join(tmp, "resumed", "ckpt")
-        for sub, want in (("best", {"index.json", "step_2.pt"}), ("last", {"step_2.pt"})):
-            if set(os.listdir(os.path.join(ckpt, sub))) != want:
-                fail(f"loop run 1: {sub}/ holds {os.listdir(os.path.join(ckpt, sub))}")
-        for name in ("student.yaml", "student.pt", "config.yaml"):
-            if not os.path.exists(os.path.join(tmp, "resumed", name)):
-                fail(f"loop run 1: {name} was not written")
-        print("[loop] run 2: resumed to 2 epochs", flush=True)
-        resumed, _ = run("run 2", "resumed", 2, True, 4, 2, 1)
-        print("[loop] run 3: 2 epochs from scratch", flush=True)
-        straight, _ = run("run 3", "straight", 2, False, 4, 4, 2)
-        for s in (1, 2, 3, 4):
-            for key in LOOP_RESUME_KEYS:
-                if resumed[s][key] != straight[s][key]:
-                    fail(f"loop: step {s} {key} {resumed[s][key]!r} (runs 1 + 2) vs "
-                         f"{straight[s][key]!r} (run 3): a resume must give the same bits")
-        print(f"  steps 1-4, runs 1 + 2 vs run 3: {', '.join(LOOP_RESUME_KEYS)} bit for bit; "
-              f"loss {[resumed[s]['loss'] for s in (1, 2, 3, 4)]}", flush=True)
+        plain = Distiller(exp, t_state, s_state, device=dev, num_training_steps=20)
+        via = Distiller(exp, t_state, s_state, device=dev, num_training_steps=20, dp=dp)
+        for i, batch in enumerate(batches):
+            lp = plain.train_step(batch, rand_layers)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            lv = via.train_step(batch, rand_layers)
+            torch.cuda.synchronize()
+            if dict(_build.LAUNCHES) != per_step:
+                fail(f"[dp] nccl step {i}: launches {dict(_build.LAUNCHES)}, want {per_step}")
+            if lv != lp:
+                fail(f"[dp] nccl step {i}: logs {lv} vs the plain step's {lp}")
+            print(f"  step {i}: loss {lv['loss']!r} grad_norm {lv['grad_norm']!r} lr "
+                  f"{lv['lr']!r} equal to the plain step's bit for bit; launches "
+                  f"{json.dumps(dict(_build.LAUNCHES))} ok", flush=True)
+        for (n, a), b in zip(plain.student.named_parameters(), via.params):
+            if not torch.equal(a, b):
+                fail(f"[dp] nccl: parameter {n} differs from the plain step's")
+        print("  parameters after 2 steps equal to the plain Distiller's, bit for bit",
+              flush=True)
+        grads = [p.grad for p in via.params]
+        flat = torch._utils._flatten_dense_tensors(grads)
+        ar_ms = cuda_ms(lambda: dist.all_reduce(flat), reps=20)
+        grads_ms = cuda_ms(lambda: dp.all_reduce_grads(grads), reps=20)
+        print(f"  NCCL world-1 all_reduce of the {flat.numel() * 4 / 1e6:.1f} MB fp32 gradient "
+              f"buffer: {ar_ms:.4f} ms; all_reduce_grads (flatten, all_reduce, copy back): "
+              f"{grads_ms:.4f} ms (CUDA events, mean of 20); {smi}", flush=True)
+        walls = {"plain": [], "dp": []}
+        for _ in range(3):
+            for name, d in (("plain", plain), ("dp", via), ("dp", via), ("plain", plain)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                d.train_step(batches[-1], rand_layers)
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        print(f"  release step wall, median of 6 interleaved: plain "
+              f"{statistics.median(walls['plain']):.3f} ms, through the world-1 DP path "
+              f"{statistics.median(walls['dp']):.3f} ms; {smi}", flush=True)
+        del plain, via, grads, flat
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
 
-        print("[loop] the export pair served on the card against the student's own bf16 "
-              "forward from the loop's final weights", flush=True)
-        state = CheckpointManager(ckpt).restore()
-        if state is None or state["step"] != 4:
-            fail("loop: no checkpoint at step 4")
-        student = StudentModel(exp.distiller, device="cuda")
-        student.load_state_dict(state["student"])
-        student.eval()
-        wavs = [torch.randn(int(s * SR), generator=gen) * 0.1 for s in (3.3, 7.9, 5.1)]
-        _build.reset_launches()
-        expert = UpstreamExpert(os.path.join(tmp, "resumed", "student.pt"), exp.distiller,
-                                device="cuda")
-        got = expert(wavs)
-        served = dict(_build.LAUNCHES)
-        t_pad = quantize_length(max(len(w) for w in wavs), SR)
-        x = torch.zeros(len(wavs), t_pad)
-        mask = torch.ones(len(wavs), t_pad, dtype=torch.bool)
-        for i, w in enumerate(wavs):
-            x[i, : len(w)], mask[i, : len(w)] = w, False
-        want = student(x.cuda(), mask.cuda())
-        torch.cuda.synchronize()
-        if not torch.equal(got["last_hidden_state"], want.x) or \
-                not torch.equal(got["padding_mask"], want.padding_mask):
-            err = (got["last_hidden_state"].float() - want.x.float()).abs().max().item()
-            fail(f"loop: the export's features differ from the student's by {err:.3e}")
-        if not torch.isfinite(want.x).all().item():
-            fail("loop: the exported student's features are not finite")
-        print(f"  UpstreamExpert(student.pt) B=3 ragged: last_hidden_state "
-              f"{tuple(want.x.shape)} equal to the student's forward, bit for bit; launches "
-              f"{json.dumps(served)} ok", flush=True)
-        del student, expert
 
-        print(f"[loop] rate: {LOOP_RATE_EPOCHS} epochs from scratch ({2 * LOOP_RATE_EPOCHS} "
-              f"steps), log_every {LOOP_RATE_LOG_EVERY}", flush=True)
-        train, timed_steps = run("rate", "rate", LOOP_RATE_EPOCHS, False, 2 * LOOP_RATE_EPOCHS,
-                                 2 * LOOP_RATE_EPOCHS, LOOP_RATE_EPOCHS, LOOP_RATE_LOG_EVERY)
-        # the window runs from step 1's tick to the last step's; every epoch
-        # but the last ends inside it with its eval (2 batches) and its save
-        window = timed_steps / train[max(train)]["steps_per_sec"]
-        inside = pauses[:-3]
-        evals = sum(t for what, t in inside if what == "eval")
-        saves = sum(t for what, t in inside if what == "save")
-        print(f"  rate: StepTimer window {window:.3f} s over {timed_steps} steps holds "
-              f"{LOOP_RATE_EPOCHS - 1} evals ({evals:.3f} s) and checkpoint saves "
-              f"({saves:.3f} s); the steps alone {timed_steps / (window - evals - saves):.3f} "
-              f"steps/s; {smi}", flush=True)
+def dp_gloo_phase(exp, exp32, t_state, s_state, rand_layers, gen, per_step, tmp, smi):
+    """[dp] two gloo ranks sharing the card, full width: fp32 without dropout
+    against one process on the same global batch; the release step in bf16
+    with dropout, its parameters bit-identical across the ranks after each
+    step, its launches per rank the release step's, its keep masks differing
+    between the ranks."""
+    import torch
+
+    from fithubert_tpu_torch.parallel.distributed import launch
+    from fithubert_tpu_torch.train.step import Distiller
+
+    a, b = exp.train.accumulate_grad_batches, exp.train.batch_size
+    spec = {"t_state": t_state, "s_state": s_state, "rand": rand_layers,
+            "fp32": {"exp": exp32, "batches": [train_batch(gen, 2, DP_WORLD, 3.0, ragged=True),
+                                               train_batch(gen, 2, DP_WORLD, 3.0, ragged=False)]},
+            "bf16": {"exp": exp, "batches": [train_batch(gen, a, DP_WORLD * b, 12.0, ragged=True),
+                                             train_batch(gen, a, DP_WORLD * b, 12.0,
+                                                         ragged=False)]}}
+    for case in ("fp32", "bf16"):
+        mask = spec[case]["batches"][0]["padding_mask"]
+        fake = [int(mask[:, r::DP_WORLD].all(-1).sum()) for r in range(DP_WORLD)]
+        print(f"  {case}: global batches {tuple(mask.shape)}, each rank {mask.shape[0]} x "
+              f"{mask.shape[1] // DP_WORLD} rows; fabricated rows per rank in the ragged one "
+              f"{fake}", flush=True)
+    spec_path = os.path.join(tmp, "dp_spec.pt")
+    torch.save(spec, spec_path)
+    t0 = time.perf_counter()
+    try:
+        ranks = launch(gloo_step_rank, DP_WORLD, spec_path, tmp, timeout=DP_RANK_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[dp] gloo ranks: {e}")
+    print(f"  {DP_WORLD} ranks spawned, joined and done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # fp32: the ranks against one process on the whole global batch
+    one = Distiller(exp32, t_state, s_state, device="cuda", num_training_steps=20)
+    for i, batch in enumerate(spec["fp32"]["batches"]):
+        want = one.train_step(batch, rand_layers)
+        for r, rank in enumerate(ranks):
+            got = rank["fp32"]["steps"][i]["logs"]
+            for key in ("loss", "grad_norm"):
+                rel = abs(got[key] - want[key]) / abs(want[key])
+                if rel > TRAIN_RTOL:
+                    fail(f"[dp] gloo fp32 step {i} rank {r}: {key} {got[key]} vs one process "
+                         f"{want[key]} (rel {rel:.3e})")
+            if got["lr"] != want["lr"] or not rank["fp32"]["steps"][i]["same_as_rank0"]:
+                fail(f"[dp] gloo fp32 step {i} rank {r}: lr or parameters differ")
+        print(f"  fp32 step {i}: loss {want['loss']:.8f} (ranks "
+              f"{[rk['fp32']['steps'][i]['logs']['loss'] for rk in ranks]}), grad_norm "
+              f"{want['grad_norm']:.8f}, tol rel {TRAIN_RTOL} ok", flush=True)
+    got_params = torch.load(os.path.join(tmp, "fp32_params.pt"), weights_only=True)
+    worst = max((got_params[n] - p.detach().cpu()).abs().max().item()
+                for n, p in one.student.state_dict().items())
+    if worst > TRAIN_PARAM_ATOL:
+        fail(f"[dp] gloo fp32: parameters differ from one process's by {worst:.3e}")
+    print(f"  fp32 parameters after 2 steps vs one process: max_abs_err={worst:.3e} "
+          f"tol={TRAIN_PARAM_ATOL} ok", flush=True)
+    del one
+    torch.cuda.empty_cache()
+
+    # bf16 with the release dropout
+    for i in range(2):
+        steps = [rank["bf16"]["steps"][i] for rank in ranks]
+        for r, st in enumerate(steps):
+            if st["launches"] != per_step:
+                fail(f"[dp] gloo bf16 step {i} rank {r}: launches {st['launches']}, "
+                     f"want {per_step}")
+            if not st["same_as_rank0"] or st["logs"] != steps[0]["logs"]:
+                fail(f"[dp] gloo bf16 step {i} rank {r}: parameters or logs differ from rank 0")
+            if not all(math.isfinite(v) for v in st["logs"].values()):
+                fail(f"[dp] gloo bf16 step {i}: non-finite logs {st['logs']}")
+        print(f"  bf16 step {i}: loss {steps[0]['logs']['loss']:.6f} grad_norm "
+              f"{steps[0]['logs']['grad_norm']:.6f} on both ranks; parameters bit-identical "
+              f"across the ranks; launches per rank {json.dumps(steps[0]['launches'])} ok; "
+              f"wall per rank {[round(st['ms'], 3) for st in steps]} ms", flush=True)
+    r0, r1 = (rank["bf16"] for rank in ranks)
+    if r0["seed_words"] == r1["seed_words"] or (r0["keep"] == r1["keep"]).all():
+        fail("[dp] gloo: the ranks drew the same dropout keep masks")
+    agree = float((r0["keep"] == r1["keep"]).mean())
+    print(f"  dropout: first attention seed words {r0['seed_words']} vs {r1['seed_words']}; "
+          f"the ranks' first keep masks agree on {agree:.3f} of 65536 positions (independent "
+          f"at p = {ATTN_P}: {1 - 2 * ATTN_P * (1 - ATTN_P):.3f}) ok", flush=True)
+    print(f"  gloo all_reduce_grads of {r0['grad_bytes'] / 1e6:.1f} MB on CUDA tensors (staged "
+          f"through the host), host clock per rank: "
+          f"{[[round(t, 3) for t in rk['bf16']['all_reduce_ms']] for rk in ranks]} ms; {smi}",
+          flush=True)
+
+
+def gloo_loop_rank(cfg):
+    """One of the [dp] loop's gloo ranks: run_training on the card, each
+    step's launches counted. Returns (result, launches per step)."""
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.train.loop import run_training
+    from fithubert_tpu_torch.train.step import Distiller
+
+    _, dev = gloo_rank_setup()
+    step_launches = []
+    plain_step = Distiller.train_step_async
+
+    def counted_step(self, batch, rand):
+        before = dict(_build.LAUNCHES)
+        out = plain_step(self, batch, rand)
+        step_launches.append({n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items()
+                              if c != before.get(n, 0)})
+        return out
+
+    Distiller.train_step_async = counted_step
+    return run_training(cfg, resume=False, device=dev), step_launches
+
+
+def dp_loop_phase(exp, tmp, pt, libri, per_step, smi):
+    """[dp] the loop over two gloo ranks: one epoch on the loop phase's WAVs
+    (a global batch of 6 rows, so 24 WAVs make one step of 4 x 3 per rank),
+    one checkpoint, each step logged once, and an export that serves."""
+    import torch
+
+    from fithubert_tpu_torch.data.librispeech import quantize_length
+    from fithubert_tpu_torch.export.expert import UpstreamExpert
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.parallel.distributed import launch
+    from fithubert_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = loop_config(exp, tmp, pt, libri, "dp_loop", 1, 1)
+    t0 = time.perf_counter()
+    try:
+        ranks = launch(gloo_loop_rank, DP_WORLD, cfg, timeout=DP_RANK_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[dp] loop ranks: {e}")
+    wall = time.perf_counter() - t0
+    results = [r[0] for r in ranks]
+    if results[0] != results[1] or results[0]["steps"] != 1 or results[0]["preempted"]:
+        fail(f"[dp] loop: the ranks returned {results}, want 1 step each, alike")
+    for r, (_, launches) in enumerate(ranks):
+        if launches != [per_step]:
+            fail(f"[dp] loop rank {r}: launches per step {launches}, want [{per_step}]")
+    run_dir = os.path.join(tmp, "dp_loop")
+    train, val = logged(run_dir)
+    if sorted(train) != [1] or len(val) != 1:
+        fail(f"[dp] loop: metrics.jsonl holds train steps {sorted(train)} and {len(val)} "
+             f"val records, want [1] and 1 (rank 0 alone writes)")
+    ckpt = os.path.join(run_dir, "ckpt")
+    for sub, want in (("best", {"index.json", "step_1.pt"}), ("last", {"step_1.pt"})):
+        if set(os.listdir(os.path.join(ckpt, sub))) != want:
+            fail(f"[dp] loop: {sub}/ holds {os.listdir(os.path.join(ckpt, sub))}")
+    print(f"  {DP_WORLD} ranks: {results[0]}; each launched {json.dumps(per_step)} in its "
+          f"step; one checkpoint (best/ + last/ step_1.pt), one train and one val record; loss "
+          f"{train[1]['loss']:.6f}, val v_loss {val[0]['val/v_loss']:.6f}; wall {wall:.1f} s "
+          f"(spawn, set-up, decode, step, eval, save, export); {smi}", flush=True)
+    state = CheckpointManager(ckpt).restore()
+    student = StudentModel(exp.distiller, device="cuda")
+    student.load_state_dict(state["student"])
+    student.eval()
+    gen = torch.Generator().manual_seed(8)
+    wavs = [torch.randn(int(s * SR), generator=gen) * 0.1 for s in (2.9, 6.4)]
+    got = UpstreamExpert(os.path.join(run_dir, "student.pt"), exp.distiller, device="cuda")(wavs)
+    t_pad = quantize_length(max(len(w) for w in wavs), SR)
+    x = torch.zeros(len(wavs), t_pad)
+    mask = torch.ones(len(wavs), t_pad, dtype=torch.bool)
+    for i, w in enumerate(wavs):
+        x[i, : len(w)], mask[i, : len(w)] = w, False
+    want = student(x.cuda(), mask.cuda())
+    if not torch.equal(got["last_hidden_state"], want.x):
+        fail("[dp] loop: the export's features differ from the checkpoint's student")
+    print(f"  the export pair (student.pt) served B=2: last_hidden_state "
+          f"{tuple(want.x.shape)} equal to the checkpoint's student, bit for bit", flush=True)
+
+
+def write_lightning_ckpt(path, student_sd, teacher_sd):
+    """A .ckpt shaped as Lightning saves the reference's distiller: the
+    weights under state_dict with the module prefixes, the trainer's state,
+    and a ModelCheckpoint object of a module that is not installed (it exists
+    only while the file is written)."""
+    import types
+
+    import torch
+
+    names = LIGHTNING_MODULE.split(".")
+    mods = {".".join(names[:i + 1]): types.ModuleType(".".join(names[:i + 1]))
+            for i in range(len(names))}
+    if set(mods) & set(sys.modules):
+        fail(f"{LIGHTNING_MODULE} is installed here: the .ckpt would not need the stubs")
+    cls = type("ModelCheckpoint", (), {"__module__": LIGHTNING_MODULE})
+    mods[LIGHTNING_MODULE].ModelCheckpoint = cls
+    callback = cls()
+    callback.best_model_path, callback.monitor = "epoch=99.ckpt", "v_loss"
+    sd = {**{f"student_model.{k}": v for k, v in student_sd.items()},
+          **{f"teacher_model.{k}": v for k, v in teacher_sd.items()}}
+    sys.modules.update(mods)
+    try:
+        torch.save({"epoch": 99, "global_step": 23400, "pytorch-lightning_version": "1.5.10",
+                    "state_dict": sd, "callbacks": {"ModelCheckpoint": callback},
+                    "optimizer_states": [{"state": {}, "param_groups": [{"lr": 5e-4,
+                                                                         "params": []}]}],
+                    "lr_schedulers": [{"last_epoch": 23400}]}, path)
+    finally:
+        for name in mods:
+            del sys.modules[name]
+
+
+def export_phase(exp, s_state, t_state, libri, tmp, smi):
+    """[export] a full-width release-student Lightning .ckpt, loaded through
+    fithubert_tpu_torch/hubconf.py, against UpstreamExpert on the state
+    dict, bit for bit; then python -m ...extract_features on the loop
+    phase's WAVs, each .npy against the expert's forward of the same batch,
+    bit for bit, with its frame count."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from fithubert_tpu_torch.config import dump_config
+    from fithubert_tpu_torch.data import audio
+    from fithubert_tpu_torch.export.expert import UpstreamExpert
+    from fithubert_tpu_torch.export.extract_features import output_names
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(tmp, "FitHuBERT-960h.ckpt")
+    yaml_path = os.path.join(tmp, "FitHuBERT-960h.yaml")
+    write_lightning_ckpt(ckpt, s_state, t_state)
+    dump_config(exp, yaml_path)
+    print(f"  wrote a Lightning-shaped .ckpt ({os.path.getsize(ckpt) / 2 ** 20:.0f} MiB: "
+          f"student_model.* + teacher_model.*, trainer state, a {LIGHTNING_MODULE} object) "
+          f"and its YAML", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hub = torch.hub.load(os.path.join(root, "fithubert_tpu_torch"), "fithubert", ckpt, yaml_path,
+                         source="local", device="cuda")
+    torch.cuda.synchronize()
+    hub_s = time.perf_counter() - t0
+    pt = os.path.join(tmp, "student.pt")
+    torch.save(s_state, pt)
+    t0 = time.perf_counter()
+    plain = UpstreamExpert(pt, exp.distiller, device="cuda")
+    torch.cuda.synchronize()
+    pt_s = time.perf_counter() - t0
+    if hub.cfg != exp.distiller:
+        fail(f"[export] the hub's config {hub.cfg} is not the release student's")
+    gen = torch.Generator().manual_seed(9)
+    wavs = ragged_wavs(gen, 3, 2.0, 16.0)
+    _build.reset_launches()
+    got = hub(wavs)
+    torch.cuda.synchronize()
+    served = dict(_build.LAUNCHES)
+    want = plain(wavs)
+    for g, w in zip((got["last_hidden_state"], *got["hidden_states"], got["padding_mask"]),
+                    (want["last_hidden_state"], *want["hidden_states"], want["padding_mask"])):
+        if not torch.equal(g, w):
+            fail("[export] the hub's .ckpt expert differs from UpstreamExpert on the state dict")
+    print(f"  torch.hub.load(fithubert_tpu_torch, 'fithubert', .ckpt, .yaml, source='local'): "
+          f"B=3 ragged features equal to UpstreamExpert(student.pt), bit for bit; launches "
+          f"{json.dumps(served)}; load {hub_s:.3f} s (the .pt: {pt_s:.3f} s); {smi}", flush=True)
+
+    # train-clean-100 and dev-clean share file names: the later ones get .1
+    paths = sorted(glob.glob(os.path.join(libri, "*", "*", "*", "*.wav")))
+    names = output_names(paths)
+    out = os.path.join(tmp, "feats")
+    batch_size = 8
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "fithubert_tpu_torch.export.extract_features",
+                          "--ckpt", ckpt, "--config", yaml_path, "--inputs", *paths, "--out", out,
+                          "--batch-size", str(batch_size)], cwd=root, capture_output=True,
+                         text=True, timeout=600, env=dict(os.environ, PYTHONPATH=root))
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"[export] extract_features exited {run.returncode}:\n{run.stderr[-3000:]}")
+    if sorted(os.listdir(out)) != sorted(n + ".npy" for n in names.values()) or \
+            len(set(names.values())) != len(paths):
+        fail(f"[export] extract_features wrote {sorted(os.listdir(out))}")
+    for i in range(0, len(paths), batch_size):
+        chunk = paths[i: i + batch_size]
+        feats = plain([audio.decode(p) for p in chunk])["last_hidden_state"]
+        for j, p in enumerate(chunk):
+            n = len(audio.decode(p))
+            frames = 2 * (cf.out_len(n, exp.distiller.conv_feature_layers) // 2)
+            saved = np.load(os.path.join(out, names[p] + ".npy"))
+            if saved.shape != (frames, exp.distiller.pred_head_final_dim):
+                fail(f"[export] {p}: .npy of shape {saved.shape}, want {frames} frames")
+            if not np.array_equal(saved, feats[j, :frames].float().cpu().numpy()):
+                fail(f"[export] {p}: the .npy differs from the expert's forward")
+    print(f"  python -m fithubert_tpu_torch.export.extract_features: {len(paths)} WAVs in "
+          f"batches of {batch_size}, one .npy each ({sum('.' in n for n in names.values())} "
+          f"repeated file names with a .1) with its frame count, equal to the expert's "
+          f"forward of the same batch, bit for bit; wall {wall:.1f} s (a new process: "
+          f"imports, the .ckpt read, decode, forwards); {smi}", flush=True)
 
 
 def main() -> int:
@@ -1342,7 +1800,9 @@ def main() -> int:
           "a WAV corpus, FITHUBERT_CONV_BWD unset", flush=True)
     per_eval = {cf.KERNEL_PREFIX: 2, cf.KERNEL: per_step[cf.KERNEL],  # teacher + student
                 fa.KERNEL: geom.encoder_layers + exp.distiller.encoder_layers}  # p = 0
-    loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi)
+    # the loop's teacher and corpus serve phases 10 and 11 too
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    pt, libri = loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi, work.name)
 
     # ---- 9. timing
     print("[timing] B=32 x 16 s, bf16", flush=True)
@@ -1582,7 +2042,24 @@ def main() -> int:
               f"goal <= {goal} ms {met(ms <= goal)}, acceptance <= {accept} ms "
               f"{met(ms <= accept)}", flush=True)
 
-    # ---- 10. result lines
+    # ---- 10. data parallelism
+    print("[dp] NCCL, one rank: two release steps through the data-parallel path against the "
+          "plain Distiller on the same batches", flush=True)
+    dp_nccl_phase(exp, t_state, s_state, [ragged, fixed], rand_layers, per_step, smi)
+    print(f"[dp] gloo, {DP_WORLD} ranks sharing the card, full width: fp32 without dropout "
+          f"against one process, then the bf16 release step with dropout", flush=True)
+    dp_gloo_phase(exp, exp32, t_state, s_state, rand_layers, gen, per_step, work.name, smi)
+    print(f"[dp] the loop over {DP_WORLD} gloo ranks: one epoch on the loop phase's WAVs",
+          flush=True)
+    dp_loop_phase(exp, work.name, pt, libri, per_step, smi)
+
+    # ---- 11. the rest of export
+    print("[export] the reference's Lightning .ckpt through torch.hub and extract_features",
+          flush=True)
+    export_phase(exp, s_state, t_state, libri, work.name, smi)
+    work.cleanup()
+
+    # ---- 12. result lines
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,16 +6,17 @@ defaults: ``StudentConfig`` (the fields the port's student has),
 ``SpecAugConfig``, ``TeacherConfig`` and ``ExperimentConfig``.
 
     config_from_yaml_dict(raw)  a reference-schema dict -> ExperimentConfig
-    load_experiment_yaml(path)  the same from a file (needs PyYAML)
+    load_experiment_yaml(path)  the same from a file
     load_yaml_config(path)      the student that UpstreamExpert serves
     dump_config(cfg, path)      a YAML file, written without a YAML library
+    read_yaml(path)             a YAML file as a dict
 
 The presets are ``fithubert_960h()`` (the student of
 ``configs/fithubert.yaml`` as ``load_yaml_config`` resolves it;
 ``use_fp16: True`` selects bfloat16 compute) and
 ``fithubert_960h_experiment()`` (the whole file). ``yaml`` is imported only
-inside the functions that read a file, so the package runs where ``yaml``
-is not installed.
+inside ``read_yaml``, the one function that reads a file, so the package
+imports where ``yaml`` is not installed.
 """
 
 from __future__ import annotations
@@ -205,15 +206,20 @@ class StudentConfig:
         return d
 
 
+def read_yaml(path: str) -> Dict[str, Any]:
+    """A YAML file as a dict (needs PyYAML)."""
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
 def load_yaml_config(path: str) -> StudentConfig:
     """The student config that ``UpstreamExpert`` serves from a
     reference-schema YAML file. The teacher-init flags only tell training how
     to start, so they are turned off first, as the JAX expert does
     (``fithubert_tpu/export/expert.py:57-65``)."""
-    import yaml
-
-    with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+    raw = read_yaml(path)
     distiller = dict(raw.get("distiller", {}), init_conv_layers=False, init_encoder_layers=0)
     return StudentConfig.from_dict(
         distiller,
@@ -440,12 +446,9 @@ def config_from_yaml_dict(raw: Dict[str, Any]) -> ExperimentConfig:
 
 
 def load_experiment_yaml(path: str) -> ExperimentConfig:
-    """The whole experiment of a reference-schema YAML file (needs PyYAML;
-    ``load_yaml_config`` is the expert's reader of the student alone)."""
-    import yaml
-
-    with open(path) as f:
-        return config_from_yaml_dict(yaml.safe_load(f))
+    """The whole experiment of a reference-schema YAML file
+    (``load_yaml_config`` is the expert's reader of the student alone)."""
+    return config_from_yaml_dict(read_yaml(path))
 
 
 def timestamp_tag() -> str:

@@ -10,9 +10,12 @@ utterance, rounded up to a multiple of ``length_quantum`` samples. A
 trailing group with fewer than A buckets is squared off with fabricated
 all-padding microbatches, and a partial bucket with rows of all padding.
 The buckets are shuffled per epoch by ``np.random.default_rng(seed +
-epoch)``, and decoded ahead on a thread pool. One process reads the whole
-batch (the port has no data parallelism yet). Transcripts are not read:
-``load_labels`` is refused until CTC is ported.
+epoch)``, and decoded ahead on a thread pool. ``batch_size`` is the
+global batch: under data parallelism rank ``host_id`` of ``num_hosts``
+reads rows ``host_id::num_hosts`` of each bucket padded to ``batch_size``
+(a fabricated row goes to whichever rank owns its position), so every rank
+has the same bucket list, padded length and number of steps. Transcripts
+are not read: ``load_labels`` is refused until CTC is ported.
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ from fithubert_tpu_torch.config import DataConfig
 from fithubert_tpu_torch.data import audio
 
 Batch = Dict[str, np.ndarray]
+
+
+def _check_stripe(batch_size: int, host_id: int, num_hosts: int) -> None:
+    if not 0 <= host_id < num_hosts or batch_size % num_hosts:
+        raise ValueError(f"rank {host_id} of {num_hosts} cannot take a stripe of a global "
+                         f"batch of {batch_size}")
 
 
 def _refuse_labels(cfg: DataConfig) -> None:
@@ -139,13 +148,16 @@ def quantize_length(length: int, quantum: int, max_length: int = 0) -> int:
 
 
 class BucketedLibriSpeech:
-    """Step batches of padded waveforms over the buckets of ``sets``."""
+    """Step batches of padded waveforms over the buckets of ``sets``: rows
+    ``host_id::num_hosts`` of each global batch of ``batch_size``."""
 
     def __init__(self, cfg: DataConfig, sets: Sequence[str], batch_size: int, accum: int = 1,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0, host_id: int = 0, num_hosts: int = 1):
         _refuse_labels(cfg)
+        _check_stripe(batch_size, host_id, num_hosts)
         self.cfg = cfg
         self.batch_size = batch_size
+        self.host_id, self.num_hosts = host_id, num_hosts
         self.accum = max(1, accum)
         self.shuffle = shuffle
         self.seed = seed
@@ -160,9 +172,14 @@ class BucketedLibriSpeech:
         return -(-len(self.buckets) // self.accum)
 
     def _load_bucket(self, bucket, t_pad: int) -> Tuple[np.ndarray, np.ndarray]:
+        """This rank's stripe of ``bucket`` padded to the global batch: its
+        real rows first, then its fabricated ones (all padding)."""
+        rows = (list(bucket) + [None] * (self.batch_size - len(bucket)))[
+            self.host_id::self.num_hosts]
+        bucket = [r for r in rows if r is not None]
         b = len(bucket)
-        x = np.zeros((self.batch_size, t_pad), np.float32)
-        mask = np.ones((self.batch_size, t_pad), bool)
+        x = np.zeros((len(rows), t_pad), np.float32)
+        mask = np.ones((len(rows), t_pad), bool)
         paths = [os.path.join(self.cfg.libri_root, p) for (p, _n) in bucket]
         x[:b], lengths = audio.decode_batch(paths, t_pad, self.cfg.num_workers)
         for i in range(b):
@@ -211,14 +228,18 @@ class BucketedLibriSpeech:
 
 class SyntheticDataset:
     """Corpus-free step batches: harmonic sweeps plus noise, with random
-    lengths in [0.8 T, T]."""
+    lengths in [0.8 T, T]. ``batch_size`` is global: each of ``num_hosts``
+    ranks draws its ``batch_size / num_hosts`` rows from the seed folded
+    with its ``host_id``, so the ranks' rows differ."""
 
-    def __init__(self, cfg: DataConfig, batch_size: int, accum: int = 1, seed: int = 0):
+    def __init__(self, cfg: DataConfig, batch_size: int, accum: int = 1, seed: int = 0,
+                 host_id: int = 0, num_hosts: int = 1):
         _refuse_labels(cfg)
+        _check_stripe(batch_size, host_id, num_hosts)
         self.cfg = cfg
-        self.batch_size = batch_size
+        self.batch_size = batch_size // num_hosts
         self.accum = max(1, accum)
-        self.seed = seed
+        self.seed = seed + 100003 * host_id
 
     def __len__(self) -> int:
         return max(1, self.cfg.synthetic_num_batches // self.accum)
@@ -238,7 +259,8 @@ class SyntheticDataset:
 
 
 def make_dataset(cfg: DataConfig, sets: Sequence[str], batch_size: int, accum: int = 1,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0, host_id: int = 0, num_hosts: int = 1):
+    """Rank ``host_id``'s stripe of the global batches of ``batch_size``."""
     if cfg.synthetic:
-        return SyntheticDataset(cfg, batch_size, accum, seed)
-    return BucketedLibriSpeech(cfg, sets, batch_size, accum, shuffle, seed)
+        return SyntheticDataset(cfg, batch_size, accum, seed, host_id, num_hosts)
+    return BucketedLibriSpeech(cfg, sets, batch_size, accum, shuffle, seed, host_id, num_hosts)

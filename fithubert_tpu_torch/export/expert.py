@@ -8,12 +8,14 @@
     get_downsample_rates(key) -> 320
 
 The arguments come in the reference's order, as the s3prl hub hook passes
-them (``hubconf.py:8-12``): ``ckpt`` is a torch state dict or a ``.pt`` file
-of one, ``model_config`` a reference-schema YAML path or a
-``StudentConfig``. Extra hub arguments are accepted and ignored, as the JAX
-expert ignores its ``**kwargs``. Every projection head but the last is
-dropped, as the reference's export does. The outputs are tensors on the
-expert's device.
+them (``hubconf.py:8-12``): ``ckpt`` is a torch state dict, a ``.pt`` file
+of one, or the reference's Lightning ``.ckpt`` (``reference_import.py``),
+``model_config`` a reference-schema YAML path (its teacher-init flags are
+turned off) or a ``StudentConfig``. Extra hub arguments are accepted and
+ignored, as the JAX expert ignores its ``**kwargs``; ``int8=True`` raises.
+Every projection head but the last is dropped, as the reference's export
+does, and the rest must match the model's keys exactly. The outputs are
+tensors on the expert's device.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from fithubert_tpu_torch.config import StudentConfig, load_yaml_config
 from fithubert_tpu_torch.data.librispeech import quantize_length
 from fithubert_tpu_torch.device import resolve_device
+from fithubert_tpu_torch.export.reference_import import reference_student_state_dict
 from fithubert_tpu_torch.models.student import StudentModel
 
 
@@ -34,10 +37,6 @@ class UpstreamExpert:
                  model_config: Union[StudentConfig, str], *args: Any,
                  device: Union[str, torch.device] = "cuda", length_quantum: int = 16000,
                  **kwargs: Any):
-        if isinstance(ckpt, str) and ckpt.endswith(".ckpt"):
-            raise NotImplementedError(
-                f"{ckpt}: the reference's Lightning .ckpt is not read yet (ROADMAP Queue 1 "
-                "item 5); pass a torch state dict or a .pt file of one")
         if kwargs.get("int8"):
             raise NotImplementedError("int8=True (quantize_matmuls): the PyTorch port "
                                       "serves only unquantized matmuls")
@@ -45,8 +44,12 @@ class UpstreamExpert:
         self.cfg = load_yaml_config(model_config) if isinstance(model_config, str) \
             else model_config
         self.length_quantum = length_quantum
-        sd = (torch.load(ckpt, map_location="cpu", weights_only=True)
-              if isinstance(ckpt, str) else ckpt)
+        if not isinstance(ckpt, str):
+            sd = ckpt
+        elif ckpt.endswith(".ckpt"):
+            sd = reference_student_state_dict(ckpt)
+        else:
+            sd = torch.load(ckpt, map_location="cpu", weights_only=True)
         last = f"proj_head.{self.cfg.encoder_layers - 1}."
         sd = {k: v for k, v in sd.items()
               if not k.startswith("proj_head.") or k.startswith(last)}

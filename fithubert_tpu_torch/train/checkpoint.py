@@ -8,7 +8,10 @@ with ``torch.save`` in place of Orbax.
 A save writes a temporary file beside its target and renames it over the
 target, so a reader, or a run that is killed, finds a whole file or none.
 ``save_last`` (the preemption snapshot, which has no v_loss) never enters
-``best/``. ``export_student`` writes the pair that ``UpstreamExpert`` serves:
+``best/``. Under data parallelism (``dp``) every rank calls the saves at
+the same step, rank 0 alone writes, and the others wait for it at a
+barrier; every rank reads. ``export_student`` writes the pair that
+``UpstreamExpert`` serves:
 ``<tag>.yaml`` and ``<tag>.pt``, the student's state dict.
 """
 
@@ -22,6 +25,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from fithubert_tpu_torch.config import ExperimentConfig, dump_config
+from fithubert_tpu_torch.parallel.distributed import DataParallel
 
 _STEP_FILE = re.compile(r"step_(\d+)\.pt$")
 
@@ -47,7 +51,10 @@ def _to_cpu(obj: Any) -> Any:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, save_top_k: int = 3):
+    def __init__(self, directory: str, save_top_k: int = 3,
+                 dp: Optional[DataParallel] = None):
+        self.dp = dp
+        self.writer = dp is None or dp.rank == 0
         self.best = os.path.join(os.path.abspath(directory), "best")
         self.last = os.path.join(os.path.abspath(directory), "last")
         self.save_top_k = max(1, save_top_k)
@@ -74,9 +81,18 @@ class CheckpointManager:
         with open(path) as f:
             return {int(k): float(v) for k, v in json.load(f).items()}
 
+    def _done(self) -> None:
+        if self.dp is not None:
+            self.dp.barrier()  # rank 0's files are whole before anyone goes on
+
     def save(self, step: int, state: Mapping[str, Any], v_loss: float) -> None:
         """Keep ``state`` in ``best/`` if its v_loss is among the k lowest,
         and as ``last/``."""
+        if self.writer:
+            self._save(step, state, v_loss)
+        self._done()
+
+    def _save(self, step: int, state: Mapping[str, Any], v_loss: float) -> None:
         metrics = {**self.best_metrics(), int(step): float(v_loss)}
         keep = dict(sorted(metrics.items(), key=lambda kv: (kv[1], kv[0]))[: self.save_top_k])
         if step in keep:
@@ -89,10 +105,15 @@ class CheckpointManager:
         for s in self._steps(self.best):
             if s not in keep:
                 os.unlink(self._file(self.best, s))
-        self.save_last(step, state)
+        self._save_last(step, state)
 
     def save_last(self, step: int, state: Mapping[str, Any]) -> None:
         """The newest snapshot alone, in ``last/``."""
+        if self.writer:
+            self._save_last(step, state)
+        self._done()
+
+    def _save_last(self, step: int, state: Mapping[str, Any]) -> None:
         self._write(self.last, step, state)
         for s in self._steps(self.last):
             if s != step:

@@ -6,10 +6,18 @@ or SIGINT, and the final export.
     run_training(cfg, resume=True, test_only=False, device="cuda")
         -> {"best_v_loss", "steps", "preempted"}  ({"test_loss"} in test mode)
 
-One card. ``train.num_devices`` (0 = every visible card) counts the
-visible cards as the JAX mesh takes ``devices[:n]``: with one card
-visible, ``num_devices: 2`` runs on it; a run over more than one card is
-data parallelism, which the port has not yet, and raises. ``train.steps_per_launch`` >
+Data parallel over ``torch.distributed``, one process per card (the JAX
+mesh's 'data' axis): under torchrun, or an initialised process group, the
+run trains on its ranks; otherwise ``train.num_devices`` (0 = every
+visible card) counts the visible cards as the JAX mesh takes
+``devices[:n]``, and more than one starts that many workers
+(``parallel/distributed.py launch``), after the kernels are built. The
+datasets take the global batch (``batch_size`` per rank) and each rank
+reads its stripe; evals are the global batch's, so v_loss, the top-k and
+early stop agree on every rank; a stop on any rank (a signal, checked at
+``log_every`` boundaries and at each epoch's end) stops every rank on the
+same step; rank 0 writes the configs, ``metrics.jsonl``, the checkpoints,
+the trace and the export while the others wait. ``train.steps_per_launch`` >
 1 runs its steps one call at a time: the JAX package documents its chain
 of K steps as byte-identical to K single launches, so results do not
 change. The step's logs stay on the device between ``log_every``
@@ -36,6 +44,7 @@ from fithubert_tpu_torch.device import resolve_device
 from fithubert_tpu_torch.export.fairseq_import import load_teacher_any
 from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
+from fithubert_tpu_torch.parallel.distributed import DataParallel, launch, maybe_initialize
 from fithubert_tpu_torch.train.checkpoint import CheckpointManager, export_student
 from fithubert_tpu_torch.train.step import Distiller
 from fithubert_tpu_torch.utils.logging import MetricsLogger
@@ -64,15 +73,12 @@ def load_teacher_checkpoint(cfg: ExperimentConfig
     return None, None
 
 
-def check_devices(cfg: ExperimentConfig, dev: torch.device) -> None:
-    """Refuse a run over more than one card: ``num_devices`` of the visible
-    cards (0 = all of them), as the JAX mesh takes ``devices[:n]``."""
+def world_size(cfg: ExperimentConfig, dev: torch.device) -> int:
+    """The ranks a run starts without torchrun: ``num_devices`` of the
+    visible cards (0 = all of them), as the JAX mesh takes ``devices[:n]``;
+    one on the CPU."""
     n_visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    n = n_visible if cfg.train.num_devices <= 0 else min(cfg.train.num_devices, n_visible)
-    if n > 1:
-        raise NotImplementedError(
-            f"train.num_devices={cfg.train.num_devices} with {n_visible} cards visible is data "
-            "parallelism, which the PyTorch port does not have yet (ROADMAP Queue 1 item 4)")
+    return n_visible if cfg.train.num_devices <= 0 else min(cfg.train.num_devices, n_visible)
 
 
 class PreemptionGuard:
@@ -123,25 +129,38 @@ def _prefetched(batches: Iterable[Dict[str, np.ndarray]], dev: torch.device,
 
 def run_training(cfg: ExperimentConfig, resume: bool = True, test_only: bool = False,
                  device: Union[str, torch.device] = "cuda") -> Dict[str, float]:
+    """Train (or evaluate on the test set) on every rank of the run; each
+    rank returns the same result."""
     dev = resolve_device(device)
     cfg.check_supported()
-    check_devices(cfg, dev)
+    rank, world, dev = maybe_initialize(dev)
+    if world == 1 and not torch.distributed.is_initialized():
+        n = world_size(cfg, dev)
+        if n > 1:
+            from fithubert_tpu_torch.ops.kernels import SOURCES, _build
+
+            _build.build_all(SOURCES)  # once, before the ranks load them
+            return launch(run_training, n, cfg, resume, test_only, "cuda")[0]
+    dp = DataParallel.from_process_group()
     out_dir = cfg.train.output_dir
     os.makedirs(out_dir, exist_ok=True)
-    # the model-config half of the checkpoint contract, and a timestamped copy
-    dump_config(cfg, os.path.join(out_dir, "config.yaml"))
-    dump_config(cfg, os.path.join(out_dir, timestamp_tag() + ".yaml"))
-    with contextlib.closing(MetricsLogger(out_dir)) as logger:
-        return _train(cfg, dev, out_dir, logger, resume, test_only)
+    if rank == 0:
+        # the model-config half of the checkpoint contract, and a timestamped copy
+        dump_config(cfg, os.path.join(out_dir, "config.yaml"))
+        dump_config(cfg, os.path.join(out_dir, timestamp_tag() + ".yaml"))
+    with contextlib.closing(MetricsLogger(out_dir, enabled=rank == 0)) as logger:
+        return _train(cfg, dev, out_dir, logger, resume, test_only, dp)
 
 
 def _train(cfg: ExperimentConfig, dev: torch.device, out_dir: str, logger: MetricsLogger,
-           resume: bool, test_only: bool) -> Dict[str, float]:
-    batch_size, seed = cfg.train.batch_size, cfg.train.seed
+           resume: bool, test_only: bool, dp: Optional[DataParallel]) -> Dict[str, float]:
+    rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
+    batch_size, seed = cfg.train.batch_size * world, cfg.train.seed  # the global batch
+    stripe = dict(seed=seed, host_id=rank, num_hosts=world)
     train_data = make_dataset(cfg.data, cfg.data.train_set, batch_size,
-                              accum=cfg.train.accumulate_grad_batches, shuffle=True, seed=seed)
+                              accum=cfg.train.accumulate_grad_batches, shuffle=True, **stripe)
     eval_data = make_dataset(cfg.data, cfg.data.dev_set, batch_size, accum=1, shuffle=False,
-                             seed=seed)
+                             **stripe)
 
     tg, teacher_state = load_teacher_checkpoint(cfg)
     gen = torch.Generator().manual_seed(seed)
@@ -151,9 +170,9 @@ def _train(cfg: ExperimentConfig, dev: torch.device, out_dir: str, logger: Metri
         teacher_state = TeacherModel(geom, device="cpu").init_weights(gen).state_dict()
     distiller = Distiller(cfg, teacher_state, student_state, device=dev,
                           num_training_steps=max(1, cfg.train.num_epochs * len(train_data)),
-                          teacher_geometry=tg)
+                          teacher_geometry=tg, dp=dp)
     del teacher_state, student_state
-    ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"), cfg.train.save_top_k)
+    ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"), cfg.train.save_top_k, dp=dp)
     start_epoch = 0
     if resume and ckpt.latest_step() is not None:
         distiller.load_state_dict(ckpt.restore())
@@ -184,10 +203,14 @@ def _train(cfg: ExperimentConfig, dev: torch.device, out_dir: str, logger: Metri
 
     if test_only:
         test_data = make_dataset(cfg.data, cfg.data.test_set, batch_size, accum=1,
-                                 shuffle=False, seed=seed)
+                                 shuffle=False, **stripe)
         v = run_eval(test_data, 0, "test", sample_rand())
-        print(f"[test] loss {v:.4f}")
+        if rank == 0:
+            print(f"[test] loss {v:.4f}")
         return {"test_loss": v}
+
+    def any_rank(flag: bool) -> bool:
+        return flag if dp is None else dp.any(flag, dev)
 
     best_v = float("inf")
     epochs_no_improve = 0
@@ -202,7 +225,7 @@ def _train(cfg: ExperimentConfig, dev: torch.device, out_dir: str, logger: Metri
         for epoch in range(start_epoch, cfg.train.num_epochs):
             rand = sample_rand()
             for raw, batch in _prefetched(train_data.epoch(epoch), dev):
-                if profiler is None and prof_start <= global_step < prof_stop:
+                if rank == 0 and profiler is None and prof_start <= global_step < prof_stop:
                     profiler = trace(os.path.join(out_dir, "trace"))
                     profiler.__enter__()
                 logs = distiller.train_step_async(batch, rand)
@@ -213,10 +236,15 @@ def _train(cfg: ExperimentConfig, dev: torch.device, out_dir: str, logger: Metri
                 rates = timer.tick(audio_sec=float(np.sum(~raw["padding_mask"])) / SR)
                 if cfg.train.monitor_losses and global_step % cfg.train.log_every == 0:
                     logger.log(global_step, {**logs.to_floats(), **rates})
-                if guard.should_stop:
+                # a signal on any rank stops them all on one step; the
+                # ranks agree at log boundaries, one process at every step
+                if (dp is None or global_step % cfg.train.log_every == 0) and \
+                        any_rank(guard.should_stop):
+                    guard.should_stop = True
                     # last/ only: a snapshot without v_loss takes no best/ slot
                     ckpt.save_last(global_step, distiller.state_dict())
-                    print(f"[preemption] checkpointed step {global_step}; exiting")
+                    if rank == 0:
+                        print(f"[preemption] checkpointed step {global_step}; exiting")
                     stop = True
                     break
                 if cfg.train.max_steps and global_step >= cfg.train.max_steps:
@@ -231,14 +259,20 @@ def _train(cfg: ExperimentConfig, dev: torch.device, out_dir: str, logger: Metri
             else:
                 epochs_no_improve += 1
                 if epochs_no_improve >= cfg.train.early_stop_patience:
-                    print(f"[early-stop] no v_loss improvement in "
-                          f"{cfg.train.early_stop_patience} epochs")
+                    if rank == 0:
+                        print(f"[early-stop] no v_loss improvement in "
+                              f"{cfg.train.early_stop_patience} epochs")
                     stop = True
-            if stop:
+            if dp is not None and dp.any(guard.should_stop, dev):
+                guard.should_stop = stop = True  # a signal since the last boundary
+            if any_rank(stop):
                 break
     finally:
         if profiler is not None:
             profiler.__exit__(None, None, None)
         guard.restore()
-    export_student(cfg, distiller.student.state_dict(), out_dir, tag="student")
+    if rank == 0:
+        export_student(cfg, distiller.student.state_dict(), out_dir, tag="student")
+    if dp is not None:
+        dp.barrier()
     return {"best_v_loss": best_v, "steps": global_step, "preempted": guard.should_stop}

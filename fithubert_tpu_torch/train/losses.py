@@ -8,11 +8,19 @@ Parity mode (``masked_reduction=False``) reduces over padded positions as
 the reference does, but weights out rows fabricated as all padding
 (``_row_weighted_mean``, ``:51-69``); masked mode divides by valid
 positions (``:79-87``). All loss math is fp32.
+
+Under data parallelism each rank holds a stripe of the global batch and
+``compute_losses`` takes ``global_sum``, the sum of a tensor over the
+ranks: every denominator (real rows, valid positions, the attention loss's
+scrub counts) is the global batch's, so each rank's loss is its share of
+the global loss. The shares, and their gradients, sum over the ranks to
+what one process computes on the whole batch. Without ``global_sum`` (one
+process) every value is unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +28,13 @@ import torch.nn.functional as F
 from fithubert_tpu_torch.config import LossConfig, StudentConfig
 from fithubert_tpu_torch.models.student import StudentOutput
 from fithubert_tpu_torch.models.teacher import TeacherOutput
+
+
+Sum = Callable[[torch.Tensor], torch.Tensor]  # a tensor summed over the ranks
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 class LossOutput(NamedTuple):
@@ -35,17 +50,18 @@ def _as_stack(projections: Union[torch.Tensor, List[torch.Tensor]]) -> torch.Ten
 
 
 def _row_weighted_mean(x: torch.Tensor, rv: Optional[torch.Tensor],
-                       keep_axis1: bool = False) -> torch.Tensor:
+                       keep_axis1: bool = False, gsum: Sum = _local) -> torch.Tensor:
     """Mean over all axes (but axis 1 when ``keep_axis1``), with batch row b
     weighted by rv[b] (1 real, 0 fabricated); a plain mean when rv is None."""
     if rv is None:
         return x.mean(dim=(0,) + tuple(range(2, x.dim()))) if keep_axis1 else x.mean()
     w = rv.to(x.dtype)
+    denom = gsum(w.sum()).clamp_min(1.0)
     if keep_axis1:
         per = x.mean(dim=tuple(range(2, x.dim())))  # (B, L)
-        return (per * w[:, None]).sum(0) / w.sum().clamp_min(1.0)
+        return (per * w[:, None]).sum(0) / denom
     per = x.mean(dim=tuple(range(1, x.dim())))  # (B,)
-    return (per * w).sum() / w.sum().clamp_min(1.0)
+    return (per * w).sum() / denom
 
 
 def _taps_row_weight(row_valid: Optional[torch.Tensor], z: int, device) -> torch.Tensor:
@@ -61,18 +77,20 @@ def _crop_taps(pred: torch.Tensor, targ: torch.Tensor):
     return pred.float()[:, :t_min, :t_min], targ.float()[:, :t_min, :t_min]
 
 
-def _kl_rows(pred: torch.Tensor, targ: torch.Tensor, w: torch.Tensor, scrub: bool):
+def _kl_rows(pred: torch.Tensor, targ: torch.Tensor, w: torch.Tensor, scrub: bool,
+             gsum: Sum = _local):
     """Row-weighted mean over (Z, T) rows of KL(softmax(targ) || softmax(pred))."""
     logp = torch.log_softmax(pred, dim=-1)
     q = torch.softmax(targ, dim=-1)
     kl = q * (torch.log(q.clamp_min(1e-30)) - logp)
     if scrub:  # torch.where: the NaN branch gets no gradient
         kl = torch.where(torch.isinf(kl) | torch.isnan(kl), 0.0, kl)
-    return (kl.sum(-1) * w[:, None]).sum() / (w.sum() * kl.shape[1]).clamp_min(1.0)
+    return (kl.sum(-1) * w[:, None]).sum() / gsum(w.sum() * kl.shape[1]).clamp_min(1.0)
 
 
 def attention_loss(pred_a: torch.Tensor, targ_a: torch.Tensor,
-                   row_valid: Optional[torch.Tensor], loss_type: str) -> torch.Tensor:
+                   row_valid: Optional[torch.Tensor], loss_type: str,
+                   gsum: Sum = _local) -> torch.Tensor:
     """The attention-logit transfer (``:307-337``) between (B*H, T, T)
     logits, -inf at padded keys, in fp32; rows of fabricated batch rows
     weigh 0."""
@@ -90,25 +108,26 @@ def attention_loss(pred_a: torch.Tensor, targ_a: torch.Tensor,
         # the difference is zeroed before squaring, so a -inf logit gets a
         # zero gradient rather than inf * 0
         diff = torch.where(bad, 0.0, pred_a - targ_a)
-        denom = w.sum() * sq.shape[1] * sq.shape[2] - inf_count - nan_count
+        denom = gsum(w.sum() * sq.shape[1] * sq.shape[2] - inf_count - nan_count)
         return (diff.square() * w[:, None, None]).sum() / denom.clamp_min(1.0)
     if loss_type == "kldiv":
-        return _kl_rows(pred_a, targ_a, w, scrub=True)
+        return _kl_rows(pred_a, targ_a, w, scrub=True, gsum=gsum)
     raise NotImplementedError("attn_loss_type must be one of 'mse', 'kldiv'.")
 
 
 def value_relation_loss(pred_v: torch.Tensor, targ_v: torch.Tensor,
-                        row_valid: Optional[torch.Tensor]) -> torch.Tensor:
+                        row_valid: Optional[torch.Tensor], gsum: Sum = _local) -> torch.Tensor:
     """The value-relation KL (``:339-353``) between (B*H, T, T) relations."""
     pred_v, targ_v = _crop_taps(pred_v, targ_v)
     return _kl_rows(pred_v, targ_v, _taps_row_weight(row_valid, pred_v.shape[0], pred_v.device),
-                    scrub=False)
+                    scrub=False, gsum=gsum)
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, axes: Sequence[int],
+                 gsum: Sum = _local) -> torch.Tensor:
     """Mean of x over ``axes`` counting only positions where mask is False."""
     valid = torch.logical_not(mask).to(x.dtype).expand(x.shape)
-    return (x * valid).sum(dim=tuple(axes)) / valid.sum(dim=tuple(axes)).clamp_min(1.0)
+    return (x * valid).sum(dim=tuple(axes)) / gsum(valid.sum(dim=tuple(axes))).clamp_min(1.0)
 
 
 def _layer_weights(n: int, random_layer_weight: float, device) -> torch.Tensor:
@@ -120,8 +139,12 @@ def _layer_weights(n: int, random_layer_weight: float, device) -> torch.Tensor:
 
 def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
                    student: StudentOutput, teacher: TeacherOutput,
-                   rand_layers: Optional[torch.Tensor] = None) -> LossOutput:
+                   rand_layers: Optional[torch.Tensor] = None,
+                   global_sum: Optional[Sum] = None) -> LossOutput:
+    """The KD loss of one (micro)batch; ``global_sum`` sums a denominator
+    over the data-parallel ranks (None: this batch is the whole batch)."""
     cfg = loss_cfg
+    gsum = global_sum or _local
     logs: Dict[str, torch.Tensor] = {}
     dev = teacher.x.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -131,6 +154,8 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
     row_valid = None
     if teacher.padding_mask is not None:
         row_valid = torch.logical_not(teacher.padding_mask.all(-1)).float()
+    elif global_sum is not None:  # a plain mean over the global batch
+        row_valid = torch.ones(teacher.x.shape[0], dtype=torch.float32, device=dev)
 
     cnn_loss = zero
     if cfg.cnn_loss_weight > 0:
@@ -138,9 +163,9 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
         t_min = min(sf.shape[1], tf.shape[1])
         diff = (sf[:, :t_min] - tf[:, :t_min]).abs()
         if frame_mask is not None:
-            cnn_loss = _masked_mean(diff, frame_mask[:, :t_min, None], (0, 1, 2))
+            cnn_loss = _masked_mean(diff, frame_mask[:, :t_min, None], (0, 1, 2), gsum=gsum)
         else:
-            cnn_loss = _row_weighted_mean(diff, row_valid)
+            cnn_loss = _row_weighted_mean(diff, row_valid, gsum=gsum)
         logs["cnn_loss"] = cnn_loss
 
     teacher_stack = torch.stack([h for (h, _, _) in teacher.layer_results], dim=1)
@@ -184,16 +209,17 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
             elt = elt * _layer_weights(elt.shape[1], cfg.random_layer_weight, dev)[
                 None, :, None, None]
             if layer_mask is not None:
-                rec_layer_loss = _masked_mean(elt, layer_mask, (0, 2, 3))
+                rec_layer_loss = _masked_mean(elt, layer_mask, (0, 2, 3), gsum=gsum)
             else:
-                rec_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True)
+                rec_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True, gsum=gsum)
             rec_loss = rec_layer_loss.sum()
         elif layer_mask is not None:
-            rec_layer_loss = _masked_mean(elt, layer_mask, (0, 2, 3))
+            rec_layer_loss = _masked_mean(elt, layer_mask, (0, 2, 3), gsum=gsum)
             rec_loss = rec_layer_loss.mean()
         else:
-            rec_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True).detach()
-            rec_loss = _row_weighted_mean(elt, row_valid)
+            rec_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True,
+                                                gsum=gsum).detach()
+            rec_loss = _row_weighted_mean(elt, row_valid, gsum=gsum)
 
     if cfg.sim_loss_weight > 0:
         # F.cosine_similarity with torch's eps = 1e-8 clamp of the product
@@ -205,16 +231,17 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
             elt = elt * _layer_weights(elt.shape[1], cfg.random_layer_weight, dev)[
                 None, :, None]
             if sim_mask is not None:
-                sim_layer_loss = _masked_mean(elt, sim_mask, (0, 2))
+                sim_layer_loss = _masked_mean(elt, sim_mask, (0, 2), gsum=gsum)
             else:
-                sim_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True)
+                sim_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True, gsum=gsum)
             sim_loss = sim_layer_loss.sum()
         elif sim_mask is not None:
-            sim_layer_loss = _masked_mean(elt, sim_mask, (0, 2))
+            sim_layer_loss = _masked_mean(elt, sim_mask, (0, 2), gsum=gsum)
             sim_loss = sim_layer_loss.mean()
         else:
-            sim_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True).detach()
-            sim_loss = _row_weighted_mean(elt, row_valid)
+            sim_layer_loss = _row_weighted_mean(elt, row_valid, keep_axis1=True,
+                                                gsum=gsum).detach()
+            sim_loss = _row_weighted_mean(elt, row_valid, gsum=gsum)
 
     last_layer_loss = None
     if rec_layer_loss is not None or sim_layer_loss is not None:
@@ -236,11 +263,11 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
     if cfg.attn_loss_weight > 0:
         attn_loss = attention_loss(student.layer_results[-1][1].attn_logits,
                                    teacher.layer_results[-1][1].attn_logits, row_valid,
-                                   cfg.attn_loss_type)
+                                   cfg.attn_loss_type, gsum)
         logs["attn_loss"] = attn_loss
     if cfg.v_rel_loss_weight > 0:
         v_rel_loss = value_relation_loss(student.layer_results[-1][1].v_rel,
-                                         teacher.layer_results[-1][1].v_rel, row_valid)
+                                         teacher.layer_results[-1][1].v_rel, row_valid, gsum)
         logs["v_rel_loss"] = v_rel_loss
 
     total = (cfg.rec_loss_weight * rec_loss + cfg.sim_loss_weight * sim_loss

@@ -18,6 +18,14 @@ both models returns its attention taps (``need_taps``, ``:86-88``); an
 attention-logit loss also keeps the microbatches apart, since its scrub
 divides by a count that depends on the data. CTC, SpecAug and the conformer
 are not ported.
+
+With ``dp`` (``parallel/distributed.py DataParallel``) the batch is this
+rank's stripe of the global batch: every rank starts from rank 0's student,
+the losses divide by the global batch's denominators, the gradients are
+summed over the ranks in one all-reduce after the microbatches, and the
+logs are the global batch's on every rank, so all ranks take the step that
+one process takes on the whole batch. Each rank folds its rank into the
+dropout seeds, so their keep masks differ.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from fithubert_tpu_torch.device import resolve_device
 from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
 from fithubert_tpu_torch.ops.dropout import DropoutRNG
+from fithubert_tpu_torch.parallel.distributed import DataParallel
 from fithubert_tpu_torch.train.losses import LossOutput, compute_losses
 from fithubert_tpu_torch.train.optim import build_optimizer, optimizer_step
 
@@ -56,9 +65,11 @@ class Distiller:
                  student_state: Mapping[str, torch.Tensor],
                  device: Union[str, torch.device] = "cuda",
                  num_training_steps: int = 10000,
-                 teacher_geometry: Optional[TeacherGeometry] = None):
+                 teacher_geometry: Optional[TeacherGeometry] = None,
+                 dp: Optional[DataParallel] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.dp = dp
         self.need_taps = cfg.loss.attn_loss_weight > 0 or cfg.loss.v_rel_loss_weight > 0
         geom = teacher_geometry or TeacherGeometry.from_teacher_config(cfg.teacher)
         if cfg.train.use_fp16:
@@ -71,17 +82,24 @@ class Distiller:
                                     device=self.device)
         self.student.load_state_dict(student_state)
         self.params = list(self.student.parameters())
+        if dp is not None:
+            with torch.no_grad():
+                dp.broadcast_(self.params + list(self.student.buffers()))
         self.optimizer, self.schedule = build_optimizer(
             self.params, cfg.optimizer, num_training_steps)
         self.step = 0
 
     def _seed(self, micro: int) -> int:
-        return ((self.cfg.train.seed * 1_000_003 + self.step) * 131_071 + micro) % (1 << 63)
+        seed = (self.cfg.train.seed * 1_000_003 + self.step) * 131_071 + micro
+        if self.dp is not None:  # rank 0 keeps one process's seeds
+            seed += self.dp.rank * 0x9E3779B97F4A7C15
+        return seed % (1 << 63)
 
     def _forward_loss(self, wav, mask, rand_layers, rng: Optional[DropoutRNG]) -> LossOutput:
         t_out = self.teacher(wav, mask, need_taps=self.need_taps)
         s_out = self.student.forward_train(wav, mask, rng, need_taps=self.need_taps)
-        return compute_losses(self.cfg.loss, self.cfg.distiller, s_out, t_out, rand_layers)
+        return compute_losses(self.cfg.loss, self.cfg.distiller, s_out, t_out, rand_layers,
+                              None if self.dp is None else self.dp.sum)
 
     def _inputs(self, batch: Batch, rand_layers):
         x = torch.as_tensor(batch["x"]).to(self.device, torch.float32)
@@ -123,12 +141,17 @@ class Distiller:
             elif n_micro > 1:
                 p.grad.div_(n_micro)
             grads.append(p.grad)
+        if self.dp is not None:
+            self.dp.all_reduce_grads(grads)
         grad_norm = torch.nn.utils.get_total_norm(grads)
         lr = optimizer_step(self.optimizer, self.schedule, self.step)
         self.step += 1
         names = list(logs[0])
-        values = torch.stack([torch.stack([lg[k].detach().float() for lg in logs]).mean()
-                              for k in names] + [torch.stack(losses).mean(), grad_norm.float()])
+        means = torch.stack([torch.stack([lg[k].detach().float() for lg in logs]).mean()
+                             for k in names] + [torch.stack(losses).mean()])
+        if self.dp is not None:  # each rank's logs are its share of the global batch's
+            means = self.dp.sum(means)
+        values = torch.cat([means, grad_norm.float()[None]])
         return StepLogs(tuple(names) + ("loss", "grad_norm"), values, lr)
 
     def state_dict(self) -> Dict[str, Any]:
@@ -152,4 +175,7 @@ class Distiller:
         logs["v_loss"] = (out.last_layer_loss if self.cfg.loss.distil_random_layer > 0
                           else out.total)
         names = list(logs)
-        return dict(zip(names, torch.stack([logs[k].float() for k in names]).tolist()))
+        values = torch.stack([logs[k].float() for k in names])
+        if self.dp is not None:
+            values = self.dp.sum(values)
+        return dict(zip(names, values.tolist()))

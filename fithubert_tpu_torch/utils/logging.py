@@ -1,6 +1,7 @@
 """Metrics logging (``fithubert_tpu/utils/logging.py``): one JSON record
 per call appended to ``<output_dir>/metrics.jsonl``, and a ``[train]`` line
-on stderr."""
+on stderr. A logger made with ``enabled=False`` (a data-parallel rank but
+0) writes and prints nothing."""
 
 from __future__ import annotations
 
@@ -12,13 +13,17 @@ from typing import Dict
 
 
 class MetricsLogger:
-    def __init__(self, output_dir: str, filename: str = "metrics.jsonl"):
-        os.makedirs(output_dir, exist_ok=True)
+    def __init__(self, output_dir: str, filename: str = "metrics.jsonl", enabled: bool = True):
         self.path = os.path.join(output_dir, filename)
-        self._f = open(self.path, "a", buffering=1)
+        self._f = None
+        if enabled:
+            os.makedirs(output_dir, exist_ok=True)
+            self._f = open(self.path, "a", buffering=1)
         self._t0 = time.time()
 
     def log(self, step: int, metrics: Dict, prefix: str = "") -> None:
+        if self._f is None:
+            return
         rec = {"step": int(step), "time": round(time.time() - self._t0, 3)}
         for k, v in metrics.items():
             try:
@@ -37,4 +42,5 @@ class MetricsLogger:
         print("[train]", " ".join(parts), file=sys.stderr)
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()

@@ -47,8 +47,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_imports_yaml_only_inside_a_function(path):
-    """The card's machine has no yaml: a module may import it only inside
-    the one function that reads a file, never when it is imported."""
+    """The port imports where yaml is not installed: a module may import it
+    only inside the one function that reads a file, never when it is
+    imported."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     for node in tree.body:
@@ -95,6 +96,34 @@ def test_loop_and_teacher_checkpoints_need_the_card_unless_cpu_is_asked(monkeypa
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TeacherModel(loaded)
     TeacherModel(loaded, device="cpu").load_state_dict(state)
+
+
+def test_data_parallel_and_export_entry_points_need_the_card_unless_cpu_is_asked(
+        monkeypatch, tmp_path):
+    """maybe_initialize, the torch.hub entry and extract_features raise
+    without a card, before they write anything, unless device='cpu'."""
+    from fithubert_tpu_torch import hubconf
+    from fithubert_tpu_torch.export import extract_features
+    from fithubert_tpu_torch.parallel.distributed import maybe_initialize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = fithubert_960h()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        maybe_initialize()
+    assert maybe_initialize("cpu")[2].type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hubconf.fithubert({"w": torch.zeros(1)}, cfg)
+    out = tmp_path / "feats"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_features.main(["--ckpt", "student.pt", "--config", "student.yaml", "--inputs",
+                               "a.flac", "--out", str(out)])
+    assert not out.exists()
+
+
+def test_the_scan_covers_the_modules_of_this_slice():
+    scanned = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"hubconf.py", "parallel/distributed.py", "export/reference_import.py",
+            "export/extract_features.py"} <= scanned
 
 
 def test_kernel_modules_import_and_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -5,6 +5,7 @@ parameter shapes."""
 
 import dataclasses
 import glob
+import json
 
 import jax
 import jax.numpy as jnp
@@ -170,15 +171,29 @@ def test_expert_accepts_and_ignores_hub_arguments():
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    (dict(ckpt="released-checkpoint.ckpt"), "Queue 1 item 5"),
-    (dict(int8=True), "quantize_matmuls"),
-], ids=["lightning_ckpt", "int8"])
-def test_expert_refuses_what_the_port_cannot_serve(kwargs, match):
+@pytest.mark.parametrize("case, match", [("lightning_ckpt", "n_mels"),
+                                         ("int8", "quantize_matmuls")],
+                         ids=["lightning_ckpt", "int8"])
+def test_expert_refuses_what_the_port_cannot_serve(case, match, tmp_path):
+    """A reference Lightning .ckpt is read (tests/test_torch_export.py); one
+    whose YAML asks for a mel head, which the port lacks, is refused by the
+    config's own check before any weight is read. int8 serving is refused."""
     _jcfg, tcfg = configs()
-    ckpt = kwargs.pop("ckpt", {})
+    if case == "lightning_ckpt":
+        sd = jax_student_params_to_state_dict(jax_params(_jcfg, seed=1), tcfg)
+        ckpt = str(tmp_path / "FitHuBERT-mel.ckpt")
+        torch.save({"state_dict": {f"student_model.{k}": v for k, v in sd.items()}}, ckpt)
+        yaml_path = str(tmp_path / "mel.yaml")
+        sections = tconfig.dump_config(tconfig.ExperimentConfig(distiller=tcfg), yaml_path)
+        with open(yaml_path, "w") as f:  # the distiller section with a mel head
+            f.write("distiller:\n" + "".join(
+                f"  {k}: {json.dumps(v)}\n" for k, v in {**sections["distiller"],
+                                                          "n_mels": 80}.items()))
+        args, kwargs = (ckpt, yaml_path), {}
+    else:
+        args, kwargs = ({}, tcfg), dict(int8=True)
     with pytest.raises(NotImplementedError, match=match):
-        UpstreamExpert(ckpt, tcfg, device="cpu", **kwargs)
+        UpstreamExpert(*args, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("field, value", [
