@@ -17,7 +17,9 @@ run with a non-zero exit and no final line:
      same keep mask, the attention
      backward (K3 dQ, K4 dK/dV), the seeded dropout (K5), the conv-stack
      backward (K6, and its dW bit for bit across two calls), and K6's up
-     pass against K1's output bit for bit;
+     pass against K1's output bit for bit; then at the ex student's shapes
+     (configs/ex.yaml): K2 with dropout, K3 and K4 at (8, 600, 12, 64), and
+     K1, its prefix and K6 on its 512-wide stack at 8 x 12 s;
   4. serving end to end: UpstreamExpert at FitHuBERT-960h width (seeded
      weights) serves three ragged requests in bf16, through K1 and K2
      (launch counters are zeroed just before and read just after); then the
@@ -42,6 +44,17 @@ run with a non-zero exit and no final line:
   8. the training loop: run_training on the release config, a seeded
      fairseq HuBERT-Base .pt and WAVs it writes, resumed runs bit for bit,
      the export served, a 20-step rate run;
+  8b. ex: the DistilHuBERT-style student of configs/ex.yaml
+     (``ex_experiment()``: 2 layers of 768, SplitLinear head on teacher
+     layers 3, 7, 11, L1 + cosine) with the HuBERT-Base teacher: the
+     hint-init bit for bit, a ragged step and 6 steps with exact launches
+     and a falling loss, fp32 steps against the CPU, run_training stopped
+     at max_steps and resumed bit for bit against an uninterrupted run,
+     and the export served in bf16 and fp32;
+     ctc: the release student with a seeded wav2vec2-Base-shaped CTC
+     teacher read from a fairseq fine-tuned .pt: pseudo-label steps with
+     the release launches and a falling loss, then run_training on labels
+     from transcripts written beside the WAVs, with an eval's WER;
   9. timing: serving at B = 32 x 16 s and the train step at 3 x 4 x 12 s,
      with a profile of each, the steps of paths 6 and 7, and every kernel
      against its bound, its plain version and the library call, one row per
@@ -49,7 +62,9 @@ run with a non-zero exit and no final line:
      run counted; on text lines K1's per-layer floor, each K1 layer's time
      beside its own floor, each K6 launch's time beside its own floor, and
      the goals: K2's, K3's and K4's times as multiples of SDPA's, K1's (the
-     conv_stack call with its prefix) and K6's in ms;
+     conv_stack call with its prefix) and K6's in ms; the ex train step
+     and the ex serving forward (B = 32 x 16 s) with their profiles, and
+     the ex rows (path "ex") of K1, its prefix, K2 p = 0.1, K3, K4, K6;
   10. data parallelism: NCCL as one rank on the card, two release steps
      through the data-parallel path bit for bit against the plain step;
      two gloo ranks sharing the card (spawned by ``launch``), fp32 against
@@ -488,12 +503,16 @@ def seed_words(gen):
     return int(w[0]), int(w[1])
 
 
-def check_attention_training_kernels(fa, gen, dev, errs):
+def check_attention_training_kernels(fa, gen, dev, errs,
+                                     cases=((12, 299, 12, 40, False), (4, 130, 2, 40, True)),
+                                     path=""):
     """K2 with dropout, K3 and K4 against their plain versions on the same
-    keep mask, and K3/K4 at p = 0 against autograd of attention_plain."""
+    keep mask, and K3/K4 at p = 0 against autograd of attention_plain, at
+    each (B, T, H, D, a fully padded row) of ``cases``. The bf16 errors of
+    the cases without a padded row go to errs[kernel + path]."""
     import torch
 
-    for (b, t, h, d, pad_row) in ((12, 299, 12, 40, False), (4, 130, 2, 40, True)):
+    for (b, t, h, d, pad_row) in cases:
         for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             q, k, v, dout, m = attention_case(gen, b, t, h, d, dtype, dev, pad_row)
             seed = seed_words(gen)
@@ -512,7 +531,7 @@ def check_attention_training_kernels(fa, gen, dev, errs):
             e = compare(f"K2 dropout p={ATTN_P} {tag}", out, want, dtype_name, rows)
             compare(f"K2 dropout lse {tag}", lse, want_lse, "float32", rows)
             if dtype_name == "bfloat16" and not pad_row:
-                errs[fa.KERNEL_DROPOUT] = e
+                errs[fa.KERNEL_DROPOUT + path] = e
             for p in (ATTN_P, 0.0):
                 s = seed if p else None
                 o, l_ = (out, lse) if p else fa.flash_attention(q, k, v, m, return_lse=True)
@@ -531,7 +550,7 @@ def check_attention_training_kernels(fa, gen, dev, errs):
                                     f"{ref_name}", g, r, dtype_name, rows)
                         if dtype_name == "bfloat16" and not pad_row and p and \
                                 ref_name == "attention_bwd_plain":
-                            key = fa.KERNEL_DQ if gname == "dq" else fa.KERNEL_DKV
+                            key = (fa.KERNEL_DQ if gname == "dq" else fa.KERNEL_DKV) + path
                             errs[key] = max(errs.get(key, 0.0), e)
                 if not rows.all():
                     if any(g[~rows].abs().max().item() != 0.0 for g in got):
@@ -1452,7 +1471,433 @@ def export_phase(exp, s_state, t_state, libri, tmp, smi):
           f"imports, the .ckpt read, decode, forwards); {smi}", flush=True)
 
 
+# ---- the DistilHuBERT-style student of configs/ex.yaml ([ex]) and the CTC path ([ctc])
+# Steps of the ex and CTC phases on their fixed batches after the ragged step.
+EX_STEPS = 6
+CTC_STEPS = 5
+# A seeded CTC head emits letters on most frames, and those pseudo-labels
+# cannot be aligned in the student's frames (CTC then returns optax's log(0)
+# stand-in, -1e5, as a penalty). A fine-tuned CTC model emits blanks on most
+# frames; the seeded head's blank bias is set so that it does on this share
+# of the fixed batch's frames.
+CTC_BLANK_SHARE = 0.75
+# The ex fp32 steps, card vs CPU: the ex loss is L1, whose gradient sums
+# signs, so an entry can sit near zero and take opposite signs on the two
+# devices (fp32 summation order); AdamW then moves it by about +lr on one
+# and -lr on the other. So each parameter's gradient is held norm-wise
+# while both sides still hold the same weights (EX_GRAD_FRO; after one
+# such flip the next gradients differ by more), the parameters to twice the
+# lr summed over the steps, and the entries beyond TRAIN_PARAM_ATOL to a
+# fraction EX_FLIP_FRACTION of all.
+EX_GRAD_FRO, EX_FLIP_FRACTION = 1e-3, 1e-5
+
+
+def ex_per_step(exp_ex, geom):
+    """The launches of one ex train step: K1 and the prefix on the student's
+    and the teacher's extractors, the teacher's attention at p = 0, the
+    student's at p = 0.1 with its backward, K6 over the student's stack
+    (feature_grad_mult 1: every block trains)."""
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+
+    n_stack = len(exp_ex.distiller.conv_feature_layers) - 1
+    l_s = exp_ex.distiller.encoder_layers
+    return {cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 2,
+            fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s,
+            fa.KERNEL_DKV: l_s, cf.KERNEL_BWD: 4 * n_stack}
+
+
+def launches_of_step(d, batch, rand, want, what):
+    """One train step with every count set to 0 just before it and read just
+    after; fails unless they are ``want`` and the logs finite. Returns
+    (logs, launches)."""
+    import torch
+
+    from fithubert_tpu_torch.ops.kernels import _build
+
+    _build.reset_launches()
+    logs = d.train_step(batch, rand)
+    torch.cuda.synchronize()
+    got = dict(_build.LAUNCHES)
+    if got != want:
+        fail(f"{what}: launches {got}, want {want} per step")
+    if not all(math.isfinite(v) for v in logs.values()):
+        fail(f"{what}: non-finite logs {logs}")
+    return logs, got
+
+
+@contextlib.contextmanager
+def counted_steps():
+    """Each Distiller.train_step_async of the block appends its launches to
+    the list yielded."""
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.train.step import Distiller
+
+    record, plain = [], Distiller.train_step_async
+
+    def counted(self, batch, rand):
+        before = dict(_build.LAUNCHES)
+        out = plain(self, batch, rand)
+        record.append({n: c - before.get(n, 0) for n, c in _build.LAUNCHES.items()
+                       if c != before.get(n, 0)})
+        return out
+
+    Distiller.train_step_async = counted
+    try:
+        yield record
+    finally:
+        Distiller.train_step_async = plain
+
+
+def check_hint_init(cfg, s_rand, s_state, t_state, copied, skipped):
+    """Every copied student tensor equals its teacher tensor (fp32) bit for
+    bit, every other one is the student's own, and the copies are all the
+    teacher's extractor, post_extract_proj, positional conv and first
+    init_encoder_layers layers that the student has at the same shape."""
+    import torch
+
+    from fithubert_tpu_torch.models.surgery import transformer_slot
+
+    slot_of = {transformer_slot(cfg, i): i for i in range(cfg.encoder_layers)}
+
+    def teacher_key(name):
+        if not name.startswith("encoder.layers."):
+            return name
+        slot, rest = name[len("encoder.layers."):].split(".", 1)
+        return f"encoder.layers.{slot_of[int(slot)]}.{rest}"
+
+    prefixes = ["encoder.pos_conv."] + [f"encoder.layers.{transformer_slot(cfg, i)}."
+                                        for i in range(cfg.init_encoder_layers)]
+    if cfg.init_conv_layers:
+        prefixes += ["feature_extractor.", "post_extract_proj."]
+    want = {k for k, v in s_rand.items() if k.startswith(tuple(prefixes))
+            and teacher_key(k) in t_state and t_state[teacher_key(k)].shape == v.shape}
+    if set(copied) != want:
+        fail(f"hint-init copied {sorted(set(copied) ^ want)[:6]}... beyond or short of {len(want)}")
+    for k, v in s_state.items():
+        ref = t_state[teacher_key(k)] if k in want else s_rand[k]
+        if not torch.equal(v, ref.float()):
+            fail(f"hint-init: {k} is not {'the teacher' if k in want else 'the student'}'s "
+                 f"tensor bit for bit")
+    return len(copied), len(skipped)
+
+
+def ex_phase(exp_ex, geom, t_state, gen, smi, tmp, pt, libri):
+    """[ex] configs/ex.yaml at full width on the card: the hint-init, a
+    ragged step and EX_STEPS on one batch with their launches, fp32 steps
+    against the CPU, run_training with a resume bit for bit, and the export
+    served in bf16 and fp32. Returns (the bf16 Distiller, its fixed batch,
+    the launches per step, the served expert, the student on the CPU)."""
+    import torch
+
+    from fithubert_tpu_torch.export.expert import UpstreamExpert
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.models.surgery import init_student_from_teacher
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+    from fithubert_tpu_torch.train.loop import run_training
+    from fithubert_tpu_torch.train.step import Distiller
+
+    cfg = exp_ex.distiller
+    student_cpu = StudentModel(cfg, device="cpu").init_weights(gen)
+    s_rand = student_cpu.state_dict()
+    s_state, copied, skipped = init_student_from_teacher(s_rand, t_state, cfg, verbose=False)
+    n_copied, n_skipped = check_hint_init(cfg, s_rand, s_state, t_state, copied, skipped)
+    student_cpu.load_state_dict(s_state)
+    print(f"  hint-init (init_conv_layers, init_encoder_layers={cfg.init_encoder_layers}): "
+          f"copied {n_copied} tensors, skipped {n_skipped}; each copy equals the teacher's "
+          f"fp32 tensor bit for bit, every other tensor the student's own ok", flush=True)
+
+    per_step = ex_per_step(exp_ex, geom)
+    a, b = exp_ex.train.accumulate_grad_batches, exp_ex.train.batch_size
+    d = Distiller(exp_ex, t_state, s_state, device="cuda", num_training_steps=20)
+    logs, launches = launches_of_step(d, train_batch(gen, a, b, 12.0, ragged=True), None,
+                                      per_step, "ex ragged step")
+    if not all(torch.isfinite(p).all().item() for p in d.params):
+        fail("ex ragged step: non-finite parameters")
+    print(f"  step 0 (ragged {b} x {a}, one fabricated row, lr {logs['lr']}): loss "
+          f"{logs['loss']:.6f} (layer3 {logs['layer3']:.6f}, layer7 {logs['layer7']:.6f}, "
+          f"layer11 {logs['layer11']:.6f}) grad_norm {logs['grad_norm']:.6f}; launches "
+          f"{json.dumps(launches)} ok", flush=True)
+    fixed = train_batch(gen, a, b, 12.0, ragged=False)
+    losses = [launches_of_step(d, fixed, None, per_step, f"ex step {i + 1}")[0]["loss"]
+              for i in range(EX_STEPS)]
+    if not losses[-1] < losses[0]:
+        fail(f"ex: the loss did not fall over {EX_STEPS} steps: {losses}")
+    print(f"  steps 1-{EX_STEPS} on one {b} x {a} x 12 s batch: loss "
+          f"{[round(x, 6) for x in losses]} fell; every step launched prefix "
+          f"{per_step[cf.KERNEL_PREFIX]}, K1 {per_step[cf.KERNEL]}, K2 teacher "
+          f"{per_step[fa.KERNEL]} / student {per_step[fa.KERNEL_DROPOUT]}, K3 "
+          f"{per_step[fa.KERNEL_DQ]}, K4 {per_step[fa.KERNEL_DKV]}, K6 {per_step[cf.KERNEL_BWD]} "
+          f"ok", flush=True)
+
+    print("[ex] fp32 steps without dropout, card vs CPU (plain versions), full width, "
+          "1 x 2 s: step 0 at lr 0, then two at lr > 0", flush=True)
+    exp32 = dataclasses.replace(
+        exp_ex, train=dataclasses.replace(exp_ex.train, use_fp16=False),
+        distiller=dataclasses.replace(cfg, compute_dtype="float32", dropout=0.0,
+                                      attention_dropout=0.0, activation_dropout=0.0))
+    small = train_batch(gen, 1, 1, 2.0, ragged=False)
+    on_card = Distiller(exp32, t_state, s_state, device="cuda", num_training_steps=20)
+    on_cpu = Distiller(exp32, t_state, s_state, device="cpu", num_training_steps=20)
+    names = [n for n, _ in on_cpu.student.named_parameters()]
+    lr_sum = 0.0
+    for i in range(3):
+        lg, lc = on_card.train_step(small, None), on_cpu.train_step(small, None)
+        same_weights = lr_sum == 0.0  # no update has moved them yet
+        lr_sum += lg["lr"]
+        for key in ("loss", "grad_norm", "layer3", "layer11"):
+            rel = abs(lg[key] - lc[key]) / abs(lc[key])
+            if rel > TRAIN_RTOL:
+                fail(f"ex fp32 step {i}: {key} card {lg[key]} vs CPU {lc[key]} (rel {rel:.3e})")
+        if not same_weights:
+            print(f"  step {i} (lr {lg['lr']:.3e}): loss {lg['loss']:.8f} vs {lc['loss']:.8f}, "
+                  f"grad_norm {lg['grad_norm']:.8f} vs {lc['grad_norm']:.8f} tol rel "
+                  f"{TRAIN_RTOL} ok", flush=True)
+            continue
+        worst_g = 0.0
+        g_total = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad)
+                                                        for p in on_cpu.params]))
+        for n, pg, pc in zip(names, on_card.params, on_cpu.params):
+            ref = torch.linalg.vector_norm(pc.grad)
+            if n.endswith("self_attn.k_proj.bias"):
+                # zero in exact arithmetic (a softmax does not see a shift
+                # of a query's logits): both sides hold rounding noise only
+                if max(ref, torch.linalg.vector_norm(pg.grad).cpu()) > 1e-6 * g_total:
+                    fail(f"ex fp32 step {i}: {n} has a gradient of norm {ref.item():.3e}")
+                continue
+            fro = (torch.linalg.vector_norm(pg.grad.cpu() - pc.grad) / ref).item()
+            worst_g = max(worst_g, fro)
+            if fro > EX_GRAD_FRO:
+                fail(f"ex fp32 step {i}: the gradient of {n} differs by rel_fro {fro:.3e}")
+        print(f"  step {i} (lr {lg['lr']:.3e}): loss {lg['loss']:.8f} vs {lc['loss']:.8f}, "
+              f"grad_norm {lg['grad_norm']:.8f} vs {lc['grad_norm']:.8f} tol rel {TRAIN_RTOL}; "
+              f"each parameter's gradient rel_fro <= {worst_g:.3e} tol {EX_GRAD_FRO} (the "
+              f"k_proj biases' below 1e-6 of the whole on both) ok", flush=True)
+    diffs = [(pg.detach().cpu() - pc.detach()).abs() for pg, pc in zip(on_card.params,
+                                                                      on_cpu.params)]
+    worst = max(d_.max().item() for d_ in diffs)
+    flips = sum(int((d_ > TRAIN_PARAM_ATOL).sum()) for d_ in diffs)
+    total = sum(d_.numel() for d_ in diffs)
+    if worst > 2 * lr_sum or flips > EX_FLIP_FRACTION * total:
+        fail(f"ex fp32 step: parameters differ by up to {worst:.3e} (limit {2 * lr_sum:.3e}), "
+             f"{flips} of {total} beyond {TRAIN_PARAM_ATOL}")
+    print(f"  parameters after 3 steps: max_abs_err={worst:.3e} (limit 2 x the summed lr "
+          f"{2 * lr_sum:.3e}), {flips} of {total} entries beyond {TRAIN_PARAM_ATOL} (limit "
+          f"{EX_FLIP_FRACTION} of them) ok", flush=True)
+    del on_card, on_cpu, diffs
+
+    print("[ex] run_training on ex over the loop phase's WAVs and teacher .pt (3 steps of "
+          f"{b} x {a} an epoch, 2 epochs): stopped at max_steps 3 and resumed, and from "
+          "scratch", flush=True)
+    runs = {}
+    for name, run_dir, max_steps, resume, want_steps in (("run 1", "ex_resumed", 3, True, 3),
+                                                         ("run 2", "ex_resumed", 0, True, 6),
+                                                         ("run 3", "ex_straight", 0, False, 6)):
+        # one schedule for all three: the lr's decay spans num_epochs
+        exp_run = dataclasses.replace(exp_ex, train=dataclasses.replace(
+            exp_ex.train, num_devices=1, max_steps=max_steps))
+        t0 = time.perf_counter()
+        with counted_steps() as record:
+            result = run_training(loop_config(exp_run, tmp, pt, libri, run_dir, 2, 1),
+                                  resume=resume, device="cuda")
+        torch.cuda.synchronize()
+        if result["steps"] != want_steps or any(r != per_step for r in record):
+            fail(f"ex loop {name}: {result}, launches per step {record}, want {want_steps} "
+                 f"steps of {per_step}")
+        runs[run_dir], val = logged(os.path.join(tmp, run_dir))
+        if not all(math.isfinite(r["val/v_loss"]) for r in val):
+            fail(f"ex loop {name}: val v_loss not finite")
+        print(f"  {name}: {result['steps']} steps ({len(record)} in this run, each "
+              f"launching the ex step's kernels), val v_loss "
+              f"{[round(r['val/v_loss'], 6) for r in val]}, wall "
+              f"{time.perf_counter() - t0:.1f} s ok", flush=True)
+    resumed, straight = runs["ex_resumed"], runs["ex_straight"]
+    for s in range(1, 7):
+        for key in LOOP_RESUME_KEYS:
+            if resumed[s][key] != straight[s][key]:
+                fail(f"ex loop: step {s} {key} {resumed[s][key]!r} (runs 1 + 2) vs "
+                     f"{straight[s][key]!r} (run 3): a resume must give the same bits")
+    print(f"  steps 1-6, runs 1 + 2 vs run 3: {', '.join(LOOP_RESUME_KEYS)} bit for bit; loss "
+          f"{[resumed[s]['loss'] for s in range(1, 7)]}", flush=True)
+
+    print("[ex] export_student's pair served: 3 ragged requests in bf16, then fp32 on the "
+          "card against the CPU", flush=True)
+    pt_s = os.path.join(tmp, "ex_resumed", "student.pt")
+    expert = UpstreamExpert(pt_s, cfg, device="cuda")
+    requests = [[torch.randn(int(3.7 * SR), generator=gen) * 0.1],
+                ragged_wavs(gen, 4, 2.0, 16.0),
+                [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(8)]]
+    for wav_list in requests:
+        _build.reset_launches()
+        out = expert(wav_list)
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        n_stack = len(cfg.conv_feature_layers) - 1
+        if got != {cf.KERNEL_PREFIX: 1, cf.KERNEL: n_stack, fa.KERNEL: cfg.encoder_layers}:
+            fail(f"ex serving: launches {got}")
+        t = cf.out_len((max(len(w) for w in wav_list) + SR - 1) // SR * SR,
+                       cfg.conv_feature_layers)
+        last, hid = out["last_hidden_state"], out["hidden_states"]
+        if tuple(last.shape) != (len(wav_list), t, cfg.encoder_embed_dim) or \
+                len(hid) != cfg.encoder_layers or not torch.isfinite(last).all().item():
+            fail(f"ex serving: last_hidden_state {tuple(last.shape)}, {len(hid)} hiddens")
+        print(f"  request B={len(wav_list)}: last_hidden_state {tuple(last.shape)} (the final "
+              f"hidden, no head) finite; launches {json.dumps(got)} ok", flush=True)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    wavs = requests[1][:3]
+    gpu32 = UpstreamExpert(pt_s, cfg32, device="cuda")(wavs)
+    cpu32 = UpstreamExpert(pt_s, cfg32, device="cpu")(wavs)
+    worst = 0.0
+    for name, g, c in zip(["last_hidden_state"] + [f"hidden_states[{i}]" for i in range(2)],
+                          (gpu32["last_hidden_state"], *gpu32["hidden_states"]),
+                          (cpu32["last_hidden_state"], *cpu32["hidden_states"])):
+        err = (g.cpu() - c).abs()
+        worst = max(worst, err.max().item())
+        if not bool((err <= E2E_ATOL + E2E_RTOL * c.abs()).all()):
+            fail(f"ex fp32 card vs CPU: {name} max_abs_err {err.max().item():.3e}")
+    bf16 = expert(wavs)
+    fro = max((torch.linalg.vector_norm(b_.float() - g) / torch.linalg.vector_norm(g)).item()
+              for b_, g in zip((bf16["last_hidden_state"], *bf16["hidden_states"]),
+                               (gpu32["last_hidden_state"], *gpu32["hidden_states"])))
+    if fro > BF16_VS_FP32_FRO:
+        fail(f"ex bf16 forward vs fp32 forward on the card: rel_fro {fro:.3e}")
+    print(f"  fp32 card vs CPU, B=3 ragged: max_abs_err={worst:.3e} tol=({E2E_ATOL}, "
+          f"{E2E_RTOL}) ok; bf16 vs fp32 on the card worst rel_fro={fro:.3e} "
+          f"tol={BF16_VS_FP32_FRO} ok; {smi}", flush=True)
+    return d, fixed, launches, expert, student_cpu
+
+
+def write_transcripts(root, gen):
+    """A <spk>-<chap>.trans.txt beside each chapter's WAVs of ``root``: a
+    few random words of letters per utterance."""
+    import torch
+
+    from fithubert_tpu_torch.utils.text import LETTERS
+
+    letters = [c for c in LETTERS if c != "|"]  # '|' is the word separator
+    n = 0
+    for dirpath, _dirs, files in os.walk(root):
+        wavs = sorted(f for f in files if f.endswith(".wav"))
+        if not wavs:
+            continue
+        rows = []
+        for f in wavs:
+            words = []
+            for _ in range(int(torch.randint(3, 12, (), generator=gen))):
+                idx = torch.randint(0, len(letters), (int(torch.randint(1, 9, (),
+                                                                        generator=gen)),),
+                                    generator=gen)
+                words.append("".join(letters[i] for i in idx.tolist()))
+            rows.append(f"{f[:-4]} {' '.join(words)}")
+            n += 1
+        spk_chap = "-".join(wavs[0].split("-")[:2])
+        with open(os.path.join(dirpath, f"{spk_chap}.trans.txt"), "w") as fh:
+            fh.write("\n".join(rows) + "\n")
+    return n
+
+
+def ctc_phase(exp, geom, s_state, rand_layers, per_step, gen, smi, tmp, libri):
+    """[ctc] the release student with a seeded wav2vec2-Base-shaped CTC
+    teacher written as a fairseq fine-tuned .pt and read by
+    load_teacher_any: pseudo-label steps with the release launches, then
+    run_training on ground-truth labels from transcripts written beside the
+    loop phase's WAVs, with an eval through the predict step and its WER."""
+    import torch
+
+    from fithubert_tpu_torch.export.fairseq_import import load_teacher_any
+    from fithubert_tpu_torch.models.teacher import TeacherModel
+    from fithubert_tpu_torch.train.loop import run_training
+    from fithubert_tpu_torch.train.losses import collapse_pseudo_labels
+    from fithubert_tpu_torch.train.step import Distiller
+
+    geom_ctc = dataclasses.replace(geom, model_type="wav2vec_ctc", vocab_size=32)
+    teacher = TeacherModel(geom_ctc, device="cpu").init_weights(gen)
+    a, b = exp.train.accumulate_grad_batches, exp.train.batch_size
+    fixed = train_batch(gen, a, b, 12.0, ragged=False)
+    x = fixed["x"].reshape(-1, fixed["x"].shape[-1]).cuda()
+    with torch.no_grad():
+        on_card = TeacherModel(geom_ctc, device="cuda")
+        on_card.load_state_dict(teacher.state_dict())
+        logits = on_card(x).ctc_logits.float()
+        margin = logits[..., 1:].max(-1).values - logits[..., 0]
+        teacher.ctc_proj.bias[0] += torch.quantile(margin.flatten()[::7], CTC_BLANK_SHARE).item()
+        del on_card, logits, margin
+    sd = {}
+    for k, v in teacher.state_dict().items():
+        sd[("w2v_encoder.proj." + k[len("ctc_proj."):]) if k.startswith("ctc_proj.")
+           else "w2v_encoder.w2v_model." + k] = v
+    inner = fairseq_cfg(dataclasses.replace(geom, model_type="wav2vec2"))
+    pt = os.path.join(tmp, "wav2vec2_ctc_seeded.pt")
+    torch.save({"model": sd, "cfg": {"model": {"_name": "wav2vec_ctc", "dropout": 0.5,
+                                               "w2v_args": {"model": inner}}}}, pt)
+    g_read, t_state = load_teacher_any(pt)
+    if g_read != geom_ctc:
+        fail(f"the CTC teacher's geometry read back as {g_read}, want {geom_ctc}")
+    print(f"  wrote a fairseq wav2vec_ctc .pt ({os.path.getsize(pt) / 2 ** 20:.0f} MiB, "
+          f"w2v_encoder. keys, vocab {g_read.vocab_size}); geometry read back ok", flush=True)
+
+    exp_ctc = dataclasses.replace(
+        exp, teacher=dataclasses.replace(exp.teacher, teacher_model=pt, model_type="wav2vec_ctc",
+                                         vocab_size=32),
+        distiller=dataclasses.replace(exp.distiller, teacher_task_agnostic=False),
+        loss=dataclasses.replace(exp.loss, use_gt_for_ctc=False),
+        data=dataclasses.replace(exp.data, load_labels=True))
+    d = Distiller(exp_ctc, t_state, s_state, device="cuda", num_training_steps=20,
+                  teacher_geometry=g_read)
+    with torch.no_grad():
+        ids = d.teacher(x, fixed["padding_mask"].reshape(x.shape).cuda()).ctc_logits.argmax(-1)
+        _labels, pads = collapse_pseudo_labels(ids)
+    blank = (ids == 0).float().mean().item()
+    density = (1 - pads).sum().item() / pads.numel()
+    if not 0.0 < density < 0.5:
+        fail(f"ctc: {density:.3f} pseudo-labels per frame; the blank bias missed its share")
+    print(f"  the bf16 teacher's argmax: blank on {blank:.3f} of the fixed batch's frames "
+          f"(bias set for {CTC_BLANK_SHARE} in fp32), {density:.3f} pseudo-labels per "
+          f"frame", flush=True)
+    logs, launches = launches_of_step(d, train_batch(gen, a, b, 12.0, ragged=True),
+                                      rand_layers, per_step, "ctc ragged step")
+    print(f"  step 0 (ragged {a} x {b}, one fabricated row): loss {logs['loss']:.6f} "
+          f"ctc_loss {logs['ctc_loss']:.6f} grad_norm {logs['grad_norm']:.6f}; launches "
+          f"{json.dumps(launches)} (the release step's) ok", flush=True)
+    steps = [launches_of_step(d, fixed, rand_layers, per_step, f"ctc step {i + 1}")[0]
+             for i in range(CTC_STEPS)]
+    losses = [lg["loss"] for lg in steps]
+    if not losses[-1] < losses[0]:
+        fail(f"ctc: the loss did not fall over {CTC_STEPS} steps: {losses}")
+    print(f"  steps 1-{CTC_STEPS} (pseudo-labels): loss {[round(v, 4) for v in losses]} fell, "
+          f"ctc_loss {[round(lg['ctc_loss'], 4) for lg in steps]} finite; the release "
+          f"launches every step ok", flush=True)
+    del d
+
+    n = write_transcripts(libri, gen)
+    print(f"[ctc] run_training with use_gt_for_ctc: ground-truth labels from {n} transcripts "
+          f"written beside the loop phase's WAVs, 1 epoch, an eval with WER / CER", flush=True)
+    exp_gt = dataclasses.replace(exp_ctc, loss=dataclasses.replace(exp_ctc.loss,
+                                                                   use_gt_for_ctc=True))
+    t0 = time.perf_counter()
+    with counted_steps() as record:
+        result = run_training(loop_config(exp_gt, tmp, pt, libri, "ctc", 1, 1), resume=False,
+                              device="cuda")
+    torch.cuda.synchronize()
+    train, val = logged(os.path.join(tmp, "ctc"))
+    if result["steps"] != 2 or any(r != per_step for r in record):
+        fail(f"ctc loop: {result}, launches per step {record}, want 2 steps of {per_step}")
+    if not all(math.isfinite(r["ctc_loss"]) for r in train.values()):
+        fail(f"ctc loop: ctc_loss not finite: {train}")
+    if not val or not all(math.isfinite(val[-1][k]) for k in ("val/wer", "val/cer",
+                                                              "val/ctc_loss")):
+        fail(f"ctc loop: the eval gave no finite WER / CER: {val}")
+    print(f"  {result['steps']} steps, each the release launches; ctc_loss "
+          f"{[round(r['ctc_loss'], 4) for r in train.values()]}; eval: ctc_loss "
+          f"{val[-1]['val/ctc_loss']:.4f} WER {val[-1]['val/wer']:.4f} CER "
+          f"{val[-1]['val/cer']:.4f} (a student of a few steps) finite; wall "
+          f"{time.perf_counter() - t0:.1f} s; {smi}", flush=True)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1460,7 +1905,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
     try:
-        from fithubert_tpu_torch.config import fithubert_960h, fithubert_960h_experiment
+        from fithubert_tpu_torch.config import (
+            ex_experiment,
+            fithubert_960h,
+            fithubert_960h_experiment,
+        )
         from fithubert_tpu_torch.export.expert import UpstreamExpert
         from fithubert_tpu_torch.models.student import StudentModel
         from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
@@ -1568,6 +2017,31 @@ def main() -> int:
           "student's stack at its train input, 12 x 12 s", flush=True)
     check_up_pass(cf, cpu_model, train_wavs, dev)
 
+    # the ex student (configs/ex.yaml): 2 layers of 768 (12 heads of 64), the
+    # 512-wide extractor of the teacher's spec, trained from its first block
+    exp_ex = ex_experiment()
+    ex_cpu = StudentModel(exp_ex.distiller, device="cpu").init_weights(gen)
+    a_ex, b_ex = exp_ex.train.accumulate_grad_batches, exp_ex.train.batch_size
+    ex_wavs = ragged_wavs(gen, a_ex * b_ex - 1, 2.0, 12.0) + [torch.randn(12 * SR, generator=gen)
+                                                               * 0.1]
+    ex_frames = cf.out_len(12 * SR, exp_ex.distiller.conv_feature_layers)
+    ex_t = -(-ex_frames // exp_ex.distiller.required_seq_len_multiple) \
+        * exp_ex.distiller.required_seq_len_multiple  # 599 frames pad to 600
+    ex_h = exp_ex.distiller.encoder_attention_heads
+    ex_attn = (a_ex * b_ex, ex_t, ex_h, exp_ex.distiller.encoder_embed_dim // ex_h)
+    print(f"[kernels] ex: K2 with dropout p={ATTN_P}, K3 and K4 at the ex student's "
+          f"{ex_attn}, ragged, vs the plain versions", flush=True)
+    check_attention_training_kernels(fa, gen, dev, errs, cases=(ex_attn + (False,),), path="@ex")
+    print(f"[kernels] ex: K1 (conv_stack_cuda) and its prefix on the ex student's 512-wide "
+          f"stack at B={a_ex * b_ex} x (ragged, up to 12 s)", flush=True)
+    errs["conv_ex"], errs["prefix_ex"] = check_conv_stack(ex_cpu, ex_wavs, dev, "ex student")
+    print(f"[kernels] ex: K6 vs conv_stack_bwd_plain and the library recompute on the ex "
+          f"student's stack at {a_ex * b_ex} x 12 s, dW bit for bit across two calls; its up "
+          f"pass vs K1", flush=True)
+    ex_train_wavs = [torch.randn(12 * SR, generator=gen) * 0.1 for _ in range(a_ex * b_ex)]
+    errs[cf.KERNEL_BWD + "@ex"] = check_conv_backward(cf, ex_cpu, ex_train_wavs, gen, dev)
+    check_up_pass(cf, ex_cpu, ex_train_wavs, dev)
+
     # ---- 4. the slice end to end
     print("[e2e] UpstreamExpert(fithubert_960h(), seeded weights), bf16, 3 requests",
           flush=True)
@@ -1661,17 +2135,9 @@ def main() -> int:
     path_launches = {"train": {}, "train-library": {}, "train-taps": {}}
 
     def step_checked(d, batch, want, what, path):
-        """One train step with every count set to 0 just before it and read
-        just after; fails unless they are ``want`` and the logs finite."""
-        _build.reset_launches()
-        logs = d.train_step(batch, rand_layers)
-        torch.cuda.synchronize()
-        got = dict(_build.LAUNCHES)
-        if got != want:
-            fail(f"{what}: launches {got}, want {want} per step")
-        path_launches[path] = got
-        if not all(math.isfinite(v) for v in logs.values()):
-            fail(f"{what}: non-finite logs {logs}")
+        """``launches_of_step`` on the release's random layers, its counts
+        kept as ``path``'s."""
+        logs, path_launches[path] = launches_of_step(d, batch, rand_layers, want, what)
         return logs
 
     logs = step_checked(distiller, train_batch(gen, a, b, 12.0, ragged=True), per_step,
@@ -1804,6 +2270,19 @@ def main() -> int:
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     pt, libri = loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi, work.name)
 
+    # ---- 8b. configs/ex.yaml end to end, then the CTC path
+    t_phase = time.perf_counter()
+    print(f"[ex] Distiller(ex_experiment(), HuBERT-Base teacher, seeded weights), bf16, "
+          f"dropout 0.1, {b_ex} x {a_ex} folded, FITHUBERT_CONV_BWD unset", flush=True)
+    distiller_ex, fixed_ex, path_launches["ex"], expert_ex, ex_student_cpu = ex_phase(
+        exp_ex, geom, t_state, gen, smi, work.name, pt, libri)
+    print(f"[ex] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    print("[ctc] the release student with a seeded wav2vec2-Base-shaped CTC teacher (vocab 32)",
+          flush=True)
+    ctc_phase(exp, geom, s_state, rand_layers, per_step, gen, smi, work.name, libri)
+    print(f"[ctc] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- 9. timing
     print("[timing] B=32 x 16 s, bf16", flush=True)
     bench = [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(32)]
@@ -1860,6 +2339,36 @@ def main() -> int:
                   f"audio-s/s; the release step above {step_ms:.3f} ms", flush=True)
             profile_device(lambda: d.train_step(fixed, rand_layers), "train step", top=20,
                            unprofiled_ms=med)
+
+    print(f"[timing] ex train step, {b_ex} x {a_ex} x 12 s ({a_ex * b_ex * 12} s of audio), "
+          f"bf16; {smi}", flush=True)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        distiller_ex.train_step(fixed_ex, None)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ex_step_ms = statistics.median(times)
+    print(f"  ex train step: median {ex_step_ms:.3f} ms over 10 (min {min(times):.3f}, max "
+          f"{max(times):.3f}), {1e3 / ex_step_ms:.3f} steps/s, "
+          f"{a_ex * b_ex * 12.0 / (ex_step_ms / 1e3):.1f} audio-s/s", flush=True)
+    profile_device(lambda: distiller_ex.train_step(fixed_ex, None), "ex train step", top=20,
+                   unprofiled_ms=ex_step_ms)
+    print(f"[timing] ex serving forward, B=32 x 16 s, bf16; {smi}", flush=True)
+    for _ in range(3):
+        expert_ex(bench)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        expert_ex(bench)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ex_fwd_ms = statistics.median(times)
+    print(f"  ex forward: median {ex_fwd_ms:.3f} ms over 10 (min {min(times):.3f}, max "
+          f"{max(times):.3f}), {32 * 16 / (ex_fwd_ms / 1e3):.1f} audio-s/s", flush=True)
+    profile_device(lambda: expert_ex(bench), "ex forward", unprofiled_ms=ex_fwd_ms)
+    del expert_ex
 
     # One row per kernel and path. "launches" is the count the path's run
     # made: over the three serving requests, or in the last checked train
@@ -1947,39 +2456,51 @@ def main() -> int:
     goals.append((f"K2 p=0 teacher {tuple(q.shape)}", a_ms, a_lib, 1.5, None))
     del q, k, v, mask
 
+    def attention_train_rows(shape4, path, who):
+        """K2 at p = 0.1, K3 and K4 rows at ``shape4``; returns (K3 ms, K4 ms,
+        SDPA's backward ms, the shape's label)."""
+        q, k, v, dout, mask = attention_qkv(*shape4, n=4)
+        seed = seed_words(gen)
+        shape = f"{who} {tuple(q.shape)}, p={ATTN_P}"
+        f_ms, f_plain, f_work, f_lib = attention_fwd_times(q, k, v, mask, ATTN_P, seed)
+        row(fa.KERNEL_DROPOUT, "flash_attention.cu", "flash_attention.py:243 (dropout branch "
+            ":100-106)", path, shape, errs[fa.KERNEL_DROPOUT + suffix[path]], f_ms, f_plain,
+            f_work, f_lib)
+        with torch.no_grad():
+            out, lse = fa.flash_attention(q, k, v, mask, dropout_p=ATTN_P, seed=seed,
+                                          return_lse=True)
+            delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+            dq_ms = cuda_ms(lambda: fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
+                                                   seed), reps=50)
+            dkv_ms = cuda_ms(lambda: fa.bwd_dkv_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
+                                                     seed), reps=50)
+            bwd_plain = cuda_ms(lambda: fa.attention_bwd_plain(
+                q, k, v, mask, out, lse, dout, ATTN_P, seed), reps=10)
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = sdpa(qs, ks, vs, mask, ATTN_P)
+        do_lib = dout.transpose(1, 2)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do_lib,
+                                                      retain_graph=True), reps=50)
+        row(fa.KERNEL_DQ, "flash_attention_bwd.cu", "flash_attention.py:304", path, shape,
+            errs[fa.KERNEL_DQ + suffix[path]], dq_ms, bwd_plain, attn_bwd_work(q, mask, 1),
+            lib_bwd)
+        row(fa.KERNEL_DKV, "flash_attention_bwd.cu", "flash_attention.py:323", path, shape,
+            errs[fa.KERNEL_DKV + suffix[path]], dkv_ms, bwd_plain, attn_bwd_work(q, mask, 2),
+            lib_bwd)
+        print(f"  SDPA backward (dQ, dK, dV) at {shape}: {lib_bwd:.4f} ms; K3 {dq_ms:.4f}, "
+              f"K4 {dkv_ms:.4f} ms", flush=True)
+        return f_ms, f_lib, dq_ms, dkv_ms, lib_bwd, shape
+
+    suffix = {"train": "", "ex": "@ex"}
     # train: the student's attention, (12, 299, 12, 40), p = 0.1: K2, K3, K4
     t_att = cf.out_len(12 * SR, cfg.conv_feature_layers) // cfg.tr_reduce_factor
-    q, k, v, dout, mask = attention_qkv(a * b, t_att, h, d, n=4)
-    seed = seed_words(gen)
-    shape = f"student {tuple(q.shape)}, p={ATTN_P}"
-    f_ms, f_plain, f_work, f_lib = attention_fwd_times(q, k, v, mask, ATTN_P, seed)
-    row(fa.KERNEL_DROPOUT, "flash_attention.cu", "flash_attention.py:243 (dropout branch "
-        ":100-106)", "train", shape, errs[fa.KERNEL_DROPOUT], f_ms, f_plain, f_work, f_lib)
+    f_ms, f_lib, dq_ms, dkv_ms, lib_bwd, shape = attention_train_rows(
+        (a * b, t_att, h, d), "train", "student")
     goals.append((f"K2 {shape}", f_ms, f_lib, 1.0, None))
-    with torch.no_grad():
-        out, lse = fa.flash_attention(q, k, v, mask, dropout_p=ATTN_P, seed=seed,
-                                      return_lse=True)
-        delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-        dq_ms = cuda_ms(lambda: fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta, ATTN_P, seed),
-                        reps=50)
-        dkv_ms = cuda_ms(lambda: fa.bwd_dkv_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
-                                                 seed), reps=50)
-        bwd_plain = cuda_ms(lambda: fa.attention_bwd_plain(
-            q, k, v, mask, out, lse, dout, ATTN_P, seed), reps=10)
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    o_lib = sdpa(qs, ks, vs, mask, ATTN_P)
-    do_lib = dout.transpose(1, 2)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do_lib,
-                                                  retain_graph=True), reps=50)
-    row(fa.KERNEL_DQ, "flash_attention_bwd.cu", "flash_attention.py:304", "train", shape,
-        errs[fa.KERNEL_DQ], dq_ms, bwd_plain, attn_bwd_work(q, mask, 1), lib_bwd)
-    row(fa.KERNEL_DKV, "flash_attention_bwd.cu", "flash_attention.py:323", "train", shape,
-        errs[fa.KERNEL_DKV], dkv_ms, bwd_plain, attn_bwd_work(q, mask, 2), lib_bwd)
     goals.append((f"K3 {shape}, against SDPA's whole backward", dq_ms, lib_bwd, 0.75, 1.0))
     goals.append((f"K4 {shape}, against SDPA's whole backward", dkv_ms, lib_bwd, 1.0, None))
-    print(f"  SDPA backward (dQ, dK, dV) at {shape}: {lib_bwd:.4f} ms; K3 {dq_ms:.4f}, "
-          f"K4 {dkv_ms:.4f} ms", flush=True)
-    del q, k, v, dout, mask, qs, ks, vs, o_lib
+    # ex: the ex student's attention, (8, 600, 12, 64), p = 0.1
+    attention_train_rows(ex_attn, "ex", "ex student")
 
     # train-taps: K5 at the student's last-layer probabilities of one microbatch
     x = torch.rand((b, h, t_att, t_att), generator=gen).to(dev)
@@ -1994,30 +2515,56 @@ def main() -> int:
         k5_plain, (x.numel(), 8 * x.numel()), k5_lib, peak=FP32_PEAK)
     del x
 
-    # train: K6 over the student's stack of one step, from a0 = the prefix's output
-    spec = student_cpu.feature_extractor.spec[1:]
-    x, ws, scale, shift = stack_inputs(student_cpu, step_wavs, torch.bfloat16, dev)
-    with torch.no_grad():
-        a0 = cf._prefix(x, scale, shift)
-    del x, scale, shift
-    g = torch.randn((a0.shape[0], cf.out_len(a0.shape[1], spec), spec[-1][0]),
-                    generator=gen).to(dev, torch.bfloat16)
-    k6_ms = cuda_ms(lambda: cf.conv_stack_bwd_cuda(a0, ws, g, spec), reps=5, warmup=1)
-    k6_plain = cuda_ms(lambda: cf.conv_stack_bwd_plain(a0, ws, g, spec), reps=2, warmup=1)
-    leaves = [t.detach().requires_grad_() for t in [a0, *ws]]
-    k6_lib = cuda_ms(lambda: torch.autograd.grad(
-        cf.conv_stack_plain(leaves[0], leaves[1:], spec), leaves, g), reps=5, warmup=1)
-    k6_shape = f"student a0 {tuple(a0.shape)}, g {tuple(g.shape)}"
-    row(cf.KERNEL_BWD, "conv_frontend_bwd.cu", "conv_frontend_bwd.py:290", "train", k6_shape,
-        errs[cf.KERNEL_BWD], k6_ms, k6_plain, conv_bwd_work(a0, spec), k6_lib)
-    del leaves
-    k6_launches_ms, k6_floor = k6_breakdown(cf, a0, ws, g, spec)
-    del a0, g, ws
+    def k6_row(model, wavs, path, err):
+        """K6's row over ``model``'s stack of one step, from a0 = the prefix's
+        output, and its launch-by-launch breakdown; returns (ms, the launches'
+        summed time, their summed floors, the shape's label)."""
+        spec = model.feature_extractor.spec[1:]
+        x, ws, scale, shift = stack_inputs(model, wavs, torch.bfloat16, dev)
+        with torch.no_grad():
+            a0 = cf._prefix(x, scale, shift)
+        del x, scale, shift
+        g = torch.randn((a0.shape[0], cf.out_len(a0.shape[1], spec), spec[-1][0]),
+                        generator=gen).to(dev, torch.bfloat16)
+        k6_ms = cuda_ms(lambda: cf.conv_stack_bwd_cuda(a0, ws, g, spec), reps=5, warmup=1)
+        k6_plain = cuda_ms(lambda: cf.conv_stack_bwd_plain(a0, ws, g, spec), reps=2, warmup=1)
+        leaves = [t.detach().requires_grad_() for t in [a0, *ws]]
+        k6_lib = cuda_ms(lambda: torch.autograd.grad(
+            cf.conv_stack_plain(leaves[0], leaves[1:], spec), leaves, g), reps=5, warmup=1)
+        label = f"{'student' if path == 'train' else 'ex student'} a0 {tuple(a0.shape)}, " \
+            f"g {tuple(g.shape)}"
+        row(cf.KERNEL_BWD, "conv_frontend_bwd.cu", "conv_frontend_bwd.py:290", path, label,
+            err, k6_ms, k6_plain, conv_bwd_work(a0, spec), k6_lib)
+        del leaves
+        launches_ms, floor = k6_breakdown(cf, a0, ws, g, spec)
+        return k6_ms, launches_ms, floor, label
+
+    k6_ms, k6_launches_ms, k6_floor, k6_shape = k6_row(student_cpu, step_wavs, "train",
+                                                       errs[cf.KERNEL_BWD])
+    ex_step_wavs = list(fixed_ex["x"].reshape(-1, fixed_ex["x"].shape[-1]))
+    k6_row(ex_student_cpu, ex_step_wavs, "ex", errs[cf.KERNEL_BWD + "@ex"])
+
+    # ex: the prefix and K1 over the ex student's and the teacher's stacks of one step
+    ex_stu, ex_tea = (conv_times(m, ex_step_wavs, dev, f"{who}, ex train")
+                      for m, who in ((ex_student_cpu, "ex student"), (teacher_cpu, "teacher")))
+    shape = f"ex student {stack_shape(ex_student_cpu, ex_step_wavs)} + teacher " \
+        f"{stack_shape(teacher_cpu, ex_step_wavs)}"
+
+    def both_ex(key):
+        sk, tk = ex_stu[key], ex_tea[key]
+        return (sk[0] + tk[0], sk[1] + tk[1], (sk[2][0] + tk[2][0], sk[2][1] + tk[2][1]),
+                None if sk[3] is None else sk[3] + tk[3])
+
+    row(cf.KERNEL_PREFIX, prefix_src, prefix_of, "ex", shape,
+        max(errs["prefix_ex"], errs["prefix_teacher"]), *both_ex("prefix"), peak=FP32_PEAK)
+    row(cf.KERNEL, "conv_frontend.cu", "conv_frontend.py:283", "ex", f"{shape}, from a0",
+        max(errs["conv_ex"], errs["conv_teacher"]), *both_ex("k1"))
 
     def met(ok):
         return "met" if ok else "missed"
 
-    k1_floor = {"serving": serve["floor_ms"], "train": stu["floor_ms"] + tea["floor_ms"]}
+    k1_floor = {"serving": serve["floor_ms"], "train": stu["floor_ms"] + tea["floor_ms"],
+                "ex": ex_stu["floor_ms"] + ex_tea["floor_ms"]}
     for kr in kernels:
         lib = "none" if kr["library_ms"] is None else f"{kr['library_ms']:.4f}"
         floor = f", per-layer floor {k1_floor[kr['path']]:.4f} ms" \
@@ -2060,6 +2607,7 @@ def main() -> int:
     work.cleanup()
 
     # ---- 12. result lines
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

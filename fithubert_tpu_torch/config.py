@@ -14,7 +14,8 @@ defaults: ``StudentConfig`` (the fields the port's student has),
 The presets are ``fithubert_960h()`` (the student of
 ``configs/fithubert.yaml`` as ``load_yaml_config`` resolves it;
 ``use_fp16: True`` selects bfloat16 compute) and
-``fithubert_960h_experiment()`` (the whole file). ``yaml`` is imported only
+``fithubert_960h_experiment()`` (the whole file), and ``ex_experiment()``
+(``configs/ex.yaml``). ``yaml`` is imported only
 inside ``read_yaml``, the one function that reads a file, so the package
 imports where ``yaml`` is not installed.
 """
@@ -74,10 +75,9 @@ def conv_spec_tuple(spec: Any) -> Tuple[Tuple[int, int, int], ...]:
 
 
 # Fields of the JAX StudentConfig (fithubert_tpu/config.py:95-169) that the
-# port has no counterpart for, with their JAX defaults: the mel front-end,
-# the teacher hint-init, int8 matmuls and a task-specific teacher.
-REFUSED = {"n_mels": 0, "enable_log_mel": False, "init_conv_layers": False,
-           "init_encoder_layers": 0, "quantize_matmuls": False, "teacher_task_agnostic": True}
+# port has no counterpart for, with their JAX defaults: the mel front-end
+# and int8 matmuls.
+REFUSED = {"n_mels": 0, "enable_log_mel": False, "quantize_matmuls": False}
 
 
 @dataclass(frozen=True)
@@ -119,8 +119,13 @@ class StudentConfig:
 
     # Heads
     pred_head_final_dim: int = 768
+    pred_head_inter_dim: int = 0  # SplitLinear's input width per task (0 = embed dim)
     pred_layer_id: Tuple[int, ...] = (3, 7, 11)
     layerwise_proj: bool = False
+
+    # Teacher hint-init (models/surgery.py), read by training only
+    init_conv_layers: bool = False
+    init_encoder_layers: int = 0
 
     # Time-reduction layer
     enable_tr_layer: bool = True
@@ -132,7 +137,10 @@ class StudentConfig:
     required_seq_len_multiple: int = 2
     crop_seq_to_multiple: int = 1
 
-    # Driver-injected: the cnn loss weight (a cnn_proj_head exists when > 0)
+    # Driver-injected: a wav2vec_ctc teacher makes the student task-specific
+    # (a CTC term on its output), and the cnn loss weight (a cnn_proj_head
+    # exists when > 0)
+    teacher_task_agnostic: bool = True
     cnn_weight: float = 0.0
 
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
@@ -141,6 +149,11 @@ class StudentConfig:
     def embed(self) -> int:
         """Feature-extractor output dim."""
         return self.conv_feature_layers[-1][0]
+
+    @property
+    def n_tasks(self) -> int:
+        """Teacher layers the SplitLinear head predicts (``layerwise_proj=False``)."""
+        return len(self.pred_layer_id)
 
     @property
     def downsample_rate(self) -> int:
@@ -161,12 +174,13 @@ class StudentConfig:
             "layer_type": (self.layer_type, "transformer"),
             "activation_fn": (self.activation_fn, "gelu"),
         }
-        if self.enable_tr_layer:
-            unsupported["tr_layer_type"] = (self.tr_layer_type, "conv1d")
         for name, (got, want) in unsupported.items():
             if got != want:
                 raise NotImplementedError(
                     f"{name}={got!r}: the PyTorch port supports only {want!r}")
+        if self.enable_tr_layer and self.tr_layer_type not in ("conv1d", "fc1", "fc2"):
+            raise NotImplementedError(
+                "tr_layer_type must be one of ['fc1', 'fc2', 'conv1d']")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
 
@@ -200,6 +214,7 @@ class StudentConfig:
         """The reference's ``distiller:`` field names and spec strings, as
         the JAX package's ``StudentConfig.to_dict`` writes them."""
         d = dataclasses.asdict(self)
+        d["_teacher_task_agnostic"] = d.pop("teacher_task_agnostic")
         d["_cnn_weight"] = d.pop("cnn_weight")
         d["conv_feature_layers"] = str([tuple(t) for t in self.conv_feature_layers])
         d["pred_layer_id"] = str(list(self.pred_layer_id))
@@ -221,9 +236,12 @@ def load_yaml_config(path: str) -> StudentConfig:
     (``fithubert_tpu/export/expert.py:57-65``)."""
     raw = read_yaml(path)
     distiller = dict(raw.get("distiller", {}), init_conv_layers=False, init_encoder_layers=0)
-    return StudentConfig.from_dict(
+    cfg = StudentConfig.from_dict(
         distiller,
         use_fp16=bool(raw.get("train", {}).get("use_fp16", False)))
+    # the JAX loader derives it from the teacher's type
+    return dataclasses.replace(cfg, teacher_task_agnostic=(
+        (raw.get("teacher") or {}).get("model_type", "hubert") != "wav2vec_ctc"))
 
 
 def fithubert_960h() -> StudentConfig:
@@ -363,12 +381,12 @@ class SpecAugConfig:
 @dataclass(frozen=True)
 class TeacherConfig:
     teacher_model: str = "hubert_base_ls960.pt"  # fairseq .pt, or a converted .json
-    model_type: str = "hubert"  # 'hubert' | 'wav2vec2' ('wav2vec_ctc' is refused)
+    model_type: str = "hubert"  # 'hubert' | 'wav2vec2' | 'wav2vec_ctc'
     encoder_layers: int = 12
     encoder_embed_dim: int = 768
     encoder_ffn_embed_dim: int = 3072
     encoder_attention_heads: int = 12
-    vocab_size: int = 32
+    vocab_size: int = 32  # the CTC head's width of a wav2vec_ctc teacher
     quantize_int8: bool = False
 
 
@@ -386,9 +404,6 @@ class ExperimentConfig:
         """Raise NotImplementedError, naming the field and the ROADMAP item
         that will bring it, for a setting the port's loop cannot honour."""
         refused = (
-            ("teacher.model_type='wav2vec_ctc'", self.teacher.model_type == "wav2vec_ctc",
-             "Queue 1 item 6 (CTC)"),
-            ("data.load_labels", self.data.load_labels, "Queue 1 item 6 (CTC)"),
             ("train.specaug", self.train.specaug, "Queue 1 item 6 (ops/specaug.py)"),
             ("teacher.quantize_int8", self.teacher.quantize_int8,
              "Queue 1 item 6 (ops/quant.py)"),
@@ -434,7 +449,8 @@ def config_from_yaml_dict(raw: Dict[str, Any]) -> ExperimentConfig:
         raise ValueError("distil_random_layer > 0 requires layerwise_proj: true (random-"
                          "layer distillation gathers per-layer projection heads)")
     distiller = dataclasses.replace(StudentConfig.from_dict(distiller_d, use_fp16=train.use_fp16),
-                                    cnn_weight=float(loss.cnn_loss_weight))
+                                    cnn_weight=float(loss.cnn_loss_weight),
+                                    teacher_task_agnostic=teacher.model_type != "wav2vec_ctc")
     data = _section(DataConfig, raw.get("data") or {})
     if teacher.model_type == "wav2vec_ctc":
         data = dataclasses.replace(data, load_labels=True)
@@ -521,4 +537,42 @@ def fithubert_960h_experiment() -> ExperimentConfig:
                         test_set=("test-clean",), dev_set=("dev-clean",),
                         length_quantum=40960),
         specaug=SpecAugConfig(freq_mask_width_range=(0, 27)),
+    )
+
+
+def ex_experiment() -> ExperimentConfig:
+    """The whole of ``configs/ex.yaml``: a DistilHuBERT-style student (2
+    layers of 768, no time reduction, a SplitLinear head predicting teacher
+    layers 3, 7 and 11) distilled from HuBERT-Base by L1 + cosine loss,
+    starting from the teacher's conv front-end and first 2 layers; AdamW
+    2e-4 with 7% warmup, batch 4 x 2 accumulated, bf16, train-clean-100."""
+    return ExperimentConfig(
+        teacher=TeacherConfig(teacher_model="hubert_base_ls960.pt", model_type="hubert"),
+        train=TrainConfig(output_dir="results/pretrain/ex", num_epochs=100, num_devices=2,
+                          batch_size=4, accumulate_grad_batches=2, use_fp16=True,
+                          monitor_losses=True, delete_projections=False, specaug=False),
+        loss=LossConfig(cnn_loss_weight=0.0, rec_loss_weight=1.0, rec_loss_type="l1",
+                        sim_loss_weight=1.0, attn_loss_weight=0.0, attn_loss_type="kldiv",
+                        v_rel_loss_weight=0.0, distil_random_layer=0,
+                        random_layer_weight=0.0, use_gt_for_ctc=True),
+        distiller=StudentConfig(
+            extractor_mode="default",
+            conv_feature_layers=((512, 10, 5),) + ((512, 3, 2),) * 4 + ((512, 2, 2),) * 2,
+            conv_bias=False, feature_grad_mult=1.0, conv_pos=128, conv_pos_groups=16,
+            pos_conv_depth=1, layer_type="transformer", encoder_layers=2,
+            encoder_embed_dim=768, encoder_ffn_embed_dim=3072, encoder_attention_heads=12,
+            activation_fn="gelu", layer_norm_first=False, dropout=0.1,
+            attention_dropout=0.1, activation_dropout=0.1, encoder_layerdrop=0.0,
+            dropout_input=0.0, pred_head_final_dim=768, pred_head_inter_dim=0,
+            pred_layer_id=(3, 7, 11), layerwise_proj=False, init_conv_layers=True,
+            init_encoder_layers=2, enable_tr_layer=False, tr_reduce_factor=2,
+            tr_layer_type="fc1", tr_layer_index=1, required_seq_len_multiple=2,
+            crop_seq_to_multiple=1, compute_dtype="bfloat16"),
+        optimizer=OptimizerConfig(name="AdamW_with_schedule", lr=2e-4,
+                                  warmup_proportion=0.07, betas=(0.9, 0.98), eps=1e-6,
+                                  weight_decay=1e-6),
+        data=DataConfig(bucketing_path="./data/len_for_bucket", libri_root="../LibriSpeech",
+                        train_set=("train-clean-100",), test_set=("test-clean",),
+                        dev_set=("dev-clean",)),
+        specaug=SpecAugConfig(),
     )

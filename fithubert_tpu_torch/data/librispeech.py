@@ -14,8 +14,13 @@ epoch)``, and decoded ahead on a thread pool. ``batch_size`` is the
 global batch: under data parallelism rank ``host_id`` of ``num_hosts``
 reads rows ``host_id::num_hosts`` of each bucket padded to ``batch_size``
 (a fabricated row goes to whichever rank owns its position), so every rank
-has the same bucket list, padded length and number of steps. Transcripts
-are not read: ``load_labels`` is refused until CTC is ported.
+has the same bucket list, padded length and number of steps. With
+``load_labels`` (a wav2vec_ctc teacher's CTC term and WER/CER) a batch also
+holds ``labels`` (A, B, U) int32 letter ids front-packed and
+``label_paddings`` (A, B, U) float32, 1.0 at padding, from the LibriSpeech
+``<spk>-<chap>.trans.txt`` beside each file, U rounded up to a multiple of
+``label_quantum``; and ``_transcripts``, the texts per microbatch, which
+stay on the host (a key starting with ``_``).
 """
 
 from __future__ import annotations
@@ -24,13 +29,15 @@ import concurrent.futures as cf
 import csv
 import os
 import queue
+import threading
 import uuid
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from fithubert_tpu_torch.config import DataConfig
 from fithubert_tpu_torch.data import audio
+from fithubert_tpu_torch.utils.text import LETTERS, SPECIALS, LetterDictionary, default_dict_path
 
 Batch = Dict[str, np.ndarray]
 
@@ -41,10 +48,37 @@ def _check_stripe(batch_size: int, host_id: int, num_hosts: int) -> None:
                          f"batch of {batch_size}")
 
 
-def _refuse_labels(cfg: DataConfig) -> None:
-    if cfg.load_labels:
-        raise NotImplementedError("data.load_labels: the PyTorch port reads no transcripts "
-                                  "yet (ROADMAP Queue 1 item 6, CTC)")
+def _dictionary(cfg: DataConfig) -> Optional[LetterDictionary]:
+    """The letter dictionary of ``load_labels`` (``dict_path``, else the
+    bundled ``data/dict.ltr.txt``, else the built-in order), or None."""
+    if not cfg.load_labels:
+        return None
+    path = cfg.dict_path or default_dict_path()
+    return LetterDictionary.load(path) if os.path.exists(path) else LetterDictionary()
+
+
+def label_width(t_pad: int, quantum: int) -> int:
+    """U for a batch of ``t_pad`` samples: ~1 letter per 400 samples is a
+    safe LibriSpeech upper bound, plus 16, rounded up to ``quantum``."""
+    return quantize_length(t_pad // 400 + 16, quantum)
+
+
+def load_transcript(libri_root: str, rel_path: str, cache: Dict[str, Dict[str, str]]) -> str:
+    """The text of ``rel_path`` from ``<dir>/<spk>-<chap>.trans.txt`` (rows
+    '<utt-id> <TEXT>'), '' where it has none; each file read once."""
+    d = os.path.dirname(os.path.join(libri_root, rel_path))
+    utt_id = os.path.splitext(os.path.basename(rel_path))[0]
+    trans_path = os.path.join(d, "-".join(utt_id.split("-")[:2]) + ".trans.txt")
+    if trans_path not in cache:
+        table: Dict[str, str] = {}
+        if os.path.exists(trans_path):
+            with open(trans_path) as f:
+                for line in f:
+                    parts = line.strip().split(" ", 1)
+                    if len(parts) == 2:
+                        table[parts[0]] = parts[1]
+        cache[trans_path] = table
+    return cache[trans_path].get(utt_id, "")
 
 
 def flac_num_samples(path: str) -> int:
@@ -153,8 +187,10 @@ class BucketedLibriSpeech:
 
     def __init__(self, cfg: DataConfig, sets: Sequence[str], batch_size: int, accum: int = 1,
                  shuffle: bool = True, seed: int = 0, host_id: int = 0, num_hosts: int = 1):
-        _refuse_labels(cfg)
         _check_stripe(batch_size, host_id, num_hosts)
+        self.dictionary = _dictionary(cfg)
+        self._trans_cache: Dict[str, Dict[str, str]] = {}
+        self._trans_lock = threading.Lock()
         self.cfg = cfg
         self.batch_size = batch_size
         self.host_id, self.num_hosts = host_id, num_hosts
@@ -171,9 +207,9 @@ class BucketedLibriSpeech:
         # microbatches
         return -(-len(self.buckets) // self.accum)
 
-    def _load_bucket(self, bucket, t_pad: int) -> Tuple[np.ndarray, np.ndarray]:
+    def _load_bucket(self, bucket, t_pad: int, u_pad: int) -> Batch:
         """This rank's stripe of ``bucket`` padded to the global batch: its
-        real rows first, then its fabricated ones (all padding)."""
+        real rows first, then its fabricated ones (all padding, no label)."""
         rows = (list(bucket) + [None] * (self.batch_size - len(bucket)))[
             self.host_id::self.num_hosts]
         bucket = [r for r in rows if r is not None]
@@ -188,7 +224,20 @@ class BucketedLibriSpeech:
                 n = self.cfg.max_wav_length
                 x[i, n:] = 0.0
             mask[i, :n] = False
-        return x, mask
+        out = {"x": x, "padding_mask": mask}
+        if self.dictionary is not None:
+            labels = np.zeros((len(rows), u_pad), np.int32)
+            pads = np.ones((len(rows), u_pad), np.float32)
+            texts = []
+            for i, (p, _n) in enumerate(bucket):
+                with self._trans_lock:
+                    text = load_transcript(self.cfg.libri_root, p, self._trans_cache)
+                texts.append(text)
+                ids = self.dictionary.encode(text)[:u_pad]
+                labels[i, :len(ids)] = ids
+                pads[i, :len(ids)] = 0.0
+            out.update(labels=labels, label_paddings=pads, _transcripts=texts)
+        return out
 
     def _build_group(self, group) -> Batch:
         """One accumulation group of bucket indices -> an (A, B, T) batch;
@@ -196,9 +245,10 @@ class BucketedLibriSpeech:
         bs = [self.buckets[int(g)] if int(g) >= 0 else [] for g in group]
         t_pad = max(quantize_length(max(n for (_p, n) in b), self.cfg.length_quantum,
                                     self.cfg.max_wav_length) for b in bs if b)
-        loaded = [self._load_bucket(b, t_pad) for b in bs]
-        return {"x": np.stack([l[0] for l in loaded]),
-                "padding_mask": np.stack([l[1] for l in loaded])}
+        loaded = [self._load_bucket(b, t_pad, label_width(t_pad, self.cfg.label_quantum))
+                  for b in bs]
+        return {k: [l[k] for l in loaded] if k.startswith("_") else
+                np.stack([l[k] for l in loaded]) for k in loaded[0]}
 
     def _groups(self, epoch_idx: int):
         order = np.arange(len(self.buckets))
@@ -234,7 +284,6 @@ class SyntheticDataset:
 
     def __init__(self, cfg: DataConfig, batch_size: int, accum: int = 1, seed: int = 0,
                  host_id: int = 0, num_hosts: int = 1):
-        _refuse_labels(cfg)
         _check_stripe(batch_size, host_id, num_hosts)
         self.cfg = cfg
         self.batch_size = batch_size // num_hosts
@@ -255,7 +304,29 @@ class SyntheticDataset:
                 shape + (t,)).astype(np.float32)
             lengths = rng.integers(int(0.8 * t), t + 1, size=shape)
             mask = np.arange(t)[None, None, :] >= lengths[..., None]
-            yield {"x": np.where(mask, 0.0, x).astype(np.float32), "padding_mask": mask}
+            batch = {"x": np.where(mask, 0.0, x).astype(np.float32), "padding_mask": mask}
+            if self.cfg.load_labels:
+                batch.update(self._labels(rng, t))
+            yield batch
+
+    def _labels(self, rng: np.random.Generator, t: int) -> Batch:
+        """Random letter ids, 4 to U / 2 a row, and their texts."""
+        u_pad = label_width(t, self.cfg.label_quantum)
+        n_sym = len(SPECIALS) + len(LETTERS)
+        labels = np.zeros((self.accum, self.batch_size, u_pad), np.int32)
+        pads = np.ones((self.accum, self.batch_size, u_pad), np.float32)
+        look_up = LetterDictionary().look_up
+        texts = []
+        for a in range(self.accum):
+            row = []
+            for b in range(self.batch_size):
+                u = int(rng.integers(4, max(5, u_pad // 2)))
+                ids = rng.integers(4, n_sym, size=u)
+                labels[a, b, :u] = ids
+                pads[a, b, :u] = 0.0
+                row.append(" ".join("".join(look_up[ids]).split("|")).rstrip())
+            texts.append(row)
+        return {"labels": labels, "label_paddings": pads, "_transcripts": texts}
 
 
 def make_dataset(cfg: DataConfig, sets: Sequence[str], batch_size: int, accum: int = 1,

@@ -13,8 +13,10 @@ of one, or the reference's Lightning ``.ckpt`` (``reference_import.py``),
 ``model_config`` a reference-schema YAML path (its teacher-init flags are
 turned off) or a ``StudentConfig``. Extra hub arguments are accepted and
 ignored, as the JAX expert ignores its ``**kwargs``; ``int8=True`` raises.
-Every projection head but the last is dropped, as the reference's export
-does, and the rest must match the model's keys exactly. The outputs are
+Every layer-wise projection head but the last is dropped, as the
+reference's export does; a SplitLinear head (``layerwise_proj=False``) goes
+whole, and ``last_hidden_state`` is the upsampled final hidden. The rest
+must match the model's keys exactly. The outputs are
 tensors on the expert's device.
 """
 
@@ -50,9 +52,10 @@ class UpstreamExpert:
             sd = reference_student_state_dict(ckpt)
         else:
             sd = torch.load(ckpt, map_location="cpu", weights_only=True)
-        last = f"proj_head.{self.cfg.encoder_layers - 1}."
+        last = f"proj_head.{self.cfg.encoder_layers - 1}." if self.cfg.layerwise_proj \
+            else None
         sd = {k: v for k, v in sd.items()
-              if not k.startswith("proj_head.") or k.startswith(last)}
+              if not k.startswith("proj_head.") or (last and k.startswith(last))}
         self.model = StudentModel(self.cfg, disable_projections=True, device=self.device)
         self.model.load_state_dict(sd)
         self.model.eval()

@@ -13,8 +13,11 @@ quantizer and ``project_q``), and with a positional conv saved by torch's
 ``weight_g`` / ``weight_v``. The geometry comes from the checkpoint's
 ``cfg`` (an omegaconf container, read through stubs) or legacy ``args``,
 and from the weights' shapes; a conv spec the config lacks is recovered
-from the kernels with fairseq's strides. A ``wav2vec_ctc`` checkpoint is
-refused until CTC is ported.
+from the kernels with fairseq's strides. A fine-tuned ``wav2vec_ctc``
+checkpoint (keys under ``w2v_encoder.``) gives the wav2vec2 body under
+``w2v_encoder.w2v_model.`` and its CTC head ``w2v_encoder.proj`` as
+``ctc_proj``; its nested ``w2v_args`` config wins over the outer one
+(``fithubert_tpu/export/fairseq_import.py:200-225,290-310``).
 
 A converted teacher is a pair: ``<prefix>.json`` (the geometry) and
 ``<prefix>.pt`` (the state dict), written by ``save_converted_teacher``.
@@ -38,7 +41,9 @@ StateDict = Dict[str, torch.Tensor]
 # [(512, 3, 2)] * 4 + [(512, 2, 2)] * 2
 _DEFAULT_STRIDES = {10: 5, 3: 2, 2: 2}
 # the modules TeacherModel has; the rest of a checkpoint is pretraining heads
-_TEACHER_PREFIXES = ("feature_extractor.", "layer_norm.", "post_extract_proj.", "encoder.")
+_TEACHER_PREFIXES = ("feature_extractor.", "layer_norm.", "post_extract_proj.", "encoder.",
+                     "ctc_proj.")
+_CTC_BODY, _CTC_HEAD = "w2v_encoder.w2v_model.", "w2v_encoder.proj."
 _PARAMETRIZED = {".parametrizations.weight.original0": ".weight_g",
                  ".parametrizations.weight.original1": ".weight_v"}
 
@@ -89,14 +94,18 @@ def _rename(key: str) -> str:
 
 def load_fairseq_teacher(path: str) -> Tuple[TeacherGeometry, StateDict]:
     """A fairseq checkpoint -> (TeacherGeometry, state dict on the CPU).
-    ``label_embs_concat`` marks HuBERT (the reference's dispatch,
-    ``utils/utils.py:115-143``), otherwise wav2vec2."""
+    A ``w2v_encoder.`` prefix marks wav2vec_ctc, ``label_embs_concat``
+    HuBERT (the reference's dispatch, ``utils/utils.py:115-143``),
+    otherwise wav2vec2."""
     ckpt = tolerant_torch_load(path)
     sd = ckpt.get("model", ckpt.get("state_dict", ckpt))
     sd = {_rename(k): v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+    model_type = "hubert" if "label_embs_concat" in sd else "wav2vec2"
     if any(k.startswith("w2v_encoder.") for k in sd):
-        raise NotImplementedError(f"{path} is a wav2vec_ctc checkpoint: the PyTorch port "
-                                  "has no CTC teacher yet (ROADMAP Queue 1 item 6)")
+        model_type = "wav2vec_ctc"
+        sd = {**{k[len(_CTC_BODY):]: v for k, v in sd.items() if k.startswith(_CTC_BODY)},
+              **{"ctc_proj." + k[len(_CTC_HEAD):]: v for k, v in sd.items()
+                 if k.startswith(_CTC_HEAD)}}
     mcfg = _extract_model_cfg(ckpt)
     embed_dim = int(sd["encoder.layers.0.self_attn.q_proj.weight"].shape[0])
     pos_out, pos_in_per_group, pos_k = sd["encoder.pos_conv.0.weight_v"].shape
@@ -104,7 +113,7 @@ def load_fairseq_teacher(path: str) -> Tuple[TeacherGeometry, StateDict]:
     while f"encoder.layers.{n_layers}.self_attn.q_proj.weight" in sd:
         n_layers += 1
     geom = TeacherGeometry(
-        model_type="hubert" if "label_embs_concat" in sd else "wav2vec2",
+        model_type=model_type,
         extractor_mode=mcfg.get("extractor_mode") or (
             "layer_norm" if "feature_extractor.conv_layers.1.2.1.weight" in sd else "default"),
         conv_feature_layers=_conv_spec(mcfg, sd),
@@ -118,6 +127,7 @@ def load_fairseq_teacher(path: str) -> Tuple[TeacherGeometry, StateDict]:
         conv_bias="feature_extractor.conv_layers.0.0.bias" in sd,
         conv_pos=int(pos_k),
         conv_pos_groups=int(pos_out // pos_in_per_group),
+        vocab_size=int(sd["ctc_proj.weight"].shape[0]) if "ctc_proj.weight" in sd else 0,
     )
     keep = _TEACHER_PREFIXES
     if geom.conv_feature_layers[-1][0] == embed_dim:  # fairseq builds no projection then

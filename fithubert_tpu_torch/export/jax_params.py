@@ -9,7 +9,7 @@ The tree is a nested dict of arrays (numpy, or anything ``np.asarray``
 takes); nothing of JAX is imported. Conv kernels are (K, C_in, C_out) in JAX
 and (C_out, C_in, K) in torch; ConvTranspose kernels are (K, C_out, C_in) in
 JAX and (C_in, C_out, K) in torch; Dense kernels are the transposes of
-Linear weights.
+Linear weights; SplitLinear's (N, D_in, D_out) weight keeps its layout.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ def _norm(sd, name, p) -> None:
 def jax_student_params_to_state_dict(params: Mapping[str, Any],
                                      cfg: StudentConfig) -> Dict[str, torch.Tensor]:
     """JAX StudentModel params -> the port's StudentModel state dict (the
-    heads present in ``params`` only)."""
+    heads present in ``params`` only): the TR module of any type, the
+    layer-wise heads, or the upsampler and the SplitLinear head."""
     sd: Dict[str, torch.Tensor] = {}
     fe = params["feature_extractor"]
     for i in range(len(cfg.conv_feature_layers)):
@@ -64,9 +65,15 @@ def jax_student_params_to_state_dict(params: Mapping[str, Any],
     for slot in range(cfg.encoder_layers + (1 if cfg.enable_tr_layer else 0)):
         prefix = f"encoder.layers.{slot}"
         if slot == tr_slot:
-            conv = enc["tr_layer"]["conv"]
-            sd[f"{prefix}.weight"] = _t(conv["kernel"], (2, 1, 0))
-            sd[f"{prefix}.bias"] = _t(conv["bias"])
+            tr = enc["tr_layer"]
+            if "conv" in tr:
+                sd[f"{prefix}.weight"] = _t(tr["conv"]["kernel"], (2, 1, 0))
+                sd[f"{prefix}.bias"] = _t(tr["conv"]["bias"])
+            elif "fc" in tr:
+                _dense(sd, prefix, tr["fc"])
+            else:
+                _dense(sd, f"{prefix}.0", tr["fc_a"])
+                _dense(sd, f"{prefix}.2", tr["fc_b"])
             continue
         p = enc[f"layers_{layer}"]
         for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
@@ -77,8 +84,19 @@ def jax_student_params_to_state_dict(params: Mapping[str, Any],
         _norm(sd, f"{prefix}.final_layer_norm", p["final_layer_norm"])
         layer += 1
 
+    if "upsampler" in params:
+        sd["upsampler.weight"] = _t(params["upsampler"]["kernel"], (2, 1, 0))
+        sd["upsampler.bias"] = _t(params["upsampler"]["bias"])
+    if "proj_head_in" in params:
+        _dense(sd, "proj_head.0", params["proj_head_in"])
+        split = params["proj_head_split"]
+        if "layer" in split:
+            _dense(sd, "proj_head.2.layer", split["layer"])
+        else:
+            sd["proj_head.2.weight"] = _t(split["weight"])
+            sd["proj_head.2.bias"] = _t(split["bias"])
     for key, head in params.items():
-        if not key.startswith("proj_head_"):
+        if not key.startswith("proj_head_") or key in ("proj_head_in", "proj_head_split"):
             continue
         prefix = f"proj_head.{key[len('proj_head_'):]}"
         if "upsampler" in head:
@@ -93,5 +111,8 @@ def jax_teacher_params_to_state_dict(params: Mapping[str, Any],
                                      geometry: TeacherGeometry) -> Dict[str, torch.Tensor]:
     """JAX TeacherModel params -> the port's TeacherModel state dict, under
     fairseq's key names. The teacher's tree is the student's without a TR
-    layer or heads."""
-    return jax_student_params_to_state_dict(params, geometry.to_student_config())
+    layer or heads, plus a wav2vec_ctc teacher's ``ctc_proj``."""
+    sd = jax_student_params_to_state_dict(params, geometry.to_student_config())
+    if "ctc_proj" in params:
+        _dense(sd, "ctc_proj", params["ctc_proj"])
+    return sd

@@ -1,7 +1,10 @@
 """The thin-and-deep student (``fithubert_tpu/models/student.py:52``):
 waveform -> conv features -> fp32 LayerNorm -> padding-mask recompute ->
-post-extract projection -> input dropout -> encoder (TR conv + transformer
-layers) -> layer-wise projection heads.
+post-extract projection -> input dropout -> encoder (TR module + transformer
+layers) -> heads: layer-wise projection heads (``layerwise_proj``), or
+(``:229-262``) an upsampler that undoes the time reduction, then
+``proj_head_in`` -> GELU -> ``SplitLinear`` predicting the teacher layers
+of ``pred_layer_id`` (the DistilHuBERT-style head of ``configs/ex.yaml``).
 
 Parameters are fp32 and named by the reference's state-dict keys; the
 forward computes in ``cfg.compute_dtype``. ``forward`` is the serving
@@ -29,7 +32,7 @@ from fithubert_tpu_torch.ops.conv import (
     grad_multiply,
 )
 from fithubert_tpu_torch.ops.dropout import DropoutRNG, dropout
-from fithubert_tpu_torch.ops.heads import LayerWiseProjHead
+from fithubert_tpu_torch.ops.heads import LayerWiseProjHead, SplitLinear
 from fithubert_tpu_torch.ops.norms import FP32GroupNorm, FP32LayerNorm
 from fithubert_tpu_torch.ops.padding import (
     feat_extract_output_lengths,
@@ -42,12 +45,14 @@ from fithubert_tpu_torch.ops.transformer import TransformerEncoder
 class StudentOutput(NamedTuple):
     """The reference's 6-key forward dict."""
 
-    x: torch.Tensor  # final output (projected if layerwise heads ran)
+    x: torch.Tensor  # final output (projected if layerwise heads ran, else upsampled)
     padding_mask: Optional[torch.Tensor]  # frame-rate, time-reduced
     features: torch.Tensor  # features to distill (B, T', C): post-extract proj (+ cnn head)
     layer_results: List  # [(hidden, taps or None, ffn_result)] per layer
     tr_layer_results: List  # outputs of the TR layer
-    projections: Optional[Union[torch.Tensor, List[torch.Tensor]]]  # (B, L, T, D)
+    # (B, L, T, D) layer-wise (a list when a mid-encoder TR leaves them
+    # ragged), or (B, N, T, D) from the SplitLinear head
+    projections: Optional[Union[torch.Tensor, List[torch.Tensor]]]
 
 
 @torch.no_grad()
@@ -63,7 +68,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
 
     for name, mod in model.named_modules():
-        if isinstance(mod, (FP32LayerNorm, FP32GroupNorm)):
+        if isinstance(mod, SplitLinear) and mod.in_split > 1:  # heads.py:45-56
+            uniform(mod.weight, mod.in_dim ** -0.5)
+            uniform(mod.bias, mod.in_dim ** -0.5)
+        elif isinstance(mod, (FP32LayerNorm, FP32GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif isinstance(mod, _WeightNormConv):
@@ -87,17 +95,17 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 
 class StudentModel(nn.Module):
-    """``disable_projections=True`` is the export model: only the last
-    layer-wise head is built, and it maps the final hidden to ``x``.
-    Otherwise all ``encoder_layers`` heads are built."""
+    """``disable_projections=True`` is the export model: with layer-wise
+    heads only the last is built, and it maps the final hidden to ``x``;
+    with the SplitLinear head none is (``x`` is the upsampled final
+    hidden). Otherwise all ``encoder_layers`` layer-wise heads, or the
+    upsampler and ``proj_head`` (``proj_head.0`` the Linear, ``proj_head.2``
+    the SplitLinear, the reference's keys), are built."""
 
     def __init__(self, cfg: StudentConfig, disable_projections: bool = False,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
         cfg.check_supported()
-        if not cfg.layerwise_proj:
-            raise NotImplementedError(
-                "layerwise_proj=False: the PyTorch port supports only layer-wise heads")
         dev = resolve_device(device)
         self.cfg = cfg
         self.disable_projections = disable_projections
@@ -111,13 +119,24 @@ class StudentModel(nn.Module):
                               if cfg.pred_head_final_dim != e and cfg.cnn_weight > 0
                               and not disable_projections else None)
         self.encoder = TransformerEncoder(cfg, device=dev)
-        heads = ([cfg.encoder_layers - 1] if disable_projections
-                 else range(cfg.encoder_layers))
-        self.proj_head = nn.ModuleDict({
-            str(i): LayerWiseProjHead(e, cfg.pred_head_final_dim, cfg.enable_tr_layer,
-                                      cfg.tr_reduce_factor, device=dev)
-            for i in heads
-        })
+        self.upsampler = None
+        if cfg.layerwise_proj:
+            heads = ([cfg.encoder_layers - 1] if disable_projections
+                     else range(cfg.encoder_layers))
+            self.proj_head = nn.ModuleDict({
+                str(i): LayerWiseProjHead(e, cfg.pred_head_final_dim, cfg.enable_tr_layer,
+                                          cfg.tr_reduce_factor, device=dev)
+                for i in heads
+            })
+        else:
+            if cfg.enable_tr_layer:
+                self.upsampler = ConvTranspose1D(e, e, cfg.tr_reduce_factor, device=dev)
+            self.proj_head = nn.ModuleDict()
+            if cfg.n_tasks > 0 and not disable_projections:
+                inter = cfg.pred_head_inter_dim if cfg.pred_head_inter_dim > 0 else e
+                self.proj_head["0"] = nn.Linear(e, inter * cfg.n_tasks, device=dev)
+                self.proj_head["2"] = SplitLinear(inter, cfg.n_tasks, cfg.pred_head_final_dim,
+                                                  device=dev)
 
     def init_weights(self, generator: torch.Generator) -> "StudentModel":
         init_parameters(self, generator)
@@ -173,7 +192,15 @@ class StudentModel(nn.Module):
         x = enc.x
         n_slots = len(self.encoder.layers)
         projections = None
-        if layer is None or layer + 1 >= n_slots:
+        if (layer is None or layer + 1 >= n_slots) and not cfg.layerwise_proj:
+            if self.upsampler is not None:
+                x = self.upsampler(x)
+            if len(self.proj_head):
+                b, t, _ = x.shape
+                h = gelu_exact(linear(x, self.proj_head["0"]))
+                projections = self.proj_head["2"](h).reshape(
+                    b, t, cfg.n_tasks, cfg.pred_head_final_dim).transpose(1, 2)  # (B, N, T, D)
+        elif layer is None or layer + 1 >= n_slots:
             if self.disable_projections:
                 x = self.proj_head[str(cfg.encoder_layers - 1)](x)
             else:

@@ -1,6 +1,8 @@
 """The frozen teacher (``fithubert_tpu/models/teacher.py:37-207``): a
 fairseq HuBERT / wav2vec2 encoder built from the student's blocks with no TR
-layer and no heads.
+layer and no heads; a ``wav2vec_ctc`` teacher (a fine-tuned wav2vec2) adds
+``ctc_proj`` on the encoder's output, whose logits
+(``TeacherOutput.ctc_logits``, (B, T', vocab_size)) seed CTC pseudo-labels.
 
     waveform -> conv features (K1, C0 = 512) -> fp32 LayerNorm -> padding
     mask -> post_extract_proj -> encoder (pos conv, 12 layers, K2 at D = 64)
@@ -11,7 +13,8 @@ keys, so ``export/jax_params.py`` and a fairseq ``.pt``
 (``export/fairseq_import.py``) fill them.
 The teacher runs under ``torch.no_grad()``; ``freeze()`` casts its matmul
 weights to the compute dtype once, as ``Distiller.prepare_teacher_params``
-does (``fithubert_tpu/train/step.py:128-153``).
+does (``fithubert_tpu/train/step.py:128-153``); ``ctc_proj`` is stored
+fp32 and computes in the compute dtype, as the JAX cast leaves it.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from fithubert_tpu_torch.ops.transformer import TransformerEncoder
 class TeacherGeometry:
     """Geometry of a fairseq wav2vec2 / HuBERT teacher (Base defaults)."""
 
-    model_type: str = "hubert"  # 'hubert' | 'wav2vec2'
+    model_type: str = "hubert"  # 'hubert' | 'wav2vec2' | 'wav2vec_ctc'
     extractor_mode: str = "default"
     conv_feature_layers: Tuple[Tuple[int, int, int], ...] = (
         (512, 10, 5),
@@ -60,6 +63,7 @@ class TeacherGeometry:
     conv_bias: bool = False
     conv_pos: int = 128
     conv_pos_groups: int = 16
+    vocab_size: int = 0  # > 0 for wav2vec_ctc: ctc_proj's width
     compute_dtype: str = "float32"
 
     @classmethod
@@ -67,7 +71,8 @@ class TeacherGeometry:
         return cls(model_type=tc.model_type, encoder_layers=tc.encoder_layers,
                    encoder_embed_dim=tc.encoder_embed_dim,
                    encoder_ffn_embed_dim=tc.encoder_ffn_embed_dim,
-                   encoder_attention_heads=tc.encoder_attention_heads)
+                   encoder_attention_heads=tc.encoder_attention_heads,
+                   vocab_size=tc.vocab_size if tc.model_type == "wav2vec_ctc" else 0)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TeacherGeometry":
@@ -112,16 +117,16 @@ class TeacherOutput(NamedTuple):
     layer_results: List  # [(hidden, taps or None, ffn_result)] per layer
     features: torch.Tensor  # post_extract_proj output (B, T', D)
     padding_mask: Optional[torch.Tensor]  # frame-rate (B, T')
+    ctc_logits: Optional[torch.Tensor] = None  # wav2vec_ctc: (B, T', vocab_size)
 
 
 class TeacherModel(nn.Module):
     def __init__(self, geometry: TeacherGeometry,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        if geometry.model_type not in ("hubert", "wav2vec2"):
-            raise NotImplementedError(
-                f"teacher model_type={geometry.model_type!r}: the PyTorch port supports "
-                "'hubert' and 'wav2vec2' (CTC is ROADMAP Queue 1 item 6)")
+        if geometry.model_type not in ("hubert", "wav2vec2", "wav2vec_ctc"):
+            raise ValueError(f"teacher model_type={geometry.model_type!r}: one of "
+                             "'hubert', 'wav2vec2', 'wav2vec_ctc'")
         cfg = geometry.to_student_config()
         cfg.check_supported()
         dev = resolve_device(device)
@@ -132,6 +137,9 @@ class TeacherModel(nn.Module):
         self.layer_norm = FP32LayerNorm(embed, device=dev)
         self.post_extract_proj = nn.Linear(embed, e, device=dev) if embed != e else None
         self.encoder = TransformerEncoder(cfg, device=dev)
+        self.ctc_proj = (nn.Linear(e, geometry.vocab_size, device=dev)
+                         if geometry.model_type == "wav2vec_ctc" and geometry.vocab_size > 0
+                         else None)
 
     def init_weights(self, generator: torch.Generator) -> "TeacherModel":
         init_parameters(self, generator)
@@ -141,11 +149,12 @@ class TeacherModel(nn.Module):
     def freeze(self) -> "TeacherModel":
         """Stop gradients, and store the matmul weights (the extractor convs,
         post_extract_proj, q/k/v/out, fc1, fc2) in the compute dtype once;
-        the norms and the weight-normed positional conv stay fp32."""
+        the norms, the weight-normed positional conv and ``ctc_proj`` stay
+        fp32."""
         self.requires_grad_(False)
         self.eval()
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+            if isinstance(mod, (nn.Linear, nn.Conv1d)) and mod is not self.ctc_proj:
                 for p in mod.parameters(recurse=False):
                     p.data = p.data.to(self.compute_dtype)
         return self
@@ -176,5 +185,8 @@ class TeacherModel(nn.Module):
             features = linear(features, self.post_extract_proj)
         enc = self.encoder(features, padding_mask, need_taps=need_taps)
         x = enc.layer_results[-1][0] if enc.layer_results else enc.x
+        # fairseq's Wav2VecCtc projects the encoder's own output (after a
+        # pre-LN stack's final norm), not the last layer's hidden
+        ctc_logits = linear(enc.x, self.ctc_proj) if self.ctc_proj is not None else None
         return TeacherOutput(x=x, layer_results=enc.layer_results, features=features,
-                             padding_mask=enc.padding_mask)
+                             padding_mask=enc.padding_mask, ctc_logits=ctc_logits)

@@ -103,6 +103,44 @@ class _WeightNormConv(nn.Module):
         nn.init.normal_(self.weight_v)
 
 
+class _GroupedConv1d(torch.autograd.Function):
+    """``F.conv1d`` (stride 1) with a deterministic backward. cuDNN's
+    heuristics pick an input-gradient algorithm for the 768-wide positional
+    conv (groups 16, k 128) that sums in another order from run to run on an
+    H100, so two identical train steps gave different gradients below it;
+    its deterministic input-gradient kernel took 22 ms a step there. So the
+    input gradient is computed as the forward convolution it equals: each
+    group's kernel transposed and flipped in time, padded by k - 1 - p. The
+    weight gradient keeps cuDNN's with the deterministic flag, which is
+    read when the backward runs and so is set here."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, padding: int, groups: int):
+        ctx.save_for_backward(x, w)
+        ctx.padding, ctx.groups = padding, groups
+        return F.conv1d(x, w, b, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g, k = ctx.groups, w.shape[-1]
+        gx = None
+        if ctx.needs_input_grad[0]:
+            c_out, c_in_g = w.shape[0], w.shape[1]
+            wt = w.reshape(g, c_out // g, c_in_g, k).transpose(1, 2).flip(-1)
+            gx = F.conv1d(grad, wt.reshape(g * c_in_g, c_out // g, k),
+                          padding=k - 1 - ctx.padding, groups=g)
+        gw = gb = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                            benchmark=False, deterministic=True,
+                                            allow_tf32=torch.backends.cudnn.allow_tf32):
+                _, gw, gb = torch.ops.aten.convolution_backward(
+                    grad, x, w, [w.shape[0]], [1], [ctx.padding], [1], False, [0], g,
+                    [False, ctx.needs_input_grad[1], ctx.needs_input_grad[2]])
+        return gx, gw, gb, None, None
+
+
 class PositionalConv(nn.Module):
     """Grouped weight-normed conv + SamePad + exact GELU over (B, T, C).
     w[:, :, k] = g[k] * v[:, :, k] / ||v[:, :, k]||. The single child is
@@ -125,8 +163,7 @@ class PositionalConv(nn.Module):
             # the CPU's bf16 grouped conv1d returns wrong values at some
             # shapes (C=48, groups=4, k=16); sum the bf16 operands in fp32
             xt, w, b = xt.float(), w.float(), b.float()
-        y = F.conv1d(xt, w, b, padding=self.kernel_size // 2,
-                     groups=self.groups).to(x.dtype)
+        y = _GroupedConv1d.apply(xt, w, b, self.kernel_size // 2, self.groups).to(x.dtype)
         if self.kernel_size % 2 == 0:  # SamePad: drop the trailing step
             y = y[:, :, :-1]
         return gelu_exact(y.transpose(1, 2))

@@ -1,8 +1,11 @@
 """Transformer encoder with the time-reduction layer in its layer list
 (``fithubert_tpu/ops/transformer.py``): ``TransformerEncoderLayer`` (:52),
-the conv1d ``TimeReduction`` (:135) and ``TransformerEncoder`` (:215), run as
-an unrolled loop. As in the reference, the TR conv sits in
-``encoder.layers`` at ``tr_layer_index``, so state-dict indices count it.
+the ``TimeReduction`` types (:135-194: conv1d, fc1, fc2) and
+``TransformerEncoder`` (:215), run as an unrolled loop. As in the
+reference, the TR module sits in ``encoder.layers`` at ``tr_layer_index``,
+so state-dict indices count it: ``encoder.layers.{slot}.weight`` for conv1d
+and fc1, ``.0`` / ``.2`` for fc2's two Linears (the keys the reference
+importer maps, ``fithubert_tpu/export/reference_import.py:91-103``).
 
 Given a ``DropoutRNG`` a forward trains: drop1/drop2/drop3 in both LN orders
 (``:99-130``), the dropout of the encoder input (``:283``), attention
@@ -86,6 +89,55 @@ class TransformerEncoderLayer(nn.Module):
         return self.final_layer_norm(x + dropout(y, self.dropout, rng)), taps, y
 
 
+def concat_frames(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(B, T, C) -> (B, ceil(T / f), f * C): T zero-padded to a multiple of
+    f, then each f consecutive frames concatenated channel-wise in frame
+    order (the reference's ``concat_channelwise``)."""
+    b, t, c = x.shape
+    x, _ = pad_to_multiple(x, factor, axis=-2)
+    return x.reshape(b, x.shape[1] // factor, factor * c)
+
+
+class TimeReductionFC1(nn.Linear):
+    """fc1: concatenated frames -> Linear(f * d -> d)."""
+
+    def __init__(self, embed_dim: int, factor: int, device=None):
+        super().__init__(embed_dim * factor, embed_dim, device=device)
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(concat_frames(x, self.factor), self)
+
+
+class TimeReductionFC2(nn.Module):
+    """fc2: concatenated frames -> Linear(f * d -> f * d) -> exact GELU ->
+    Linear(f * d -> d); the Linears are children ``0`` and ``2``, as in the
+    reference's Sequential."""
+
+    def __init__(self, embed_dim: int, factor: int, device=None):
+        super().__init__()
+        self.factor = factor
+        self.add_module("0", nn.Linear(embed_dim * factor, embed_dim * factor, device=device))
+        self.add_module("2", nn.Linear(embed_dim * factor, embed_dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = gelu_exact(linear(concat_frames(x, self.factor), self._modules["0"]))
+        return linear(h, self._modules["2"])
+
+
+def time_reduction(cfg: StudentConfig, device=None) -> nn.Module:
+    """The TR module of ``cfg.tr_layer_type``. conv1d's kernel is the
+    factor (the reference ignores ``tr_conv1d_kernel``)."""
+    e, f = cfg.encoder_embed_dim, cfg.tr_reduce_factor
+    if cfg.tr_layer_type == "conv1d":
+        return Conv1D(e, e, f, device=device)
+    if cfg.tr_layer_type == "fc1":
+        return TimeReductionFC1(e, f, device=device)
+    if cfg.tr_layer_type == "fc2":
+        return TimeReductionFC2(e, f, device=device)
+    raise NotImplementedError("tr_layer_type must be one of ['fc1', 'fc2', 'conv1d']")
+
+
 class TransformerEncoder(nn.Module):
     def __init__(self, cfg: StudentConfig, device=None):
         super().__init__()
@@ -96,7 +148,7 @@ class TransformerEncoder(nn.Module):
         self.tr_slot = cfg.tr_layer_index if cfg.enable_tr_layer else -1
         n_slots = cfg.encoder_layers + (1 if cfg.enable_tr_layer else 0)
         self.layers = nn.ModuleList([
-            Conv1D(e, e, cfg.tr_reduce_factor, device=device) if slot == self.tr_slot
+            time_reduction(cfg, device=device) if slot == self.tr_slot
             else TransformerEncoderLayer(e, cfg.encoder_ffn_embed_dim,
                                          cfg.encoder_attention_heads, cfg.layer_norm_first,
                                          cfg.dropout, cfg.attention_dropout,
@@ -134,7 +186,9 @@ class TransformerEncoder(nn.Module):
             if slot == self.tr_slot:
                 x = layer(x)
                 tr_layer_results.append(x)
-                padding_mask = reduce_padding_mask(padding_mask, cfg.tr_reduce_factor)
+                # the fc types pad x to ceil(T / f) frames; the mask follows
+                padding_mask = reduce_padding_mask(padding_mask, cfg.tr_reduce_factor,
+                                                   ceil=cfg.tr_layer_type in ("fc1", "fc2"))
             else:
                 y, taps, layer_result = layer(x, padding_mask, rng, slot == taps_slot)
                 if rng is None or cfg.encoder_layerdrop <= 0.0 \

@@ -1,7 +1,11 @@
 """The training loop (``fithubert_tpu/train/loop.py:112 run_training``):
-epochs, the random distill layers drawn per epoch, validation with v_loss,
-top-k and last checkpoints, early stopping, resume, a checkpoint on SIGTERM
-or SIGINT, and the final export.
+epochs, the random distill layers drawn per epoch, the teacher hint-init
+(``init_conv_layers`` / ``init_encoder_layers``, ``models/surgery.py``,
+from the teacher's full-precision weights; a resume restores over it),
+validation with v_loss (and WER / CER for a task-specific teacher:
+``Distiller.predict_step`` decoded by ``GreedyCTCDecoder`` against the
+batch's transcripts), top-k and last checkpoints, early stopping, resume,
+a checkpoint on SIGTERM or SIGINT, and the final export.
 
     run_training(cfg, resume=True, test_only=False, device="cuda")
         -> {"best_v_loss", "steps", "preempted"}  ({"test_loss"} in test mode)
@@ -43,12 +47,14 @@ from fithubert_tpu_torch.data.librispeech import make_dataset
 from fithubert_tpu_torch.device import resolve_device
 from fithubert_tpu_torch.export.fairseq_import import load_teacher_any
 from fithubert_tpu_torch.models.student import StudentModel
+from fithubert_tpu_torch.models.surgery import init_student_from_teacher
 from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
 from fithubert_tpu_torch.parallel.distributed import DataParallel, launch, maybe_initialize
 from fithubert_tpu_torch.train.checkpoint import CheckpointManager, export_student
 from fithubert_tpu_torch.train.step import Distiller
 from fithubert_tpu_torch.utils.logging import MetricsLogger
 from fithubert_tpu_torch.utils.profiling import StepTimer, trace
+from fithubert_tpu_torch.utils.text import GreedyCTCDecoder, edit_stats
 
 SR = 16000
 
@@ -105,11 +111,14 @@ class PreemptionGuard:
 
 
 def _to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch on ``dev``: on the card, copied from pinned memory without
-    waiting. torch's pinned-memory allocator reuses a buffer only after the
-    copy that reads it has finished, so the buffer may be dropped here."""
+    """The batch's arrays on ``dev`` (a key starting with ``_`` stays on
+    the host): on the card, copied from pinned memory without waiting.
+    torch's pinned-memory allocator reuses a buffer only after the copy that
+    reads it has finished, so the buffer may be dropped here."""
     out = {}
     for k, v in batch.items():
+        if k.startswith("_"):
+            continue
         t = torch.from_numpy(np.ascontiguousarray(v))
         out[k] = t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
     return out
@@ -168,6 +177,11 @@ def _train(cfg: ExperimentConfig, dev: torch.device, out_dir: str, logger: Metri
     if teacher_state is None:
         geom = TeacherGeometry.from_teacher_config(cfg.teacher)
         teacher_state = TeacherModel(geom, device="cpu").init_weights(gen).state_dict()
+    if cfg.distiller.init_conv_layers or cfg.distiller.init_encoder_layers > 0:
+        # before the Distiller casts the teacher: the student's fp32
+        # masters take the teacher's full-precision weights
+        student_state, _, _ = init_student_from_teacher(student_state, teacher_state,
+                                                        cfg.distiller, verbose=rank == 0)
     distiller = Distiller(cfg, teacher_state, student_state, device=dev,
                           num_training_steps=max(1, cfg.train.num_epochs * len(train_data)),
                           teacher_geometry=tg, dp=dp)
@@ -186,18 +200,36 @@ def _train(cfg: ExperimentConfig, dev: torch.device, out_dir: str, logger: Metri
                   else np.zeros((0,), np.int64))
         return torch.from_numpy(layers).to(dev)
 
+    decoder = None if cfg.distiller.teacher_task_agnostic else GreedyCTCDecoder()
+
     def run_eval(data, epoch: int, name: str, rand: torch.Tensor) -> float:
         # the layers the epoch trained on (the reference resamples only at
         # training_epoch_end, train.py:172-174)
         totals: Dict[str, float] = {}
         n = 0
+        refs, hyps = [], []
         for batch in data.epoch(epoch):
-            logs = distiller.eval_step({k: v[0] for k, v in _to_device(batch, dev).items()},
-                                       rand)
+            b = {k: v[0] for k, v in _to_device(batch, dev).items()}
+            logs = distiller.eval_step(b, rand)
             for k, v in logs.items():
                 totals[k] = totals.get(k, 0.0) + v
             n += 1
+            if decoder is not None and batch.get("_transcripts"):
+                ids, _ = distiller.predict_step(b, len(decoder.dictionary))
+                for row_ids, ref in zip(ids.cpu().numpy(), batch["_transcripts"][0]):
+                    hyps.append(decoder.decode(row_ids))
+                    refs.append(ref)
         means = {k: v / max(n, 1) for k, v in totals.items()}
+        if decoder is not None:
+            # corpus-level rates over every rank's rows
+            stats = torch.tensor((*edit_stats(refs, hyps), len(refs)), dtype=torch.float64,
+                                 device=dev)
+            if dp is not None:
+                stats = dp.sum(stats)
+            w_err, w_tot, c_err, c_tot, n_refs = stats.tolist()
+            if n_refs > 0:
+                means["wer"] = w_err / max(w_tot, 1.0)
+                means["cer"] = c_err / max(c_tot, 1.0)
         logger.log(distiller.step, means, prefix=f"{name}/")
         return means.get("v_loss", float("inf"))
 

@@ -1,8 +1,11 @@
 """The KD loss (``fithubert_tpu/train/losses.py:115 compute_losses``): the
-rec MSE / L1 over random or fixed layers, the -logsigmoid cosine-similarity
-term, the cnn term, and the attention-transfer terms on the last layer's
-taps: the attention-logit loss (mse or kldiv) and the value-relation KL
-(``:307-361``). CTC is not ported.
+rec MSE / L1 over random or fixed layers (``pred_layer_id``, from the
+layer-wise heads or the SplitLinear head's (B, N, T, D) projections), the
+-logsigmoid cosine-similarity term, the cnn term, the attention-transfer
+terms on the last layer's taps: the attention-logit loss (mse or kldiv)
+and the value-relation KL (``:307-361``), and for a task-specific
+(wav2vec_ctc) teacher the CTC term (``:363-388``) against ground-truth or
+``collapse_pseudo_labels`` labels.
 
 Parity mode (``masked_reduction=False``) reduces over padded positions as
 the reference does, but weights out rows fabricated as all padding
@@ -20,7 +23,7 @@ process) every value is unchanged.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -137,12 +140,84 @@ def _layer_weights(n: int, random_layer_weight: float, device) -> torch.Tensor:
     return w
 
 
+def collapse_pseudo_labels(ids: torch.Tensor, blank: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CTC collapse of argmax ids (B, T) at a fixed width
+    (``fithubert_tpu/train/losses.py:90``): repeats merged and blanks
+    dropped, the kept ids packed to the front. Returns (labels (B, T)
+    int64, label_paddings (B, T) float32, 1.0 at padding)."""
+    b, t = ids.shape
+    prev = F.pad(ids[:, :-1], (1, 0), value=-1)
+    keep = (ids != prev) & (ids != blank)
+    dest = torch.where(keep, keep.long().cumsum(1) - 1, torch.full_like(ids, t, dtype=torch.long))
+    labels = torch.zeros((b, t + 1), dtype=torch.long, device=ids.device)
+    labels.scatter_(1, dest, torch.where(keep, ids.long(), 0))  # dropped ids go to column t
+    counts = keep.sum(1)
+    label_paddings = (torch.arange(t, device=ids.device)[None, :] >= counts[:, None]).float()
+    return labels[:, :t], label_paddings
+
+
+LOG_EPSILON = -1e5  # optax.ctc_loss's stand-in for log(0)
+
+
+def ctc_per_sequence(logits: torch.Tensor, labels: torch.Tensor,
+                     label_paddings: torch.Tensor,
+                     logit_paddings: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The negative log-likelihood of each row's labels under CTC, as
+    ``optax.ctc_loss`` computes it: blank 0, a log-softmax over the fp32
+    logits (B, T, V), frames where ``logit_paddings`` (B, T) is 1.0 and
+    labels (B, U) where ``label_paddings`` is 1.0 left out; (B,) fp32.
+
+    optax's forward recursion over T, with ``LOG_EPSILON`` standing for
+    log(0): where the labels cannot be aligned in the row's frames (more
+    labels, with the blanks their repeats need, than frames, as
+    pseudo-labels from a teacher at a finer frame rate can be) the loss is
+    a large finite penalty with a gradient, where ``F.ctc_loss`` returns
+    inf; elsewhere the two agree."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    b, t, _ = logp.shape
+    n = labels.shape[1]
+    labels = labels.long()
+    label_lens = n - label_paddings.float().sum(1).round().long()
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))  # label n == n + 1
+    no_repeat = LOG_EPSILON * (1.0 - repeat)
+    repeat = LOG_EPSILON * repeat
+    lp_blank = logp[:, :, :1]  # (B, T, 1)
+    lp_emit = logp.gather(2, labels[:, None, :].expand(b, t, n))  # (B, T, U)
+    phi = torch.full((b, n + 1), LOG_EPSILON, device=logp.device)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), LOG_EPSILON, device=logp.device)
+
+    def add_to_tail(p, score):  # p[:, 1:] += score in log space
+        return torch.cat([p[:, :1], torch.logaddexp(p[:, 1:], score)], dim=-1)
+
+    for i in range(t):
+        prev_phi = phi
+        phi = add_to_tail(phi, emit + repeat)  # emit -> blank, unless the next repeats
+        next_emit = torch.logaddexp(phi[:, :-1] + lp_emit[:, i], emit + lp_emit[:, i])
+        next_phi = add_to_tail(phi + lp_blank[:, i], emit + lp_blank[:, i] + no_repeat)
+        if logit_paddings is None:
+            emit, phi = next_emit, next_phi
+        else:  # a padded frame keeps the state
+            pad = logit_paddings[:, i:i + 1].float()
+            emit = pad * emit + (1.0 - pad) * next_emit
+            phi = pad * prev_phi + (1.0 - pad) * next_phi
+    phi = add_to_tail(phi, emit)
+    return -phi.gather(1, label_lens[:, None])[:, 0]
+
+
 def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
                    student: StudentOutput, teacher: TeacherOutput,
                    rand_layers: Optional[torch.Tensor] = None,
-                   global_sum: Optional[Sum] = None) -> LossOutput:
+                   global_sum: Optional[Sum] = None,
+                   ctc_logits: Optional[torch.Tensor] = None,
+                   labels: Optional[torch.Tensor] = None,
+                   label_paddings: Optional[torch.Tensor] = None,
+                   logit_paddings: Optional[torch.Tensor] = None) -> LossOutput:
     """The KD loss of one (micro)batch; ``global_sum`` sums a denominator
-    over the data-parallel ranks (None: this batch is the whole batch)."""
+    over the data-parallel ranks (None: this batch is the whole batch).
+    With ``ctc_logits`` (B, T, V) and ``labels`` (B, U), 0 = blank or pad,
+    the CTC term is added, weighted by ``ctc_loss_weight``."""
     cfg = loss_cfg
     gsum = global_sum or _local
     logs: Dict[str, torch.Tensor] = {}
@@ -175,6 +250,9 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
     slots_perm = None  # set when the random gather is skipped as a permutation
 
     if cfg.rec_loss_weight > 0 or cfg.sim_loss_weight > 0:
+        if student.projections is None:
+            raise ValueError("the rec and sim losses need the student's projections; "
+                             "train.delete_projections builds none")
         proj_stack = _as_stack(student.projections)
         if random_mode:
             if rand_layers is None:
@@ -192,7 +270,10 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
                 pred = torch.cat([proj_stack[:, ids], proj_stack[:, -1:]], dim=1)
         else:
             ids = torch.as_tensor(student_cfg.pred_layer_id, dtype=torch.long, device=dev)
-            target, pred = teacher_stack[:, ids], proj_stack[:, ids]
+            target = teacher_stack[:, ids]
+            # layer-wise heads are gathered; the SplitLinear head predicts
+            # exactly the pred_layer_id layers, in that order
+            pred = proj_stack[:, ids] if student_cfg.layerwise_proj else proj_stack
         # the TR floor can leave either side a frame longer: crop both
         t_s = min(pred.shape[2], target.shape[2])
         pred, target = pred[:, :, :t_s].float(), target[:, :, :t_s].float()
@@ -273,6 +354,14 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
     total = (cfg.rec_loss_weight * rec_loss + cfg.sim_loss_weight * sim_loss
              + cfg.attn_loss_weight * attn_loss + cfg.v_rel_loss_weight * v_rel_loss
              + cfg.cnn_loss_weight * cnn_loss)
+    if ctc_logits is not None and labels is not None:
+        if label_paddings is None:
+            label_paddings = (labels == 0).float()
+        per_seq = ctc_per_sequence(ctc_logits, labels, label_paddings, logit_paddings)
+        rv = row_valid if row_valid is not None else torch.ones_like(per_seq)
+        ctc = (per_seq * rv).sum() / gsum(rv.sum()).clamp_min(1.0)
+        logs["ctc_loss"] = ctc
+        total = total + cfg.ctc_loss_weight * ctc
     logs["total"] = total
     if last_layer_loss is None:
         last_layer_loss = zero if random_mode else total

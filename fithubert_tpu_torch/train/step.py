@@ -6,6 +6,7 @@ loss, and AdamW under the warmup/decay schedule.
     logs = d.train_step({"x": (A, B, T_wav), "padding_mask": (A, B, T_wav)},
                         rand_layers)
     logs = d.eval_step({"x": (B, T_wav), "padding_mask": (B, T_wav)}, rand_layers)
+    ids, mask = d.predict_step({"x": (B, T_wav), "padding_mask": (B, T_wav)}, vocab)
     d.load_state_dict(d.state_dict())  # what a checkpoint holds
 
 The A accumulation microbatches fold into one batch of A * B rows when the
@@ -16,8 +17,12 @@ seeded by (train.seed, step, microbatch), so the same seed replays the same
 step. With an attention or value-relation loss weight the last layer of
 both models returns its attention taps (``need_taps``, ``:86-88``); an
 attention-logit loss also keeps the microbatches apart, since its scrub
-divides by a count that depends on the data. CTC, SpecAug and the conformer
-are not ported.
+divides by a count that depends on the data. For a task-specific
+(wav2vec_ctc) teacher the student's output is also read as CTC logits
+(``:188-215``): against the batch's ``labels`` / ``label_paddings`` ((A,
+B, U), folded with the rest), or, without them or with ``use_gt_for_ctc:
+false``, against the teacher's greedy predictions collapsed by
+``collapse_pseudo_labels``. SpecAug and the conformer are not ported.
 
 With ``dp`` (``parallel/distributed.py DataParallel``) the batch is this
 rank's stripe of the global batch: every rank starts from rank 0's student,
@@ -41,7 +46,7 @@ from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
 from fithubert_tpu_torch.ops.dropout import DropoutRNG
 from fithubert_tpu_torch.parallel.distributed import DataParallel
-from fithubert_tpu_torch.train.losses import LossOutput, compute_losses
+from fithubert_tpu_torch.train.losses import LossOutput, collapse_pseudo_labels, compute_losses
 from fithubert_tpu_torch.train.optim import build_optimizer, optimizer_step
 
 Batch = Mapping[str, torch.Tensor]
@@ -95,18 +100,40 @@ class Distiller:
             seed += self.dp.rank * 0x9E3779B97F4A7C15
         return seed % (1 << 63)
 
-    def _forward_loss(self, wav, mask, rand_layers, rng: Optional[DropoutRNG]) -> LossOutput:
+    def _forward_loss(self, wav, mask, rand_layers, rng: Optional[DropoutRNG],
+                      labels=None, label_paddings=None) -> LossOutput:
+        cfg = self.cfg
         t_out = self.teacher(wav, mask, need_taps=self.need_taps)
         s_out = self.student.forward_train(wav, mask, rng, need_taps=self.need_taps)
-        return compute_losses(self.cfg.loss, self.cfg.distiller, s_out, t_out, rand_layers,
-                              None if self.dp is None else self.dp.sum)
+        ctc_logits = None
+        if not cfg.distiller.teacher_task_agnostic and cfg.loss.ctc_loss_weight > 0:
+            ctc_logits = s_out.x  # the student's output is read as CTC logits
+            if not cfg.loss.use_gt_for_ctc:
+                labels = label_paddings = None  # the teacher's pseudo-labels
+            if labels is None and t_out.ctc_logits is not None:
+                pseudo = t_out.ctc_logits.argmax(-1)
+                if t_out.padding_mask is not None:
+                    pseudo = pseudo.masked_fill(t_out.padding_mask, 0)
+                labels, label_paddings = collapse_pseudo_labels(pseudo)
+            if labels is None:
+                ctc_logits = None  # nothing to supervise against
+        return compute_losses(cfg.loss, cfg.distiller, s_out, t_out, rand_layers,
+                              None if self.dp is None else self.dp.sum,
+                              ctc_logits=ctc_logits, labels=labels,
+                              label_paddings=label_paddings)
 
     def _inputs(self, batch: Batch, rand_layers):
+        """(x, mask, rand, labels, label_paddings) on the device; the last
+        two None where the batch has no labels."""
         x = torch.as_tensor(batch["x"]).to(self.device, torch.float32)
         mask = torch.as_tensor(batch["padding_mask"]).to(self.device, torch.bool)
         rand = None if rand_layers is None else torch.as_tensor(
             rand_layers, dtype=torch.long).to(self.device)
-        return x, mask, rand
+        labels = pads = None
+        if "labels" in batch:
+            labels = torch.as_tensor(batch["labels"]).to(self.device, torch.long)
+            pads = torch.as_tensor(batch["label_paddings"]).to(self.device, torch.float32)
+        return x, mask, rand, labels, pads
 
     def train_step(self, batch: Batch, rand_layers) -> Dict[str, float]:
         """One optimizer step over A microbatches. Returns the mean of the
@@ -118,19 +145,23 @@ class Distiller:
         """``train_step`` whose logs stay on the device until asked for, so
         a loop that reads them every few steps does not wait for each."""
         cfg = self.cfg
-        x, mask, rand = self._inputs(batch, rand_layers)
+        x, mask, rand, labels, pads = self._inputs(batch, rand_layers)
         if x.dim() != 3:
             raise ValueError("train_step takes x of shape (A, B, T_wav)")
         fuse_ok = (cfg.train.fuse_grad_accum and not cfg.loss.masked_reduction
                    and cfg.loss.attn_loss_weight == 0)
         if fuse_ok and x.shape[0] > 1:
             a, b = x.shape[:2]
-            x, mask = (t.transpose(0, 1).reshape(1, a * b, t.shape[2]) for t in (x, mask))
+            x, mask, labels, pads = (None if t is None else
+                                     t.transpose(0, 1).reshape(1, a * b, t.shape[2])
+                                     for t in (x, mask, labels, pads))
         n_micro = x.shape[0]
         self.optimizer.zero_grad(set_to_none=True)
         losses, logs = [], []
         for i in range(n_micro):
-            out = self._forward_loss(x[i], mask[i], rand, DropoutRNG(self._seed(i), self.device))
+            out = self._forward_loss(x[i], mask[i], rand, DropoutRNG(self._seed(i), self.device),
+                                     None if labels is None else labels[i],
+                                     None if pads is None else pads[i])
             out.total.backward()
             losses.append(out.total.detach())
             logs.append(out.logs)
@@ -169,8 +200,8 @@ class Distiller:
     def eval_step(self, batch: Batch, rand_layers) -> Dict[str, float]:
         """Deterministic loss logs of one (B, T_wav) batch, with ``v_loss``:
         the last layer's loss in random-layer mode, else the total."""
-        x, mask, rand = self._inputs(batch, rand_layers)
-        out = self._forward_loss(x, mask, rand, None)
+        x, mask, rand, labels, pads = self._inputs(batch, rand_layers)
+        out = self._forward_loss(x, mask, rand, None, labels, pads)
         logs = dict(out.logs)
         logs["v_loss"] = (out.last_layer_loss if self.cfg.loss.distil_random_layer > 0
                           else out.total)
@@ -179,3 +210,14 @@ class Distiller:
         if self.dp is not None:
             values = self.dp.sum(values)
         return dict(zip(names, values.tolist()))
+
+    @torch.no_grad()
+    def predict_step(self, batch: Batch, vocab_size: int = 32
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Greedy predictions of a (B, T_wav) batch for WER / CER
+        (``fithubert_tpu/train/step.py:372``): the argmax over the first
+        ``vocab_size`` channels of the student's deterministic output (the
+        dictionary's rows, so the ids decode), and its frame padding mask."""
+        x, mask, _, _, _ = self._inputs(batch, None)
+        out = self.student(x, mask)
+        return out.x[..., :vocab_size].argmax(-1), out.padding_mask

@@ -160,8 +160,9 @@ def test_decoder_build_failure_raises(monkeypatch, tmp_path):
 
 
 def test_missing_corpus_and_labels_raise(tmp_path):
-    cfg = DataConfig(bucketing_path=str(tmp_path / "csv"), libri_root=str(tmp_path))
-    with pytest.raises(FileNotFoundError, match="corpus not found"):
-        ls.BucketedLibriSpeech(cfg, ["dev-clean"], batch_size=2)
-    with pytest.raises(NotImplementedError, match="load_labels.*Queue 1 item 6"):
-        ls.make_dataset(DataConfig(synthetic=True, load_labels=True), ["x"], 2)
+    """A missing corpus raises, with labels asked for or not."""
+    for labels in (False, True):
+        cfg = DataConfig(bucketing_path=str(tmp_path / "csv"), libri_root=str(tmp_path),
+                         load_labels=labels)
+        with pytest.raises(FileNotFoundError, match="corpus not found"):
+            ls.BucketedLibriSpeech(cfg, ["dev-clean"], batch_size=2)

@@ -119,14 +119,19 @@ def test_converted_pair_round_trips_and_msgpack_is_refused(tmp_path):
 
 
 def test_ctc_and_layer_norm_teachers_are_refused(tmp_path):
+    """A wav2vec_ctc checkpoint is read now (tests/test_torch_ctc.py holds
+    its forward against the JAX teacher): its body and its CTC head. A
+    layer_norm extractor is still refused."""
     path = str(tmp_path / "ctc.pt")
     sd = {f"w2v_encoder.w2v_model.{k}": v for k, v in _tiny_sd().items()}
     sd["w2v_encoder.proj.weight"] = torch.zeros(VOCAB, D)
     sd["w2v_encoder.proj.bias"] = torch.zeros(VOCAB)
     torch.save({"model": sd, "cfg": {"model": {"w2v_args": {"model": dict(_INNER_MODEL)}}}},
                path)
-    with pytest.raises(NotImplementedError, match="wav2vec_ctc.*Queue 1 item 6"):
-        load_fairseq_teacher(path)
+    geom, state = load_fairseq_teacher(path)
+    assert geom.model_type == "wav2vec_ctc" and geom.vocab_size == VOCAB
+    assert tuple(state["ctc_proj.weight"].shape) == (VOCAB, D)
+    assert not any(k.startswith("w2v_encoder.") for k in state)
     path = str(tmp_path / "ln.pt")
     torch.save({"model": _tiny_sd(),
                 "cfg": {"model": dict(_INNER_MODEL, extractor_mode="layer_norm")}}, path)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from fithubert_tpu.config import StudentConfig as JStudentConfig
 from fithubert_tpu.config import conv_spec_tuple as j_conv_spec_tuple
 from fithubert_tpu.config import load_yaml_config as j_load_yaml
 from fithubert_tpu.config import parse_spec as j_parse_spec
@@ -97,8 +98,8 @@ def test_spec_parsing_rejects_like_jax(bad):
 
 
 def test_unsupported_options_raise():
-    for over in (dict(layer_type="conformer"), dict(tr_layer_type="fc1"),
-                 dict(extractor_mode="layer_norm"), dict(layerwise_proj=False)):
+    for over in (dict(layer_type="conformer"), dict(tr_layer_type="fc3"),
+                 dict(extractor_mode="layer_norm"), dict(pos_conv_depth=2)):
         cfg = dataclasses.replace(tconfig.fithubert_960h(), **over)
         with pytest.raises(NotImplementedError):
             StudentModel(cfg, device="cpu")
@@ -197,9 +198,7 @@ def test_expert_refuses_what_the_port_cannot_serve(case, match, tmp_path):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("n_mels", 80), ("enable_log_mel", True), ("init_conv_layers", True),
-    ("init_encoder_layers", 2), ("quantize_matmuls", True), ("teacher_task_agnostic", False),
-    ("_teacher_task_agnostic", False),
+    ("n_mels", 80), ("enable_log_mel", True), ("quantize_matmuls", True),
 ])
 def test_from_dict_refuses_fields_the_port_lacks(field, value):
     """A field the port has no counterpart for, set away from its JAX
@@ -215,12 +214,32 @@ def test_from_dict_refuses_fields_the_port_lacks(field, value):
         tconfig.StudentConfig.from_dict({**section, field: value})
 
 
+@pytest.mark.parametrize("field, value", [
+    ("init_conv_layers", True), ("init_encoder_layers", 2), ("teacher_task_agnostic", False),
+    ("_teacher_task_agnostic", False), ("pred_head_inter_dim", 64),
+])
+def test_from_dict_reads_the_hint_init_and_task_fields(field, value):
+    """The teacher hint-init, a task-specific teacher and the SplitLinear
+    head's inner width are read as the JAX StudentConfig.from_dict reads
+    them (the reference's private name included)."""
+    import yaml
+
+    with open(YAML) as f:
+        section = yaml.safe_load(f)["distiller"]
+    port = tconfig.StudentConfig.from_dict({**section, field: value})
+    ref = JStudentConfig.from_dict({**section, field: value})
+    name = field.lstrip("_")
+    assert getattr(port, name) == getattr(ref, name) == value
+
+
 @pytest.mark.parametrize("path", sorted(glob.glob("configs/*.yaml")))
 def test_every_config_loads_to_the_jax_loaders_values(path):
     """Each file of configs/ loads for serving (ex.yaml's teacher-init flags
     are turned off, as the JAX expert does), and every field the port keeps
     equals the JAX loader's."""
     port = tconfig.load_yaml_config(path)
-    ref = j_load_yaml(path).distiller
+    # the JAX expert's replace (fithubert_tpu/export/expert.py:57-65)
+    ref = dataclasses.replace(j_load_yaml(path).distiller, init_conv_layers=False,
+                              init_encoder_layers=0)
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
