@@ -19,7 +19,10 @@ run with a non-zero exit and no final line:
      backward (K6, and its dW bit for bit across two calls), and K6's up
      pass against K1's output bit for bit; then at the ex student's shapes
      (configs/ex.yaml): K2 with dropout, K3 and K4 at (8, 600, 12, 64), and
-     K1, its prefix and K6 on its 512-wide stack at 8 x 12 s;
+     K1, its prefix and K6 on its 512-wide stack at 8 x 12 s; then K5 at
+     the rel_pos conformer's probabilities, (3, 12, 599, 599) and
+     (32, 12, 799, 799) fp32, bit for bit forward and backward, and K2 with
+     dropout, K3 and K4 at the abs conformer's (3, 299, 12, 40);
   4. serving end to end: UpstreamExpert at FitHuBERT-960h width (seeded
      weights) serves three ragged requests in bf16, through K1 and K2
      (launch counters are zeroed just before and read just after); then the
@@ -55,6 +58,19 @@ run with a non-zero exit and no final line:
      teacher read from a fairseq fine-tuned .pt: pseudo-label steps with
      the release launches and a falling loss, then run_training on labels
      from transcripts written beside the WAVs, with an eval's WER;
+  8c. conformer: ``conformer_experiment(p)`` (the release config with
+     conformer layers) for p = rel_pos, rope (the conformer encoder of its
+     own, K5 in every layer) and abs (conformer layers in the transformer
+     encoder, K2-K4): a ragged step with a fabricated row and steps on one
+     batch with exact launches (4 microbatches looped: the BatchNorm
+     statistics), the statistics moving, fp32 steps against the CPU,
+     run_training on rel_pos stopped at max_steps 3 and resumed to 6 bit
+     for bit against 6 straight steps (statistics included), the export
+     served in bf16 and fp32; mel: ``mel_experiment()`` (80 log-mels,
+     MelSpecHead, SpecAugment): steps with exact launches (no student K1,
+     prefix or K6) and a falling loss, SpecAugment's draws equal on the
+     card and the CPU and its bands within their ranges, an fp32 step
+     against the CPU with SpecAugment on, the export served without it;
   9. timing: serving at B = 32 x 16 s and the train step at 3 x 4 x 12 s,
      with a profile of each, the steps of paths 6 and 7, and every kernel
      against its bound, its plain version and the library call, one row per
@@ -65,6 +81,9 @@ run with a non-zero exit and no final line:
      conv_stack call with its prefix) and K6's in ms; the ex train step
      and the ex serving forward (B = 32 x 16 s) with their profiles, and
      the ex rows (path "ex") of K1, its prefix, K2 p = 0.1, K3, K4, K6;
+     the rel_pos, abs and mel train steps and the rel_pos serving forward
+     (B = 32 x 16 s) with their profiles, and the rows of K5 (path
+     "conformer") and K2 p = 0.1, K3, K4 (path "conformer-abs");
   10. data parallelism: NCCL as one rank on the card, two release steps
      through the data-parallel path bit for bit against the plain step;
      two gloo ranks sharing the card (spawned by ``launch``), fp32 against
@@ -1745,27 +1764,8 @@ def ex_phase(exp_ex, geom, t_state, gen, smi, tmp, pt, libri):
             fail(f"ex serving: last_hidden_state {tuple(last.shape)}, {len(hid)} hiddens")
         print(f"  request B={len(wav_list)}: last_hidden_state {tuple(last.shape)} (the final "
               f"hidden, no head) finite; launches {json.dumps(got)} ok", flush=True)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    wavs = requests[1][:3]
-    gpu32 = UpstreamExpert(pt_s, cfg32, device="cuda")(wavs)
-    cpu32 = UpstreamExpert(pt_s, cfg32, device="cpu")(wavs)
-    worst = 0.0
-    for name, g, c in zip(["last_hidden_state"] + [f"hidden_states[{i}]" for i in range(2)],
-                          (gpu32["last_hidden_state"], *gpu32["hidden_states"]),
-                          (cpu32["last_hidden_state"], *cpu32["hidden_states"])):
-        err = (g.cpu() - c).abs()
-        worst = max(worst, err.max().item())
-        if not bool((err <= E2E_ATOL + E2E_RTOL * c.abs()).all()):
-            fail(f"ex fp32 card vs CPU: {name} max_abs_err {err.max().item():.3e}")
-    bf16 = expert(wavs)
-    fro = max((torch.linalg.vector_norm(b_.float() - g) / torch.linalg.vector_norm(g)).item()
-              for b_, g in zip((bf16["last_hidden_state"], *bf16["hidden_states"]),
-                               (gpu32["last_hidden_state"], *gpu32["hidden_states"])))
-    if fro > BF16_VS_FP32_FRO:
-        fail(f"ex bf16 forward vs fp32 forward on the card: rel_fro {fro:.3e}")
-    print(f"  fp32 card vs CPU, B=3 ragged: max_abs_err={worst:.3e} tol=({E2E_ATOL}, "
-          f"{E2E_RTOL}) ok; bf16 vs fp32 on the card worst rel_fro={fro:.3e} "
-          f"tol={BF16_VS_FP32_FRO} ok; {smi}", flush=True)
+    served_card_vs_cpu(pt_s, cfg, requests[1][:3], "ex")
+    print(f"  {smi}", flush=True)
     return d, fixed, launches, expert, student_cpu
 
 
@@ -1896,8 +1896,406 @@ def ctc_phase(exp, geom, s_state, rand_layers, per_step, gen, smi, tmp, libri):
           f"{time.perf_counter() - t0:.1f} s; {smi}", flush=True)
 
 
+# ---- the conformer family ([conformer]) and the mel front-end ([mel])
+CONFORMER_STEPS = 5
+# The conformer's BatchNorm running statistics after fp32 steps, card vs CPU:
+# each is 0.9 old + 0.1 a mean (or biased variance) over the microbatch's
+# frames, summed in another order on the two devices.
+BN_STATS_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def conformer_per_step(exp_c, geom):
+    """The launches of one train step of a conformer ``exp_c`` (4
+    microbatches looped: its BatchNorm statistics never fold): per
+    microbatch, the prefix and K1 on both extractors, the teacher's K2 at
+    p = 0, K6 over the student's stack, and the student's attention: K5
+    forward and backward in every layer (rel_pos, rope: the probabilities
+    are materialised), or K2 with dropout, K3 and K4 (abs: fairseq's MHA)."""
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import dropout as kd
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg, a = exp_c.distiller, exp_c.train.accumulate_grad_batches
+    n_stack, l_s = len(cfg.conv_feature_layers) - 1, cfg.encoder_layers
+    per = {cf.KERNEL: a * (n_stack + len(geom.conv_feature_layers) - 1),
+           cf.KERNEL_PREFIX: 2 * a, fa.KERNEL: a * geom.encoder_layers,
+           cf.KERNEL_BWD: a * 4 * n_stack}
+    if cfg.dedicated_conformer:
+        per[kd.KERNEL] = 2 * a * l_s
+    else:
+        per.update({fa.KERNEL_DROPOUT: a * l_s, fa.KERNEL_DQ: a * l_s, fa.KERNEL_DKV: a * l_s})
+    return per
+
+
+def batch_norms(model):
+    from fithubert_tpu_torch.ops.conformer import RowMaskedBatchNorm
+
+    return [m for m in model.modules() if isinstance(m, RowMaskedBatchNorm)]
+
+
+def fp32_card_vs_cpu(exp, t_state, s_state, gen, what, steps=2, rand=None):
+    """fp32 steps without dropout on the card and on the CPU (plain
+    versions), 1 x 2 s: loss and grad_norm to TRAIN_RTOL, the parameters to
+    TRAIN_PARAM_ATOL and a conformer's running statistics to BN_STATS_TOL
+    after the steps."""
+    import torch
+
+    from fithubert_tpu_torch.train.step import Distiller
+
+    exp32 = dataclasses.replace(
+        exp, train=dataclasses.replace(exp.train, use_fp16=False),
+        distiller=dataclasses.replace(exp.distiller, compute_dtype="float32", dropout=0.0,
+                                      attention_dropout=0.0, activation_dropout=0.0,
+                                      dropout_input=0.0))
+    small = train_batch(gen, 1, 1, 2.0, ragged=False)
+    on_card = Distiller(exp32, t_state, s_state, device="cuda", num_training_steps=20)
+    on_cpu = Distiller(exp32, t_state, s_state, device="cpu", num_training_steps=20)
+    for i in range(steps):
+        lg, lc = on_card.train_step(small, rand), on_cpu.train_step(small, rand)
+        for key in ("loss", "grad_norm"):
+            rel = abs(lg[key] - lc[key]) / abs(lc[key])
+            if rel > TRAIN_RTOL:
+                fail(f"{what} fp32 step {i}: {key} card {lg[key]} vs CPU {lc[key]} "
+                     f"(rel {rel:.3e})")
+        print(f"  {what} fp32 step {i} (lr {lg['lr']:.3e}): loss {lg['loss']:.8f} vs "
+              f"{lc['loss']:.8f}, grad_norm {lg['grad_norm']:.8f} vs {lc['grad_norm']:.8f} tol "
+              f"rel {TRAIN_RTOL} ok", flush=True)
+    worst = max((pg.detach().cpu() - pc.detach()).abs().max().item()
+                for pg, pc in zip(on_card.params, on_cpu.params))
+    if worst > TRAIN_PARAM_ATOL:
+        fail(f"{what} fp32 steps: parameters differ by {worst:.3e} > {TRAIN_PARAM_ATOL}")
+    stats = ""
+    bns = list(zip(batch_norms(on_card.student), batch_norms(on_cpu.student)))
+    if bns:
+        worst_bn = 0.0
+        for bg, bc in bns:
+            for name in ("running_mean", "running_var"):
+                g, c = getattr(bg, name).cpu(), getattr(bc, name)
+                err = (g - c).abs()
+                worst_bn = max(worst_bn, err.max().item())
+                if not bool((err <= BN_STATS_TOL["atol"] + BN_STATS_TOL["rtol"] * c.abs()).all()):
+                    fail(f"{what} fp32 steps: BatchNorm {name} differs by {err.max().item():.3e}")
+        stats = (f"; {len(bns)} BatchNorms' running_mean / running_var max_abs_err="
+                 f"{worst_bn:.3e} tol=({BN_STATS_TOL['atol']}, {BN_STATS_TOL['rtol']})")
+    print(f"  {what} fp32: parameters after {steps} steps max_abs_err={worst:.3e} "
+          f"tol={TRAIN_PARAM_ATOL}{stats} ok", flush=True)
+
+
+def check_served(expert, cfg, requests, want_launches, what):
+    """Each request through ``expert`` with its launches ``want_launches``;
+    the output's shapes, frames and finiteness."""
+    import torch
+
+    from fithubert_tpu_torch.ops.kernels import _build
+
+    for wav_list in requests:
+        _build.reset_launches()
+        out = expert(wav_list)
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        if got != want_launches:
+            fail(f"{what} serving: launches {got}, want {want_launches}")
+        last, hid, pm = out["last_hidden_state"], out["hidden_states"], out["padding_mask"]
+        if len(hid) != cfg.encoder_layers or not torch.isfinite(last).all().item() or \
+                last.shape[0] != len(wav_list) or pm.shape[0] != len(wav_list):
+            fail(f"{what} serving: last_hidden_state {tuple(last.shape)}, {len(hid)} hiddens")
+        print(f"  {what} request B={len(wav_list)}: last_hidden_state {tuple(last.shape)}, "
+              f"{len(hid)} hiddens {tuple(hid[0].shape)}, frames "
+              f"{(~pm).sum(-1).tolist()} finite; launches {json.dumps(got)} ok", flush=True)
+
+
+def served_card_vs_cpu(pt_s, cfg, wavs, what):
+    """The export in fp32 on the card against the CPU (E2E tolerances), and
+    the bf16 forward within BF16_VS_FP32_FRO of the fp32 one."""
+    import torch
+
+    from fithubert_tpu_torch.export.expert import UpstreamExpert
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gpu32 = UpstreamExpert(pt_s, cfg32, device="cuda")(wavs)
+    cpu32 = UpstreamExpert(pt_s, cfg32, device="cpu")(wavs)
+    outs = [(gpu32["last_hidden_state"], cpu32["last_hidden_state"])] + list(
+        zip(gpu32["hidden_states"], cpu32["hidden_states"]))
+    worst = 0.0
+    for i, (g, c) in enumerate(outs):
+        err = (g.cpu() - c).abs()
+        worst = max(worst, err.max().item())
+        if not bool((err <= E2E_ATOL + E2E_RTOL * c.abs()).all()):
+            fail(f"{what} fp32 card vs CPU: output {i} max_abs_err {err.max().item():.3e}")
+    bf16 = UpstreamExpert(pt_s, cfg, device="cuda")(wavs)
+    fro = max((torch.linalg.vector_norm(b_.float() - g) / torch.linalg.vector_norm(g)).item()
+              for b_, g in zip((bf16["last_hidden_state"], *bf16["hidden_states"]),
+                               (gpu32["last_hidden_state"], *gpu32["hidden_states"])))
+    if fro > BF16_VS_FP32_FRO:
+        fail(f"{what} bf16 forward vs fp32 forward on the card: rel_fro {fro:.3e}")
+    print(f"  {what} fp32 card vs CPU, B={len(wavs)} ragged, {len(outs)} outputs: "
+          f"max_abs_err={worst:.3e} tol=({E2E_ATOL}, {E2E_RTOL}) ok; bf16 vs fp32 on the card "
+          f"worst rel_fro={fro:.3e} tol={BF16_VS_FP32_FRO} ok", flush=True)
+
+
+def check_k5_at(kd, shape, dev):
+    """K5 at a conformer's probabilities ``shape`` (fp32, p = ATTN_P), bit
+    for bit against seeded_dropout_plain, forward and backward; the inputs
+    are drawn on the card (one (32, 12, 799, 799) tensor is 981 MB)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(int(shape[-1]))
+    x = torch.rand(shape, device=dev, generator=g).requires_grad_()
+    cot = torch.randn(shape, device=dev, generator=g)
+    seed = (int(shape[0]) * 7919 + 1, int(shape[-1]) * 104729 + 3)
+    y = kd.seeded_dropout(x, seed, ATTN_P)
+    (dx,) = torch.autograd.grad(y, x, cot)
+    with torch.no_grad():
+        fwd_ok = torch.equal(y, kd.seeded_dropout_plain(x.detach(), seed, ATTN_P))
+        bwd_ok = torch.equal(dx, kd.seeded_dropout_plain(cot, seed, ATTN_P))
+        rate = (y != 0).float().mean().item()
+    torch.cuda.synchronize()
+    if not (fwd_ok and bwd_ok):
+        fail(f"K5 fp32 {shape}: forward {fwd_ok}, backward {bwd_ok} bit-identical to its plain "
+             f"version")
+    sigma = (ATTN_P * (1 - ATTN_P) / x.numel()) ** 0.5
+    if abs(rate - (1 - ATTN_P)) > KEEP_SIGMAS * sigma + 1e-6:  # x is 0 with probability ~0
+        fail(f"K5 keep-rate {rate:.6f} at {shape}")
+    print(f"  K5 fp32 {shape} ({x.numel()} elements, {4 * x.numel() / 1e6:.1f} MB): forward "
+          f"and backward bit-identical to seeded_dropout_plain, keep-rate {rate:.6f} ok",
+          flush=True)
+    del x, cot, y, dx
+    torch.cuda.empty_cache()
+
+
+def conformer_phase(geom, t_state, gen, smi, tmp, pt):
+    """[conformer] conformer_experiment at full width on the card: rel_pos
+    (a ragged step with a fabricated row, CONFORMER_STEPS on one batch,
+    exact launches, a falling loss, the running statistics moving; fp32
+    steps against the CPU), rope and abs (steps with exact launches, fp32
+    against the CPU), run_training on rel_pos (the loop phase's teacher
+    ``pt``, a corpus of its own under ``tmp``) stopped at max_steps 3 and
+    resumed to 6 against 6 straight steps bit for bit, statistics included,
+    and the export served in bf16 and fp32. Returns {path: (Distiller, its
+    fixed batch, launches per step)} and the served rel_pos expert."""
+    import torch
+
+    from fithubert_tpu_torch.config import conformer_experiment
+    from fithubert_tpu_torch.export.expert import UpstreamExpert
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.train.loop import run_training
+    from fithubert_tpu_torch.train.step import Distiller
+
+    out = {}
+    for pos_enc in ("rel_pos", "rope", "abs"):
+        exp_c = conformer_experiment(pos_enc)
+        path = "conformer" if pos_enc == "rel_pos" else f"conformer-{pos_enc}"
+        a, b = exp_c.train.accumulate_grad_batches, exp_c.train.batch_size
+        per_step = conformer_per_step(exp_c, geom)
+        s_state = StudentModel(exp_c.distiller, device="cpu").init_weights(gen).state_dict()
+        d = Distiller(exp_c, t_state, s_state, device="cuda", num_training_steps=20)
+        rand = torch.randperm(exp_c.distiller.encoder_layers - 1, generator=gen)
+        bn0 = [bn.running_var.clone() for bn in batch_norms(d.student)]
+        logs, launches = launches_of_step(d, train_batch(gen, a, b, 12.0, ragged=True), rand,
+                                          per_step, f"{path} ragged step")
+        moved = sum(int(not torch.equal(v0, bn.running_var))
+                    for v0, bn in zip(bn0, batch_norms(d.student)))
+        if not all(torch.isfinite(p).all().item() for p in d.params) or moved != len(bn0):
+            fail(f"{path} ragged step: parameters not finite or {moved} of {len(bn0)} "
+                 f"BatchNorms' statistics moved")
+        print(f"  {path} step 0 (ragged {b} x {a}, one fabricated row): loss {logs['loss']:.6f} "
+              f"grad_norm {logs['grad_norm']:.6f}, all {len(bn0)} BatchNorms' running "
+              f"statistics moved; launches {json.dumps(launches)} ok", flush=True)
+        fixed = train_batch(gen, a, b, 12.0, ragged=False)
+        n_steps = CONFORMER_STEPS if pos_enc == "rel_pos" else 2
+        losses = [launches_of_step(d, fixed, rand, per_step, f"{path} step {i + 1}")[0]["loss"]
+                  for i in range(n_steps)]
+        if pos_enc == "rel_pos" and not losses[-1] < losses[0]:
+            fail(f"{path}: the loss did not fall over {n_steps} steps: {losses}")
+        print(f"  {path} steps 1-{n_steps} on one {b} x {a} x 12 s batch: loss "
+              f"{[round(x, 6) for x in losses]}"
+              f"{' fell' if pos_enc == 'rel_pos' else ''}; every step launched "
+              f"{json.dumps(per_step)} ok", flush=True)
+        fp32_card_vs_cpu(exp_c, t_state, s_state, gen, path, steps=2 if pos_enc == "rel_pos"
+                         else 1, rand=rand)
+        out[path] = (d, fixed, launches, rand)
+
+    exp_c = conformer_experiment("rel_pos")
+    per_step = conformer_per_step(exp_c, geom)
+    a, b = exp_c.train.accumulate_grad_batches, exp_c.train.batch_size
+    # a corpus of its own: 36 WAVs make 3 steps an epoch, so max_steps 3 ends
+    # an epoch (a resume restarts the epoch it stopped in)
+    tmp = os.path.join(tmp, "conformer")
+    libri = os.path.join(tmp, "LibriSpeech")
+    write_corpus(libri, gen, {"train-clean-100": 3 * a * b, "dev-clean": 6})
+    print(f"[conformer] run_training on rel_pos over {3 * a * b} + 6 WAVs it writes and the loop "
+          f"phase's teacher .pt (3 steps of {b} x {a} an epoch): stopped at max_steps 3 and "
+          f"resumed to 6, and 6 from scratch", flush=True)
+    runs = {}
+    for name, run_dir, max_steps, resume, want_steps in (
+            ("run 1", "conformer_resumed", 3, True, 3), ("run 2", "conformer_resumed", 0, True, 6),
+            ("run 3", "conformer_straight", 0, False, 6)):
+        exp_run = dataclasses.replace(exp_c, train=dataclasses.replace(
+            exp_c.train, num_devices=1, max_steps=max_steps))
+        t0 = time.perf_counter()
+        with counted_steps() as record:
+            result = run_training(loop_config(exp_run, tmp, pt, libri, run_dir, 2, 1),
+                                  resume=resume, device="cuda")
+        torch.cuda.synchronize()
+        if result["steps"] != want_steps or any(r != per_step for r in record):
+            fail(f"conformer loop {name}: {result}, launches per step {record}, want "
+                 f"{want_steps} steps of {per_step}")
+        runs[run_dir], val = logged(os.path.join(tmp, run_dir))
+        if not all(math.isfinite(r["val/v_loss"]) for r in val):
+            fail(f"conformer loop {name}: val v_loss not finite")
+        print(f"  {name}: {result['steps']} steps ({len(record)} in this run, each launching "
+              f"the rel_pos step's kernels), val v_loss "
+              f"{[round(r['val/v_loss'], 6) for r in val]}, wall "
+              f"{time.perf_counter() - t0:.1f} s ok", flush=True)
+    resumed, straight = runs["conformer_resumed"], runs["conformer_straight"]
+    for s in range(1, 7):
+        for key in LOOP_RESUME_KEYS:
+            if resumed[s][key] != straight[s][key]:
+                fail(f"conformer loop: step {s} {key} {resumed[s][key]!r} (runs 1 + 2) vs "
+                     f"{straight[s][key]!r} (run 3): a resume must give the same bits")
+    pt_s = os.path.join(tmp, "conformer_resumed", "student.pt")
+    final = torch.load(pt_s), torch.load(os.path.join(tmp, "conformer_straight", "student.pt"))
+    n_buffers = 0
+    for k, v in final[0].items():
+        if not torch.equal(v, final[1][k]):
+            fail(f"conformer loop: the exported {k} differs between the resumed and the "
+                 f"straight run")
+        n_buffers += k.endswith(("running_mean", "running_var"))
+    print(f"  steps 1-6, runs 1 + 2 vs run 3: {', '.join(LOOP_RESUME_KEYS)} bit for bit; the "
+          f"exported state ({len(final[0])} tensors, {n_buffers} running statistics) bit for "
+          f"bit; loss {[resumed[s]['loss'] for s in range(1, 7)]}", flush=True)
+
+    print("[conformer] export_student's pair served: 3 ragged requests in bf16, then fp32 on "
+          "the card against the CPU", flush=True)
+    cfg = exp_c.distiller
+    expert = UpstreamExpert(pt_s, cfg, device="cuda")
+    requests = [[torch.randn(int(3.7 * SR), generator=gen) * 0.1],
+                ragged_wavs(gen, 4, 2.0, 16.0),
+                [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(8)]]
+    check_served(expert, cfg, requests, {cf.KERNEL_PREFIX: 1,
+                                         cf.KERNEL: len(cfg.conv_feature_layers) - 1},
+                 "conformer")
+    served_card_vs_cpu(pt_s, cfg, requests[1][:3], "conformer")
+    return out, expert
+
+
+def mel_phase(geom, t_state, gen, smi, tmp):
+    """[mel] mel_experiment at full width on the card: steps with exact
+    launches (no student K1, prefix or K6) and a falling loss; SpecAugment's
+    draws on the card equal the CPU's and its bands lie within their width
+    ranges; one fp32 step card vs CPU with SpecAugment on; the export served
+    without SpecAugment. Returns (the bf16 Distiller, its fixed batch, the
+    launches per step, the served expert)."""
+    import torch
+
+    from fithubert_tpu_torch.config import mel_experiment
+    from fithubert_tpu_torch.export.expert import UpstreamExpert
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.ops import specaug
+    from fithubert_tpu_torch.ops.dropout import DropoutRNG
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+    from fithubert_tpu_torch.ops.mel import mel_spectrogram
+    from fithubert_tpu_torch.train.checkpoint import export_student
+    from fithubert_tpu_torch.train.step import Distiller
+
+    exp_m = mel_experiment()
+    cfg = exp_m.distiller
+    a, b = exp_m.train.accumulate_grad_batches, exp_m.train.batch_size
+    l_s = cfg.encoder_layers
+    # folded into one batch of a * b rows: the teacher's prefix and K1, its
+    # K2 at p = 0, the student's attention with dropout and its backward
+    per_step = {cf.KERNEL_PREFIX: 1, cf.KERNEL: len(geom.conv_feature_layers) - 1,
+                fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s,
+                fa.KERNEL_DKV: l_s}
+    s_state = StudentModel(cfg, device="cpu").init_weights(gen).state_dict()
+    d = Distiller(exp_m, t_state, s_state, device="cuda", num_training_steps=20)
+    rand = torch.randperm(l_s - 1, generator=gen)
+    logs, launches = launches_of_step(d, train_batch(gen, a, b, 12.0, ragged=True), rand,
+                                      per_step, "mel ragged step")
+    print(f"  mel step 0 (ragged {b} x {a}, one fabricated row): loss {logs['loss']:.6f} "
+          f"grad_norm {logs['grad_norm']:.6f}; launches {json.dumps(launches)} ok", flush=True)
+    fixed = train_batch(gen, a, b, 12.0, ragged=False)
+    losses = [launches_of_step(d, fixed, rand, per_step, f"mel step {i + 1}")[0]["loss"]
+              for i in range(CONFORMER_STEPS)]
+    if not losses[-1] < losses[0]:
+        fail(f"mel: the loss did not fall over {CONFORMER_STEPS} steps: {losses}")
+    print(f"  mel steps 1-{CONFORMER_STEPS} on one {b} x {a} x 12 s batch: loss "
+          f"{[round(x, 6) for x in losses]} fell; every step launched {json.dumps(per_step)} "
+          f"ok", flush=True)
+
+    print("[mel] SpecAugment on the card: the draws of one step seed on the card and on the "
+          "CPU, and the masked bands", flush=True)
+    sa = exp_m.specaug
+    x = fixed["x"].reshape(a * b, -1)
+    feats = mel_spectrogram(x.cuda(), cfg.n_mels, log=True)
+    rows, frames, mels = feats.shape
+    card = specaug.draw_spec_augment(DropoutRNG(11, "cuda").specaug, sa, rows, frames, mels)
+    cpu = specaug.draw_spec_augment(DropoutRNG(11, "cpu").specaug, sa, rows, frames, mels)
+    for name, dc, dh in (("freq", card.freq, cpu.freq), ("time", card.time, cpu.time)):
+        if not (torch.equal(dc.widths, dh.widths) and torch.equal(dc.positions, dh.positions)):
+            fail(f"SpecAugment {name} draws differ between the card and the CPU")
+    (f_lo, f_hi), (t_lo, t_hi) = sa.freq_mask_width_range, sa.time_mask_width_range
+    for draw, lo, hi, length in ((card.freq, f_lo, f_hi, mels), (card.time, t_lo, t_hi, frames)):
+        w, p = draw.widths, draw.positions
+        if int(w.min()) < lo or int(w.max()) >= hi or int(p.min()) < 0 or \
+                int(p.max()) >= max(1, length - int(w.max())):
+            fail(f"SpecAugment draws out of range: widths {w.flatten().tolist()}")
+    got = specaug.apply_spec_augment(feats, card, sa)
+    want = specaug.apply_spec_augment(feats.cpu(), cpu, sa)
+    hit_f = torch.zeros(rows, mels, dtype=torch.bool)
+    hit_t = torch.zeros(rows, frames, dtype=torch.bool)
+    for hit, draw in ((hit_f, card.freq), (hit_t, card.time)):
+        for i in range(rows):
+            for p_, w_ in zip(draw.positions[i, :, 0].tolist(), draw.widths[i, :, 0].tolist()):
+                hit[i, p_:p_ + w_] = True
+    masked = hit_f[:, None, :] | hit_t[:, :, None]
+    changed = (got.cpu() != feats.cpu())
+    if bool((changed & ~masked).any()):
+        fail("SpecAugment changed a value outside its bands on the card")
+    err = (got.cpu() - want).abs()
+    if not bool((err <= E2E_ATOL + E2E_RTOL * want.abs()).all()):
+        fail(f"SpecAugment on the card vs the CPU: max_abs_err {err.max().item():.3e}")
+    print(f"  {rows} rows x {frames} frames x {mels} mels: the draws of seed 11 equal on the "
+          f"card and the CPU (freq widths {card.freq.widths.flatten().tolist()[:6]}..., time "
+          f"widths {card.time.widths.flatten().tolist()[:6]}...), within [{f_lo}, {f_hi}) and "
+          f"[{t_lo}, {t_hi}); {int(masked.sum())} of {masked.numel()} cells in the bands, none "
+          f"changed outside; card vs CPU max_abs_err={err.max().item():.3e} tol=({E2E_ATOL}, "
+          f"{E2E_RTOL}) ok", flush=True)
+
+    print("[mel] fp32 steps without dropout, SpecAugment on (the same draws on both), card "
+          "vs CPU, 1 x 2 s", flush=True)
+    fp32_card_vs_cpu(exp_m, t_state, s_state, gen, "mel", steps=2, rand=rand)
+
+    print("[mel] the export served without SpecAugment: 3 ragged requests in bf16, then fp32 "
+          "on the card against the CPU", flush=True)
+    _, pt_s = export_student(exp_m, d.student.state_dict(), os.path.join(tmp, "mel_export"))
+    expert = UpstreamExpert(pt_s, cfg, device="cuda")
+    if expert.model.specaug is not None or expert.get_downsample_rates() != 320:
+        fail("mel serving: the expert applies SpecAugment or its rate is not 320")
+    requests = [[torch.randn(int(3.7 * SR), generator=gen) * 0.1],
+                ragged_wavs(gen, 4, 2.0, 16.0),
+                [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(8)]]
+    check_served(expert, cfg, requests, {fa.KERNEL: l_s}, "mel")
+    again = expert(requests[1])["last_hidden_state"]
+    if not torch.equal(again, expert(requests[1])["last_hidden_state"]):
+        fail("mel serving: two calls on one request differ")
+    served_card_vs_cpu(pt_s, cfg, requests[1][:3], "mel")
+    return d, fixed, launches, rand, expert
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    laps = [("device and build", t_start)]
+
+    def lap(name):
+        """Print how long the phase that ends here took, then start ``name``."""
+        what, t0 = laps[-1]
+        now = time.perf_counter()
+        print(f"[phases] {what}: {now - t0:.1f} s", flush=True)
+        laps.append((name, now))
+
     try:
         import torch
     except ImportError:
@@ -1958,6 +2356,7 @@ def main() -> int:
     errs = {}
 
     # ---- 3. kernels against their plain versions
+    lap("kernels")
     print("[kernels] conv_stack_cuda vs conv_stack_plain: the student's stack at B=4 x "
           "(ragged, up to 16 s), the teacher's at B=12 x (ragged, up to 12 s)", flush=True)
     wavs = ragged_wavs(gen, 3, 2.0, 15.0) + [torch.randn(16 * SR, generator=gen) * 0.1]
@@ -2042,7 +2441,27 @@ def main() -> int:
     errs[cf.KERNEL_BWD + "@ex"] = check_conv_backward(cf, ex_cpu, ex_train_wavs, gen, dev)
     check_up_pass(cf, ex_cpu, ex_train_wavs, dev)
 
+    # the conformers (conformer_experiment): rel_pos and rope drop their
+    # materialised probabilities through K5 in every layer, at 599 frames a
+    # 12 s row (no TR) and 799 a 16 s serving row; abs runs K2-K4 at the TR'd 299
+    t_conf = cf.out_len(12 * SR, cfg.conv_feature_layers)
+    k5_train = (exp.train.batch_size, cfg.encoder_attention_heads, t_conf, t_conf)
+    t_serve = cf.out_len(16 * SR, cfg.conv_feature_layers)
+    print(f"[kernels] conformer: K5 (seeded_dropout_cuda) vs seeded_dropout_plain at the "
+          f"rel_pos conformer's probabilities of one microbatch {k5_train} and of a serving "
+          f"batch (32, 12, {t_serve}, {t_serve}), fp32, p={ATTN_P}", flush=True)
+    for shape in (k5_train, (32, cfg.encoder_attention_heads, t_serve, t_serve)):
+        check_k5_at(kd, shape, dev)
+    errs[kd.KERNEL + "@conformer"] = 0.0
+    conf_abs_attn = (exp.train.batch_size, t_student, cfg.encoder_attention_heads,
+                     cfg.encoder_embed_dim // cfg.encoder_attention_heads)
+    print(f"[kernels] conformer-abs: K2 with dropout p={ATTN_P}, K3 and K4 at the abs "
+          f"conformer's {conf_abs_attn}, ragged, vs the plain versions", flush=True)
+    check_attention_training_kernels(fa, gen, dev, errs, cases=(conf_abs_attn + (False,),),
+                                     path="@conformer-abs")
+
     # ---- 4. the slice end to end
+    lap("serving")
     print("[e2e] UpstreamExpert(fithubert_960h(), seeded weights), bf16, 3 requests",
           flush=True)
     expert = UpstreamExpert(state, cfg, device="cuda")
@@ -2114,6 +2533,7 @@ def main() -> int:
           f"tol={BF16_VS_FP32_FRO} ok", flush=True)
 
     # ---- 5. training end to end
+    lap("training: release, library, path B")
     print("[train] Distiller(fithubert_960h_experiment(), HuBERT-Base teacher, seeded "
           "weights), bf16, dropout 0.1, num_training_steps=20, FITHUBERT_CONV_BWD unset: "
           "the conv stack's backward runs K6", flush=True)
@@ -2262,6 +2682,7 @@ def main() -> int:
     del on_card, on_cpu
 
     # ---- 8. the training loop
+    lap("loop, ex, ctc, conformer, mel")
     print("[loop] run_training on the release config: a fairseq HuBERT-Base .pt teacher, "
           "a WAV corpus, FITHUBERT_CONV_BWD unset", flush=True)
     per_eval = {cf.KERNEL_PREFIX: 2, cf.KERNEL: per_step[cf.KERNEL],  # teacher + student
@@ -2283,7 +2704,24 @@ def main() -> int:
     ctc_phase(exp, geom, s_state, rand_layers, per_step, gen, smi, work.name, libri)
     print(f"[ctc] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- 8c. the conformer family, then the mel front-end with SpecAugment
+    t_phase = time.perf_counter()
+    print("[conformer] Distiller(conformer_experiment(p)) for p = rel_pos, rope, abs: "
+          "HuBERT-Base teacher, seeded weights, bf16, dropout 0.1, 4 microbatches of 3 looped",
+          flush=True)
+    conformers, expert_conf = conformer_phase(geom, t_state, gen, smi, work.name, pt)
+    for path, (_d, _b, launches, _r) in conformers.items():
+        path_launches[path] = launches
+    print(f"[conformer] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    print("[mel] Distiller(mel_experiment()): 80 log-mels, MelSpecHead, SpecAugment, "
+          "HuBERT-Base teacher, seeded weights, bf16, dropout 0.1, 3 x 4 folded", flush=True)
+    distiller_mel, fixed_mel, path_launches["mel"], rand_mel, expert_mel = mel_phase(
+        geom, t_state, gen, smi, work.name)
+    print(f"[mel] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- 9. timing
+    lap("timing")
     print("[timing] B=32 x 16 s, bf16", flush=True)
     bench = [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(32)]
     for _ in range(3):
@@ -2369,6 +2807,43 @@ def main() -> int:
           f"{max(times):.3f}), {32 * 16 / (ex_fwd_ms / 1e3):.1f} audio-s/s", flush=True)
     profile_device(lambda: expert_ex(bench), "ex forward", unprofiled_ms=ex_fwd_ms)
     del expert_ex
+
+    for path, what in (("conformer", "rel_pos conformer"), ("conformer-abs", "abs conformer"),
+                       ("mel", "mel + SpecAugment")):
+        d, batch, _launches, rand = conformers[path] if path in conformers else \
+            (distiller_mel, fixed_mel, None, rand_mel)
+        print(f"[timing] {what} train step, {b} x {a} x 12 s, bf16; {smi}", flush=True)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            d.train_step(batch, rand)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(times)
+        print(f"  {what} train step: median {med:.3f} ms over 5 (min {min(times):.3f}, max "
+              f"{max(times):.3f}), {1e3 / med:.3f} steps/s, {audio_s / (med / 1e3):.1f} "
+              f"audio-s/s; the release step {step_ms:.3f} ms", flush=True)
+        profile_device(lambda: d.train_step(batch, rand), f"{what} train step", top=12,
+                       unprofiled_ms=med)
+    conformers.clear()  # frees the conformers' Distillers
+    print(f"[timing] rel_pos conformer serving forward, B=32 x 16 s, bf16; {smi}", flush=True)
+    for _ in range(2):
+        expert_conf(bench)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        expert_conf(bench)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    conf_fwd_ms = statistics.median(times)
+    print(f"  rel_pos conformer forward: median {conf_fwd_ms:.3f} ms over 5 (min "
+          f"{min(times):.3f}, max {max(times):.3f}), {32 * 16 / (conf_fwd_ms / 1e3):.1f} "
+          f"audio-s/s", flush=True)
+    profile_device(lambda: expert_conf(bench), "rel_pos conformer forward", top=10,
+                   unprofiled_ms=conf_fwd_ms)
+    del expert_conf, expert_mel
+    torch.cuda.empty_cache()
 
     # One row per kernel and path. "launches" is the count the path's run
     # made: over the three serving requests, or in the last checked train
@@ -2491,7 +2966,7 @@ def main() -> int:
               f"K4 {dkv_ms:.4f} ms", flush=True)
         return f_ms, f_lib, dq_ms, dkv_ms, lib_bwd, shape
 
-    suffix = {"train": "", "ex": "@ex"}
+    suffix = {"train": "", "ex": "@ex", "conformer-abs": "@conformer-abs"}
     # train: the student's attention, (12, 299, 12, 40), p = 0.1: K2, K3, K4
     t_att = cf.out_len(12 * SR, cfg.conv_feature_layers) // cfg.tr_reduce_factor
     f_ms, f_lib, dq_ms, dkv_ms, lib_bwd, shape = attention_train_rows(
@@ -2501,6 +2976,8 @@ def main() -> int:
     goals.append((f"K4 {shape}, against SDPA's whole backward", dkv_ms, lib_bwd, 1.0, None))
     # ex: the ex student's attention, (8, 600, 12, 64), p = 0.1
     attention_train_rows(ex_attn, "ex", "ex student")
+    # conformer-abs: the abs conformer's fairseq MHA, one microbatch (3, 299, 12, 40)
+    attention_train_rows(conf_abs_attn, "conformer-abs", "abs conformer")
 
     # train-taps: K5 at the student's last-layer probabilities of one microbatch
     x = torch.rand((b, h, t_att, t_att), generator=gen).to(dev)
@@ -2513,6 +2990,17 @@ def main() -> int:
     row(kd.KERNEL, "seeded_dropout.cu", "dropout.py:83", "train-taps",
         f"student probabilities {tuple(x.shape)} fp32, p={ATTN_P}", errs[kd.KERNEL], k5_ms,
         k5_plain, (x.numel(), 8 * x.numel()), k5_lib, peak=FP32_PEAK)
+    del x
+    # conformer: K5 at the rel_pos conformer's probabilities of one microbatch
+    x = torch.rand(k5_train, generator=gen).to(dev)
+    with torch.no_grad():
+        k5_ms = cuda_ms(lambda: kd.seeded_dropout_cuda(x, seed, ATTN_P), reps=30)
+        k5_plain = cuda_ms(lambda: kd.seeded_dropout_plain(x, seed, ATTN_P), reps=3)
+        k5_lib = cuda_ms(lambda: F.dropout(x, ATTN_P, training=True), reps=30)
+    row(kd.KERNEL, "seeded_dropout.cu", "dropout.py:83", "conformer",
+        f"rel_pos probabilities {tuple(x.shape)} fp32, p={ATTN_P}, every layer forward and "
+        f"backward", errs[kd.KERNEL + "@conformer"], k5_ms, k5_plain,
+        (x.numel(), 8 * x.numel()), k5_lib, peak=FP32_PEAK)
     del x
 
     def k6_row(model, wavs, path, err):
@@ -2590,6 +3078,7 @@ def main() -> int:
               f"{met(ms <= accept)}", flush=True)
 
     # ---- 10. data parallelism
+    lap("data parallelism")
     print("[dp] NCCL, one rank: two release steps through the data-parallel path against the "
           "plain Distiller on the same batches", flush=True)
     dp_nccl_phase(exp, t_state, s_state, [ragged, fixed], rand_layers, per_step, smi)
@@ -2601,12 +3090,14 @@ def main() -> int:
     dp_loop_phase(exp, work.name, pt, libri, per_step, smi)
 
     # ---- 11. the rest of export
+    lap("export")
     print("[export] the reference's Lightning .ckpt through torch.hub and extract_features",
           flush=True)
     export_phase(exp, s_state, t_state, libri, work.name, smi)
     work.cleanup()
 
     # ---- 12. result lines
+    lap("result lines")
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)

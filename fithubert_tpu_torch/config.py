@@ -14,8 +14,10 @@ defaults: ``StudentConfig`` (the fields the port's student has),
 The presets are ``fithubert_960h()`` (the student of
 ``configs/fithubert.yaml`` as ``load_yaml_config`` resolves it;
 ``use_fp16: True`` selects bfloat16 compute) and
-``fithubert_960h_experiment()`` (the whole file), and ``ex_experiment()``
-(``configs/ex.yaml``). ``yaml`` is imported only
+``fithubert_960h_experiment()`` (the whole file), ``ex_experiment()``
+(``configs/ex.yaml``), ``conformer_experiment(pos_enc_type)`` (the release
+file with conformer layers) and ``mel_experiment()`` (the release file with
+the log-mel front-end, MelSpecHead and SpecAugment). ``yaml`` is imported only
 inside ``read_yaml``, the one function that reads a file, so the package
 imports where ``yaml`` is not installed.
 """
@@ -75,9 +77,8 @@ def conv_spec_tuple(spec: Any) -> Tuple[Tuple[int, int, int], ...]:
 
 
 # Fields of the JAX StudentConfig (fithubert_tpu/config.py:95-169) that the
-# port has no counterpart for, with their JAX defaults: the mel front-end
-# and int8 matmuls.
-REFUSED = {"n_mels": 0, "enable_log_mel": False, "quantize_matmuls": False}
+# port has no counterpart for, with their JAX defaults: int8 matmuls.
+REFUSED = {"quantize_matmuls": False}
 
 
 @dataclass(frozen=True)
@@ -96,19 +97,30 @@ class StudentConfig:
     conv_bias: bool = False
     feature_grad_mult: float = 1.0
 
+    # Mel front-end alternative (n_mels > 0: no conv extractor)
+    n_mels: int = 0
+    enable_log_mel: bool = False
+    mel_spec_head_conv_layers: Tuple[Tuple[int, int, int], ...] = ()
+
     # Positional conv embedding
     conv_pos: int = 128
     conv_pos_groups: int = 16
     pos_conv_depth: int = 1
 
     # Encoder geometry
-    layer_type: str = "transformer"
+    layer_type: str = "transformer"  # 'transformer' | 'conformer'
     encoder_layers: int = 12
     encoder_embed_dim: int = 768
     encoder_ffn_embed_dim: int = 3072
     encoder_attention_heads: int = 12
     activation_fn: str = "gelu"
     layer_norm_first: bool = False
+
+    # Conformer: 'espnet' builds the rel_pos / rope / abs attentions of
+    # pos_enc_type; any other attn_type is the plain fairseq MHA
+    depthwise_conv_kernel_size: int = 31
+    attn_type: str = ""
+    pos_enc_type: str = "abs"
 
     # Dropouts (training only; the serving forward is deterministic)
     dropout: float = 0.1
@@ -147,8 +159,20 @@ class StudentConfig:
 
     @property
     def embed(self) -> int:
-        """Feature-extractor output dim."""
+        """Feature-extractor output dim: the last conv's, or with the mel
+        front-end MelSpecHead's last conv's (the mel count without one)."""
+        if self.n_mels > 0:
+            if self.mel_spec_head_conv_layers:
+                return self.mel_spec_head_conv_layers[-1][0]
+            return self.n_mels
         return self.conv_feature_layers[-1][0]
+
+    @property
+    def dedicated_conformer(self) -> bool:
+        """The conformer encoder of its own (``ops/conformer.py``): no TR
+        module, no positional conv; ``abs`` conformer layers sit in the
+        transformer encoder."""
+        return self.layer_type == "conformer" and self.pos_enc_type in ("rel_pos", "rope")
 
     @property
     def n_tasks(self) -> int:
@@ -157,7 +181,10 @@ class StudentConfig:
 
     @property
     def downsample_rate(self) -> int:
-        """Total waveform stride of the front-end (320 for the release config)."""
+        """Total waveform stride of the front-end (320 for the release
+        config, the hop of the mel front-end)."""
+        if self.n_mels > 0:
+            return 320
         r = 1
         for _, _, s in self.conv_feature_layers:
             r *= s
@@ -171,13 +198,18 @@ class StudentConfig:
             "extractor_mode": (self.extractor_mode, "default"),
             "conv_bias": (self.conv_bias, False),
             "pos_conv_depth": (self.pos_conv_depth, 1),
-            "layer_type": (self.layer_type, "transformer"),
             "activation_fn": (self.activation_fn, "gelu"),
         }
         for name, (got, want) in unsupported.items():
             if got != want:
                 raise NotImplementedError(
                     f"{name}={got!r}: the PyTorch port supports only {want!r}")
+        if self.layer_type not in ("transformer", "conformer"):
+            raise NotImplementedError(
+                f"layer_type={self.layer_type!r}: the PyTorch port supports only "
+                "'transformer' and 'conformer'")
+        if self.n_mels <= 0 and self.enable_log_mel:
+            raise ValueError("enable_log_mel needs n_mels > 0")
         if self.enable_tr_layer and self.tr_layer_type not in ("conv1d", "fc1", "fc2"):
             raise NotImplementedError(
                 "tr_layer_type must be one of ['fc1', 'fc2', 'conv1d']")
@@ -202,8 +234,9 @@ class StudentConfig:
                     f"{name}={d[name]!r}: the PyTorch port supports only {default!r}")
         known = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in known}
-        if "conv_feature_layers" in kw:
-            kw["conv_feature_layers"] = conv_spec_tuple(kw["conv_feature_layers"])
+        for key in ("conv_feature_layers", "mel_spec_head_conv_layers"):
+            if key in kw:
+                kw[key] = conv_spec_tuple(kw[key])
         if "pred_layer_id" in kw:
             kw["pred_layer_id"] = tuple(int(i) for i in (parse_spec(kw["pred_layer_id"]) or ()))
         if use_fp16:
@@ -217,6 +250,8 @@ class StudentConfig:
         d["_teacher_task_agnostic"] = d.pop("teacher_task_agnostic")
         d["_cnn_weight"] = d.pop("cnn_weight")
         d["conv_feature_layers"] = str([tuple(t) for t in self.conv_feature_layers])
+        d["mel_spec_head_conv_layers"] = (str([tuple(t) for t in self.mel_spec_head_conv_layers])
+                                          if self.mel_spec_head_conv_layers else "None")
         d["pred_layer_id"] = str(list(self.pred_layer_id))
         return d
 
@@ -252,6 +287,9 @@ def fithubert_960h() -> StudentConfig:
         + ((512, 1, 1),) + ((512, 2, 2),) * 2,
         conv_bias=False,
         feature_grad_mult=1.0,
+        n_mels=0,
+        enable_log_mel=False,
+        mel_spec_head_conv_layers=((128, 7, 1), (256, 5, 1), (512, 5, 1), (512, 5, 1)),
         conv_pos=128,
         conv_pos_groups=16,
         pos_conv_depth=1,
@@ -262,6 +300,9 @@ def fithubert_960h() -> StudentConfig:
         encoder_attention_heads=12,
         activation_fn="gelu",
         layer_norm_first=False,
+        depthwise_conv_kernel_size=31,
+        attn_type="",
+        pos_enc_type="abs",
         dropout=0.1,
         attention_dropout=0.1,
         activation_dropout=0.1,
@@ -359,8 +400,8 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class SpecAugConfig:
-    """``fithubert_tpu/config.py:341 SpecAugConfig`` (read, not applied:
-    ``train.specaug: true`` is refused)."""
+    """``fithubert_tpu/config.py:341 SpecAugConfig``: the masks that
+    ``ops/specaug.py`` applies to the mel features when ``train.specaug``."""
 
     apply_time_warp: bool = False
     time_warp_window: int = 5
@@ -404,7 +445,6 @@ class ExperimentConfig:
         """Raise NotImplementedError, naming the field and the ROADMAP item
         that will bring it, for a setting the port's loop cannot honour."""
         refused = (
-            ("train.specaug", self.train.specaug, "Queue 1 item 6 (ops/specaug.py)"),
             ("teacher.quantize_int8", self.teacher.quantize_int8,
              "Queue 1 item 6 (ops/quant.py)"),
         )
@@ -558,8 +598,11 @@ def ex_experiment() -> ExperimentConfig:
         distiller=StudentConfig(
             extractor_mode="default",
             conv_feature_layers=((512, 10, 5),) + ((512, 3, 2),) * 4 + ((512, 2, 2),) * 2,
-            conv_bias=False, feature_grad_mult=1.0, conv_pos=128, conv_pos_groups=16,
+            conv_bias=False, feature_grad_mult=1.0, n_mels=0, enable_log_mel=False,
+            mel_spec_head_conv_layers=((128, 7, 1), (256, 5, 1), (512, 5, 1), (512, 5, 1)),
+            conv_pos=128, conv_pos_groups=16,
             pos_conv_depth=1, layer_type="transformer", encoder_layers=2,
+            depthwise_conv_kernel_size=31, attn_type="", pos_enc_type="abs",
             encoder_embed_dim=768, encoder_ffn_embed_dim=3072, encoder_attention_heads=12,
             activation_fn="gelu", layer_norm_first=False, dropout=0.1,
             attention_dropout=0.1, activation_dropout=0.1, encoder_layerdrop=0.0,
@@ -576,3 +619,33 @@ def ex_experiment() -> ExperimentConfig:
                         dev_set=("dev-clean",)),
         specaug=SpecAugConfig(),
     )
+
+
+def conformer_experiment(pos_enc_type: str = "rel_pos") -> ExperimentConfig:
+    """``configs/fithubert.yaml`` with conformer layers (``layer_type:
+    conformer``, ``attn_type: espnet``): 12 layers of 480, FFN 480, 12 heads
+    of 40, depthwise kernel 31, dropout 0.1, bf16. ``rel_pos`` and ``rope``
+    build the conformer encoder of its own, which has no TR module, so the
+    TR is off there (with it on, the heads would upsample frames that were
+    never reduced); ``abs`` puts conformer layers in the transformer
+    encoder and keeps the release's TR and positional conv."""
+    if pos_enc_type not in ("rel_pos", "rope", "abs"):
+        raise ValueError(f"pos_enc_type {pos_enc_type!r}: one of 'rel_pos', 'rope', 'abs'")
+    exp = fithubert_960h_experiment()
+    distiller = dataclasses.replace(exp.distiller, layer_type="conformer", attn_type="espnet",
+                                    pos_enc_type=pos_enc_type)
+    if pos_enc_type != "abs":
+        distiller = dataclasses.replace(distiller, enable_tr_layer=False)
+    return dataclasses.replace(exp, distiller=distiller)
+
+
+def mel_experiment() -> ExperimentConfig:
+    """``configs/fithubert.yaml`` with the log-mel front-end: 80 mels (the
+    file leaves ``n_mels`` at 0; 80 is the common log-mel width), its
+    ``mel_spec_head_conv_layers``, and ``train.specaug: true`` with its
+    ``specaug:`` section (2 frequency masks of width [0, 27), 2 time masks
+    of [0, 100), no time warp, masked values replaced by the batch mean)."""
+    exp = fithubert_960h_experiment()
+    return dataclasses.replace(
+        exp, train=dataclasses.replace(exp.train, specaug=True),
+        distiller=dataclasses.replace(exp.distiller, n_mels=80, enable_log_mel=True))

@@ -16,8 +16,11 @@ ignored, as the JAX expert ignores its ``**kwargs``; ``int8=True`` raises.
 Every layer-wise projection head but the last is dropped, as the
 reference's export does; a SplitLinear head (``layerwise_proj=False``) goes
 whole, and ``last_hidden_state`` is the upsampled final hidden. The rest
-must match the model's keys exactly. The outputs are
-tensors on the expert's device.
+must match the model's keys exactly (a Lightning ``.ckpt``'s conformer keys
+that the port drops on load excepted: ``reference_import.py``). A
+conformer student serves from its BatchNorm running statistics, a mel
+student without SpecAugment. The outputs are tensors on the expert's
+device.
 """
 
 from __future__ import annotations

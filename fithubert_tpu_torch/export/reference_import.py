@@ -8,7 +8,11 @@ of Lightning's own classes), and keeps the student's weights under the
 ``student_model.`` prefix (the reference's ``fithubert/expert.py:40-45``
 strips it). The port's parameter names are the reference's, the TR module
 included (a slot of ``encoder.layers``, ``ops/transformer.py:96-98``), so
-only the prefix goes; no key is mapped. The file is read with
+only the prefix goes; no key is mapped. Two kinds of key the port has no
+tensor for are dropped when the student loads: a conformer BatchNorm's
+``num_batches_tracked`` (``ops/conformer.py RowMaskedBatchNorm``) and the
+``encoder.pos_conv.*`` that the reference's rel_pos / rope conformer
+inherits and never runs (``ConformerEncoder``). The file is read with
 ``tolerant_torch_load``, which stands in for the classes that are not
 installed.
 """
@@ -39,8 +43,7 @@ def load_reference_student(ckpt_path: str, yaml_path: str
                            ) -> Tuple[ExperimentConfig, Dict[str, torch.Tensor]]:
     """(the experiment of the dumped YAML, the student's state dict). The
     teacher-init flags are turned off, as for serving; a config the port
-    cannot build (a mel head, a conformer) raises through the config's own
-    checks."""
+    cannot build (int8 matmuls) raises through the config's own checks."""
     raw = read_yaml(yaml_path)
     raw["distiller"] = dict(raw.get("distiller") or {}, init_conv_layers=False,
                             init_encoder_layers=0)

@@ -1,7 +1,10 @@
 """The thin-and-deep student (``fithubert_tpu/models/student.py:52``):
-waveform -> conv features -> fp32 LayerNorm -> padding-mask recompute ->
+waveform -> conv features (or, with ``n_mels > 0``, fp32 log-mel features
+cast to the compute dtype -> SpecAugment in training with ``train.specaug``
+-> ``MelSpecHead``) -> fp32 LayerNorm -> padding-mask recompute ->
 post-extract projection -> input dropout -> encoder (TR module + transformer
-layers) -> heads: layer-wise projection heads (``layerwise_proj``), or
+or abs conformer layers; or the rel_pos / rope ``ConformerEncoder``) ->
+heads: layer-wise projection heads (``layerwise_proj``), or
 (``:229-262``) an upsampler that undoes the time reduction, then
 ``proj_head_in`` -> GELU -> ``SplitLinear`` predicting the teacher layers
 of ``pred_layer_id`` (the DistilHuBERT-style head of ``configs/ex.yaml``).
@@ -20,25 +23,35 @@ from typing import List, NamedTuple, Optional, Union
 import torch
 import torch.nn as nn
 
-from fithubert_tpu_torch.config import StudentConfig
+from fithubert_tpu_torch.config import SpecAugConfig, StudentConfig
 from fithubert_tpu_torch.device import resolve_device, torch_dtype
 from fithubert_tpu_torch.ops.activations import gelu_exact
 from fithubert_tpu_torch.ops.attention import linear
+from fithubert_tpu_torch.ops.conformer import (
+    ConformerEncoder,
+    FeedForwardModule,
+    RelPositionAttention,
+    RotaryAttention,
+    RowMaskedBatchNorm,
+)
 from fithubert_tpu_torch.ops.conv import (
     Conv1D,
     ConvFeatureExtractor,
     ConvTranspose1D,
+    SameConv1d,
     _WeightNormConv,
     grad_multiply,
 )
 from fithubert_tpu_torch.ops.dropout import DropoutRNG, dropout
-from fithubert_tpu_torch.ops.heads import LayerWiseProjHead, SplitLinear
+from fithubert_tpu_torch.ops.heads import LayerWiseProjHead, MelSpecHead, SplitLinear
+from fithubert_tpu_torch.ops.mel import mel_spectrogram
 from fithubert_tpu_torch.ops.norms import FP32GroupNorm, FP32LayerNorm
 from fithubert_tpu_torch.ops.padding import (
     feat_extract_output_lengths,
     lengths_to_padding_mask,
     padding_mask_to_lengths,
 )
+from fithubert_tpu_torch.ops.specaug import BatchStripe, spec_augment
 from fithubert_tpu_torch.ops.transformer import TransformerEncoder
 
 
@@ -67,8 +80,36 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     def uniform(p, bound):
         p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
 
+    def lecun(p, fan_in):  # flax's default kernel init, untruncated
+        normal(p, fan_in ** -0.5)
+
+    conformer_linears = set()
+    for mod in model.modules():
+        if isinstance(mod, (FeedForwardModule, RelPositionAttention, RotaryAttention)):
+            conformer_linears.update(m for m in mod.children() if isinstance(m, nn.Linear))
+
     for name, mod in model.named_modules():
-        if isinstance(mod, SplitLinear) and mod.in_split > 1:  # heads.py:45-56
+        if isinstance(mod, RelPositionAttention):  # xavier uniform over (H, d_k)
+            for p in (mod.pos_bias_u, mod.pos_bias_v):
+                uniform(p, math.sqrt(6.0 / (p.shape[0] + p.shape[1])))
+        if mod in conformer_linears:  # flax Dense: lecun normal, zero bias
+            lecun(mod.weight, mod.in_features)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, RowMaskedBatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+        elif isinstance(mod, SameConv1d):
+            fan_in = mod.weight.shape[1] * mod.weight.shape[2]
+            if name.startswith("mel_spec_head."):  # variance_scaling(1/3, fan_in, uniform)
+                uniform(mod.weight, fan_in ** -0.5)
+            else:  # the conformer's bias-free convs: lecun normal
+                lecun(mod.weight, fan_in)
+            if mod.bias is not None:  # torch's conv bias init
+                uniform(mod.bias, fan_in ** -0.5)
+        elif isinstance(mod, SplitLinear) and mod.in_split > 1:  # heads.py:45-56
             uniform(mod.weight, mod.in_dim ** -0.5)
             uniform(mod.bias, mod.in_dim ** -0.5)
         elif isinstance(mod, (FP32LayerNorm, FP32GroupNorm)):
@@ -103,22 +144,30 @@ class StudentModel(nn.Module):
     the SplitLinear, the reference's keys), are built."""
 
     def __init__(self, cfg: StudentConfig, disable_projections: bool = False,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 specaug: Optional[SpecAugConfig] = None):
         super().__init__()
         cfg.check_supported()
         dev = resolve_device(device)
         self.cfg = cfg
         self.disable_projections = disable_projections
+        self.specaug = specaug
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
         e = cfg.encoder_embed_dim
-        self.feature_extractor = ConvFeatureExtractor(cfg.conv_feature_layers, device=dev)
+        self.feature_extractor = self.mel_spec_head = None
+        if cfg.n_mels <= 0:
+            self.feature_extractor = ConvFeatureExtractor(cfg.conv_feature_layers, device=dev)
+        elif cfg.mel_spec_head_conv_layers:
+            self.mel_spec_head = MelSpecHead(cfg.n_mels, cfg.mel_spec_head_conv_layers,
+                                             device=dev)
         self.layer_norm = FP32LayerNorm(cfg.embed, device=dev)
         self.post_extract_proj = (nn.Linear(cfg.embed, e, device=dev)
                                   if cfg.embed != e else None)
         self.cnn_proj_head = (nn.Linear(e, cfg.pred_head_final_dim, device=dev)
                               if cfg.pred_head_final_dim != e and cfg.cnn_weight > 0
                               and not disable_projections else None)
-        self.encoder = TransformerEncoder(cfg, device=dev)
+        self.encoder = (ConformerEncoder(cfg, device=dev) if cfg.dedicated_conformer
+                        else TransformerEncoder(cfg, device=dev))
         self.upsampler = None
         if cfg.layerwise_proj:
             heads = ([cfg.encoder_layers - 1] if disable_projections
@@ -153,25 +202,44 @@ class StudentModel(nn.Module):
     def forward_train(self, source: torch.Tensor,
                       padding_mask: Optional[torch.Tensor] = None,
                       rng: Optional[DropoutRNG] = None,
-                      need_taps: bool = False) -> StudentOutput:
+                      need_taps: bool = False,
+                      stripe: Optional[BatchStripe] = None) -> StudentOutput:
         """The training forward (``deterministic=False`` in the JAX package),
-        with autograd; every dropout is drawn from ``rng``. ``need_taps``:
-        the last encoder layer returns its attention taps in
-        ``layer_results[-1][1]``."""
-        return self._run(source, padding_mask, None, rng, need_taps)
+        with autograd; every dropout and SpecAugment is drawn from ``rng``,
+        and the conformer's BatchNorm takes the batch's statistics and
+        moves its running ones. Without ``rng`` it is deterministic, with
+        the running statistics. ``need_taps``: the last encoder layer
+        returns its attention taps in ``layer_results[-1][1]``. ``stripe``:
+        this batch is a rank's rows of a global batch (SpecAugment's draws
+        and mean are the global batch's)."""
+        return self._run(source, padding_mask, None, rng, need_taps, stripe)
 
-    def _run(self, source, padding_mask, layer, rng, need_taps=False) -> StudentOutput:
+    def _front_end(self, source, rng, stripe) -> torch.Tensor:
         cfg = self.cfg
-        features = self.feature_extractor(source.to(self.compute_dtype))
-        if 0 < cfg.feature_grad_mult != 1.0:
-            features = grad_multiply(features, cfg.feature_grad_mult)
-        elif cfg.feature_grad_mult <= 0:
-            features = features.detach()
-        features = self.layer_norm(features)
+        if self.feature_extractor is not None:
+            features = self.feature_extractor(source.to(self.compute_dtype))
+            if 0 < cfg.feature_grad_mult != 1.0:
+                features = grad_multiply(features, cfg.feature_grad_mult)
+            elif cfg.feature_grad_mult <= 0:
+                features = features.detach()
+            return features
+        features = mel_spectrogram(source.float(), cfg.n_mels,
+                                   log=cfg.enable_log_mel).to(self.compute_dtype)
+        if self.specaug is not None and rng is not None:
+            features = spec_augment(rng.specaug, features, self.specaug, stripe=stripe)
+        if self.mel_spec_head is not None:
+            features = self.mel_spec_head(features)
+        return features
+
+    def _run(self, source, padding_mask, layer, rng, need_taps=False,
+             stripe=None) -> StudentOutput:
+        cfg = self.cfg
+        features = self.layer_norm(self._front_end(source, rng, stripe))
 
         if padding_mask is not None:
-            lengths = feat_extract_output_lengths(padding_mask_to_lengths(padding_mask),
-                                                  cfg.conv_feature_layers)
+            lengths = padding_mask_to_lengths(padding_mask)
+            lengths = (feat_extract_output_lengths(lengths, cfg.conv_feature_layers)
+                       if cfg.n_mels <= 0 else 1 + (lengths - 400) // 320)
             padding_mask = lengths_to_padding_mask(lengths, features.shape[1])
 
         drop = features.shape[1] % cfg.crop_seq_to_multiple
@@ -190,7 +258,8 @@ class StudentModel(nn.Module):
         enc = self.encoder(features, padding_mask, tgt_slot=layer, rng=rng,
                            need_taps=need_taps)
         x = enc.x
-        n_slots = len(self.encoder.layers)
+        # the JAX package counts a TR slot even in the conformer encoder, which has none
+        n_slots = cfg.encoder_layers + (1 if cfg.enable_tr_layer else 0)
         projections = None
         if (layer is None or layer + 1 >= n_slots) and not cfg.layerwise_proj:
             if self.upsampler is not None:

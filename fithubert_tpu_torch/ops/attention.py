@@ -64,26 +64,30 @@ def attention_with_taps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class MultiHeadSelfAttention(nn.Module):
+    """fairseq's MultiheadAttention: the projections ``q_proj``, ``k_proj``,
+    ``v_proj`` and ``out_proj`` (``PROJ_NAMES``)."""
+
+    PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "out_proj")
+
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
-        self.q_proj = nn.Linear(embed_dim, embed_dim, device=device)
-        self.k_proj = nn.Linear(embed_dim, embed_dim, device=device)
-        self.v_proj = nn.Linear(embed_dim, embed_dim, device=device)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, device=device)
+        for name in self.PROJ_NAMES:
+            self.add_module(name, nn.Linear(embed_dim, embed_dim, device=device))
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None, need_taps: bool = False
                 ) -> Tuple[torch.Tensor, Optional[AttentionTaps]]:
         """(out, taps): taps is None unless ``need_taps``. Deterministic
         unless a ``rng`` is given."""
+        q_proj, k_proj, v_proj, out_proj = (self._modules[n] for n in self.PROJ_NAMES)
         b, t, c = x.shape
         h = self.num_heads
         shape = (b, t, h, c // h)
-        q = (linear(x, self.q_proj) * (c // h) ** -0.5).view(shape)
-        k = linear(x, self.k_proj).view(shape)
-        v = linear(x, self.v_proj).view(shape)
+        q = (linear(x, q_proj) * (c // h) ** -0.5).view(shape)
+        k = linear(x, k_proj).view(shape)
+        v = linear(x, v_proj).view(shape)
         p = self.dropout if rng is not None else 0.0
         if need_taps:
             out, taps = attention_with_taps(q, k, v, key_padding_mask, p, rng)
@@ -91,4 +95,13 @@ class MultiHeadSelfAttention(nn.Module):
             out = flash_attention(q, k, v, key_padding_mask, dropout_p=p,
                                   seed=rng.seed_words() if p > 0.0 else None)
             taps = None
-        return linear(out.reshape(b, t, c), self.out_proj), taps
+        return linear(out.reshape(b, t, c), out_proj), taps
+
+
+class EspnetAttention(MultiHeadSelfAttention):
+    """espnet's ESPNETMultiHeadedAttention, a conformer's ``abs`` attention
+    under ``attn_type: espnet``: the same scaled-dot attention (the JAX
+    package runs its MultiHeadSelfAttention there,
+    ``fithubert_tpu/ops/conformer.py:338-346``) under espnet's names."""
+
+    PROJ_NAMES = ("linear_q", "linear_k", "linear_v", "linear_out")

@@ -8,6 +8,8 @@ reference's state-dict names; the JAX kernels are their transposes (see
   PositionalConv        ≙ conv.py:384 (weight norm over the kernel axis,
                           SamePad, exact GELU)
   Conv1D                ≙ conv.py:38, the k == s branch (the TR conv1d)
+  SameConv1d            ≙ conv.py:38, stride 1 with padding (the conformer's
+                          pointwise and depthwise convs, MelSpecHead)
   ConvTranspose1D       ≙ conv.py:161, the k == s branch (the upsampler)
   grad_multiply         ≙ conv.py:468 (identity forward, gradient scaled)
 """
@@ -139,6 +141,35 @@ class _GroupedConv1d(torch.autograd.Function):
                     grad, x, w, [w.shape[0]], [1], [ctx.padding], [1], False, [0], g,
                     [False, ctx.needs_input_grad[1], ctx.needs_input_grad[2]])
         return gx, gw, gb, None, None
+
+
+class SameConv1d(nn.Conv1d):
+    """Stride-1 conv over (B, T, C_in) -> (B, T', C_out), zero-padded by
+    ``padding`` on both sides, in x's dtype. The product is rounded to
+    x's dtype before the fp32 bias is added (a JAX bf16 conv plus an fp32
+    bias). On the CPU a bf16 conv sums in fp32 and rounds once: the CPU's
+    bf16 grouped conv1d is wrong at some shapes. A grouped conv's input
+    gradient is ``_GroupedConv1d``'s forward conv of flipped kernels, which
+    sums in the same order on every run."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: int, padding: int = 0,
+                 groups: int = 1, bias: bool = True, device=None):
+        super().__init__(c_in, c_out, kernel_size, padding=padding, groups=groups, bias=bias,
+                         device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
+        if self.kernel_size[0] == 1 and self.groups == 1:  # pointwise: one matmul
+            y = F.linear(x, self.weight[:, :, 0].to(dtype))
+        else:
+            xt, w = x.transpose(1, 2), self.weight.to(dtype)
+            if x.device.type == "cpu" and dtype != torch.float32:
+                xt, w = xt.float(), w.float()
+            y = _GroupedConv1d.apply(xt, w, None, self.padding[0], self.groups)
+            y = y.to(dtype).transpose(1, 2)
+        if self.bias is not None:
+            y = (y + self.bias).to(dtype)
+        return y
 
 
 class PositionalConv(nn.Module):

@@ -5,6 +5,8 @@
                        ``lin_proj`` from the student width to the teacher's
   SplitLinear        ≙ heads.py:23: one independent Linear per task over
                        the task's slice of the input, as one batched product
+  MelSpecHead        ≙ heads.py:219: stride-1 convs over the mel features,
+                       padding k // 2, ReLU between them
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from fithubert_tpu_torch.ops.attention import linear
-from fithubert_tpu_torch.ops.conv import ConvTranspose1D
+from fithubert_tpu_torch.ops.conv import ConvTranspose1D, SameConv1d
 
 
 class LayerWiseProjHead(nn.Module):
@@ -58,3 +60,24 @@ class SplitLinear(nn.Module):
         w = self.weight.to(x.dtype)
         out = torch.einsum("btni,nio->btno", xs.float(), w.float()) + self.bias
         return out.reshape(b, t, self.in_split * self.out_dim).to(x.dtype)
+
+
+class MelSpecHead(nn.Module):
+    """(B, T, n_mels) -> (B, T', C_last); the convs are
+    ``conv_layers.{i}``, the reference's keys. A conv spec's stride is
+    ignored (1), as in the reference."""
+
+    def __init__(self, n_mels: int, conv_layers, device=None):
+        super().__init__()
+        convs, c_in = [], n_mels
+        for dim, k, _stride in conv_layers:
+            convs.append(SameConv1d(c_in, dim, k, padding=k // 2, device=device))
+            c_in = dim
+        self.conv_layers = nn.ModuleList(convs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, conv in enumerate(self.conv_layers):
+            x = conv(x)
+            if i < len(self.conv_layers) - 1:
+                x = torch.relu(x)
+        return x

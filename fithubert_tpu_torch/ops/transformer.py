@@ -1,7 +1,10 @@
 """Transformer encoder with the time-reduction layer in its layer list
 (``fithubert_tpu/ops/transformer.py``): ``TransformerEncoderLayer`` (:52),
 the ``TimeReduction`` types (:135-194: conv1d, fc1, fc2) and
-``TransformerEncoder`` (:215), run as an unrolled loop. As in the
+``TransformerEncoder`` (:215), run as an unrolled loop. With ``layer_type:
+conformer`` (and ``pos_enc_type: abs``; rel_pos and rope have their own
+encoder in ``ops/conformer.py``) its layers are ``ConformerEncoderLayer``s
+with fairseq's attention (:349-371). As in the
 reference, the TR module sits in ``encoder.layers`` at ``tr_layer_index``,
 so state-dict indices count it: ``encoder.layers.{slot}.weight`` for conv1d
 and fc1, ``.0`` / ``.2`` for fc2's two Linears (the keys the reference
@@ -147,12 +150,25 @@ class TransformerEncoder(nn.Module):
         self.layer_norm = FP32LayerNorm(e, device=device)
         self.tr_slot = cfg.tr_layer_index if cfg.enable_tr_layer else -1
         n_slots = cfg.encoder_layers + (1 if cfg.enable_tr_layer else 0)
+        if cfg.layer_type == "conformer":
+            # abs conformer layers in this encoder (fithubert_tpu/ops/
+            # transformer.py:349-371): fairseq's MHA, every dropout cfg.dropout
+            from fithubert_tpu_torch.ops.conformer import ConformerEncoderLayer
+
+            def layer():
+                return ConformerEncoderLayer(e, cfg.encoder_ffn_embed_dim,
+                                             cfg.encoder_attention_heads, cfg.dropout,
+                                             cfg.depthwise_conv_kernel_size, "abs",
+                                             cfg.attn_type, device=device)
+        else:
+            def layer():
+                return TransformerEncoderLayer(e, cfg.encoder_ffn_embed_dim,
+                                               cfg.encoder_attention_heads,
+                                               cfg.layer_norm_first, cfg.dropout,
+                                               cfg.attention_dropout, cfg.activation_dropout,
+                                               device=device)
         self.layers = nn.ModuleList([
-            time_reduction(cfg, device=device) if slot == self.tr_slot
-            else TransformerEncoderLayer(e, cfg.encoder_ffn_embed_dim,
-                                         cfg.encoder_attention_heads, cfg.layer_norm_first,
-                                         cfg.dropout, cfg.attention_dropout,
-                                         cfg.activation_dropout, device=device)
+            time_reduction(cfg, device=device) if slot == self.tr_slot else layer()
             for slot in range(n_slots)
         ])
 

@@ -18,6 +18,11 @@ The backend is ``nccl`` on the card and ``gloo`` on the CPU; a caller that
 wants another (two gloo ranks sharing one card) initialises the group
 itself. Tensor parallelism (the 'model' axis, ``mesh.py:47-58``) is not
 ported.
+
+A conformer student is refused over more than one rank
+(``check_data_parallel``): the JAX mesh takes its BatchNorm statistics over
+the global microbatch, and a rank here would take them over its stripe
+alone, which is another model.
 """
 
 from __future__ import annotations
@@ -35,6 +40,18 @@ import torch.distributed as dist
 from fithubert_tpu_torch.device import resolve_device
 
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def check_data_parallel(cfg, world: int) -> None:
+    """Raise NotImplementedError, naming the field, for an experiment whose
+    step the ranks cannot take together yet: a conformer student's
+    BatchNorm statistics would be each rank's own (ROADMAP Queue 1, the
+    conformer's statistics under DataParallel)."""
+    if world > 1 and cfg.distiller.layer_type == "conformer":
+        raise NotImplementedError(
+            f"distiller.layer_type='conformer' over {world} ranks: the PyTorch port takes "
+            "the BatchNorm statistics of one rank's rows, not of the global batch (ROADMAP "
+            "Queue 1); run it on one card (train.num_devices: 1)")
 
 
 def maybe_initialize(device: Union[str, torch.device] = "cuda"

@@ -11,7 +11,9 @@ a checkpoint on SIGTERM or SIGINT, and the final export.
         -> {"best_v_loss", "steps", "preempted"}  ({"test_loss"} in test mode)
 
 Data parallel over ``torch.distributed``, one process per card (the JAX
-mesh's 'data' axis): under torchrun, or an initialised process group, the
+mesh's 'data' axis; a conformer student raises over more than one rank,
+``parallel/distributed.py check_data_parallel``): under torchrun, or an
+initialised process group, the
 run trains on its ranks; otherwise ``train.num_devices`` (0 = every
 visible card) counts the visible cards as the JAX mesh takes
 ``devices[:n]``, and more than one starts that many workers
@@ -49,7 +51,12 @@ from fithubert_tpu_torch.export.fairseq_import import load_teacher_any
 from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.models.surgery import init_student_from_teacher
 from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
-from fithubert_tpu_torch.parallel.distributed import DataParallel, launch, maybe_initialize
+from fithubert_tpu_torch.parallel.distributed import (
+    DataParallel,
+    check_data_parallel,
+    launch,
+    maybe_initialize,
+)
 from fithubert_tpu_torch.train.checkpoint import CheckpointManager, export_student
 from fithubert_tpu_torch.train.step import Distiller
 from fithubert_tpu_torch.utils.logging import MetricsLogger
@@ -145,6 +152,7 @@ def run_training(cfg: ExperimentConfig, resume: bool = True, test_only: bool = F
     rank, world, dev = maybe_initialize(dev)
     if world == 1 and not torch.distributed.is_initialized():
         n = world_size(cfg, dev)
+        check_data_parallel(cfg, n)  # before any rank starts
         if n > 1:
             from fithubert_tpu_torch.ops.kernels import SOURCES, _build
 

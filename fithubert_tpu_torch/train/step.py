@@ -22,7 +22,13 @@ divides by a count that depends on the data. For a task-specific
 (``:188-215``): against the batch's ``labels`` / ``label_paddings`` ((A,
 B, U), folded with the rest), or, without them or with ``use_gt_for_ctc:
 false``, against the teacher's greedy predictions collapsed by
-``collapse_pseudo_labels``. SpecAug and the conformer are not ported.
+``collapse_pseudo_labels``. With ``train.specaug`` the mel student's
+features are masked in training (``ops/specaug.py``), from the
+``DropoutRNG``'s third stream. A conformer student carries BatchNorm
+running statistics that advance microbatch by microbatch
+(``_has_batch_stats``, ``:90,276-281``): its microbatches never fold, and
+run in order, each moving the buffers that the next one reads, as the JAX
+scan carries ``extra_vars`` (``:316-366``).
 
 With ``dp`` (``parallel/distributed.py DataParallel``) the batch is this
 rank's stripe of the global batch: every rank starts from rank 0's student,
@@ -30,7 +36,10 @@ the losses divide by the global batch's denominators, the gradients are
 summed over the ranks in one all-reduce after the microbatches, and the
 logs are the global batch's on every rank, so all ranks take the step that
 one process takes on the whole batch. Each rank folds its rank into the
-dropout seeds, so their keep masks differ.
+dropout seeds, so their keep masks differ; SpecAugment's seed stays free of
+the rank, so every rank draws the global batch's masks and applies its own
+rows. A conformer student is refused there
+(``parallel/distributed.py check_data_parallel``).
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ from fithubert_tpu_torch.device import resolve_device
 from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
 from fithubert_tpu_torch.ops.dropout import DropoutRNG
-from fithubert_tpu_torch.parallel.distributed import DataParallel
+from fithubert_tpu_torch.ops.specaug import BatchStripe
+from fithubert_tpu_torch.parallel.distributed import DataParallel, check_data_parallel
 from fithubert_tpu_torch.train.losses import LossOutput, collapse_pseudo_labels, compute_losses
 from fithubert_tpu_torch.train.optim import build_optimizer, optimizer_step
 
@@ -73,6 +83,8 @@ class Distiller:
                  teacher_geometry: Optional[TeacherGeometry] = None,
                  dp: Optional[DataParallel] = None):
         self.device = resolve_device(device)
+        if dp is not None:
+            check_data_parallel(cfg, dp.world)
         self.cfg = cfg
         self.dp = dp
         self.need_taps = cfg.loss.attn_loss_weight > 0 or cfg.loss.v_rel_loss_weight > 0
@@ -84,7 +96,9 @@ class Distiller:
         self.teacher.freeze()
         self.student = StudentModel(cfg.distiller,
                                     disable_projections=cfg.train.delete_projections,
-                                    device=self.device)
+                                    device=self.device,
+                                    specaug=cfg.specaug if cfg.train.specaug else None)
+        self._has_batch_stats = cfg.distiller.layer_type == "conformer"
         self.student.load_state_dict(student_state)
         self.params = list(self.student.parameters())
         if dp is not None:
@@ -94,17 +108,34 @@ class Distiller:
             self.params, cfg.optimizer, num_training_steps)
         self.step = 0
 
-    def _seed(self, micro: int) -> int:
+    def _seed(self, micro: int, rank_free: bool = False) -> int:
         seed = (self.cfg.train.seed * 1_000_003 + self.step) * 131_071 + micro
-        if self.dp is not None:  # rank 0 keeps one process's seeds
+        if self.dp is not None and not rank_free:  # rank 0 keeps one process's seeds
             seed += self.dp.rank * 0x9E3779B97F4A7C15
         return seed % (1 << 63)
 
+    def _rng(self, micro: int) -> DropoutRNG:
+        return DropoutRNG(self._seed(micro), self.device,
+                          specaug_seed=self._seed(micro, rank_free=True))
+
+    def _stripe(self, a: int, b: int) -> Optional[BatchStripe]:
+        """This rank's rows of the global batch of SpecAugment, for a batch
+        of ``b`` local rows each holding ``a`` microbatches folded in
+        (row j * a + i: local row j of microbatch i, the global batch's row
+        (rank + world * j) * a + i)."""
+        if self.dp is None or self.student.specaug is None:
+            return None
+        j = torch.arange(b).repeat_interleave(a)
+        rows = (self.dp.rank + self.dp.world * j) * a + torch.arange(a).repeat(b)
+        return BatchStripe(rows, a * b * self.dp.world, self.dp.sum)
+
     def _forward_loss(self, wav, mask, rand_layers, rng: Optional[DropoutRNG],
-                      labels=None, label_paddings=None) -> LossOutput:
+                      labels=None, label_paddings=None,
+                      stripe: Optional[BatchStripe] = None) -> LossOutput:
         cfg = self.cfg
         t_out = self.teacher(wav, mask, need_taps=self.need_taps)
-        s_out = self.student.forward_train(wav, mask, rng, need_taps=self.need_taps)
+        s_out = self.student.forward_train(wav, mask, rng, need_taps=self.need_taps,
+                                           stripe=stripe)
         ctc_logits = None
         if not cfg.distiller.teacher_task_agnostic and cfg.loss.ctc_loss_weight > 0:
             ctc_logits = s_out.x  # the student's output is read as CTC logits
@@ -148,20 +179,22 @@ class Distiller:
         x, mask, rand, labels, pads = self._inputs(batch, rand_layers)
         if x.dim() != 3:
             raise ValueError("train_step takes x of shape (A, B, T_wav)")
-        fuse_ok = (cfg.train.fuse_grad_accum and not cfg.loss.masked_reduction
-                   and cfg.loss.attn_loss_weight == 0)
+        fuse_ok = (cfg.train.fuse_grad_accum and not self._has_batch_stats
+                   and not cfg.loss.masked_reduction and cfg.loss.attn_loss_weight == 0)
+        folded = 1
         if fuse_ok and x.shape[0] > 1:
-            a, b = x.shape[:2]
+            folded, b = x.shape[:2]
             x, mask, labels, pads = (None if t is None else
-                                     t.transpose(0, 1).reshape(1, a * b, t.shape[2])
+                                     t.transpose(0, 1).reshape(1, folded * b, t.shape[2])
                                      for t in (x, mask, labels, pads))
         n_micro = x.shape[0]
+        stripe = self._stripe(folded, x.shape[1] // folded)
         self.optimizer.zero_grad(set_to_none=True)
         losses, logs = [], []
         for i in range(n_micro):
-            out = self._forward_loss(x[i], mask[i], rand, DropoutRNG(self._seed(i), self.device),
+            out = self._forward_loss(x[i], mask[i], rand, self._rng(i),
                                      None if labels is None else labels[i],
-                                     None if pads is None else pads[i])
+                                     None if pads is None else pads[i], stripe)
             out.total.backward()
             losses.append(out.total.detach())
             logs.append(out.logs)
@@ -186,8 +219,9 @@ class Distiller:
         return StepLogs(tuple(names) + ("loss", "grad_norm"), values, lr)
 
     def state_dict(self) -> Dict[str, Any]:
-        """What a resume needs: the student's weights, AdamW's moments and
-        the step count, which seeds dropout (``_seed``) and sets the lr."""
+        """What a resume needs: the student's weights (and a conformer's
+        BatchNorm running statistics), AdamW's moments and the step count,
+        which seeds dropout (``_seed``) and sets the lr."""
         return {"student": self.student.state_dict(), "optimizer": self.optimizer.state_dict(),
                 "step": self.step}
 

@@ -11,8 +11,9 @@ Distiller, takes one step per global batch on its stripe of rows
 the logs and the parameters after each step, then the eval step's logs on
 its stripe of the eval batch; it also records the random layers the loop
 draws for three epochs. The record goes to
-``<outputs dir>/rank<rank>.pt``. ``summed_rank``, ``fail_on_rank_1`` and
-``sigterm_on_rank_1`` are ranks for ``launch``.
+``<outputs dir>/rank<rank>.pt``. ``summed_rank``, ``fail_on_rank_1``,
+``sigterm_on_rank_1`` and ``specaug_step_rank`` (for tests/test_torch_mel.py)
+are ranks for ``launch``.
 """
 
 import os
@@ -97,3 +98,16 @@ def sigterm_on_rank_1(cfg):
 
 if __name__ == "__main__":
     main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+
+
+def specaug_step_rank(cfg, teacher, student, geometry, batch):
+    """A ``launch``ed rank: one data-parallel step of ``cfg`` on this rank's
+    stripe (``[:, rank::world]``) of ``batch``; returns (logs, the student's
+    state dict as numpy arrays)."""
+    torch.set_num_threads(1)
+    rank, world, _ = maybe_initialize("cpu")
+    d = Distiller(cfg, teacher, student, device="cpu", teacher_geometry=geometry,
+                  dp=DataParallel.from_process_group())
+    local = {k: torch.as_tensor(v)[:, rank::world] for k, v in batch.items()}
+    logs = d.train_step(local, None)
+    return logs, {k: v.numpy() for k, v in d.student.state_dict().items()}

@@ -56,8 +56,9 @@ def test_config_from_yaml_dict_equals_the_jax_loader(path):
                                          ("configs/smoke_ctc.yaml", "wav2vec_ctc")])
 def test_unsupported_configs_raise_naming_their_field(path, field):
     """ex.yaml's teacher hint-init and smoke_ctc.yaml's wav2vec_ctc teacher
-    load (the port has both), with the setting on; each file with a setting
-    the port still lacks (train.specaug) raises, naming it."""
+    load (the port has both), with the setting on, and so does each with
+    train.specaug; each file with a setting the port still lacks
+    (teacher.quantize_int8) raises, naming it."""
     cfg = tc.config_from_yaml_dict(_raw(path))
     if field == "init_conv_layers":
         assert cfg.distiller.init_conv_layers and cfg.distiller.init_encoder_layers == 2
@@ -66,7 +67,9 @@ def test_unsupported_configs_raise_naming_their_field(path, field):
         assert not cfg.distiller.teacher_task_agnostic
     raw = _raw(path)
     raw["train"] = {**raw["train"], "specaug": True}
-    with pytest.raises(NotImplementedError, match="train.specaug"):
+    assert tc.config_from_yaml_dict(raw).train.specaug
+    raw["teacher"] = {**raw["teacher"], "quantize_int8": True}
+    with pytest.raises(NotImplementedError, match="teacher.quantize_int8"):
         tc.config_from_yaml_dict(raw)
 
 
@@ -88,15 +91,26 @@ def test_load_labels_is_honoured():
 
 
 @pytest.mark.parametrize("change, field", [
-    (dict(train=dict(specaug=True)), "train.specaug"),
+    (dict(distiller=dict(layer_type="conformer", attn_type="espnet", pos_enc_type="rel_pos",
+                         enable_tr_layer=False), train=dict(gpus=2)),
+     "layer_type='conformer'"),
     (dict(teacher=dict(quantize_int8=True)), "teacher.quantize_int8"),
 ])
-def test_settings_the_loop_cannot_honour_raise(change, field):
+def test_settings_the_loop_cannot_honour_raise(change, field, monkeypatch, tmp_path):
+    """run_training refuses, naming the field, what it cannot run: a
+    conformer over 2 ranks (its BatchNorm statistics would be each rank's;
+    the host is taken to have the cards it asks for) and an int8 teacher.
+    The same conformer file loads, and runs on one rank."""
+    monkeypatch.setattr(loop, "world_size", lambda cfg, dev: max(1, cfg.train.num_devices))
     raw = _raw("configs/smoke.yaml")
+    raw["train"] = {**raw["train"], "output_dir": str(tmp_path / "run")}
     for section, kw in change.items():
         raw[section] = {**raw[section], **kw}
     with pytest.raises(NotImplementedError, match=field):
-        tc.config_from_yaml_dict(raw)
+        loop.run_training(tc.config_from_yaml_dict(raw), device="cpu")
+    assert not os.path.exists(tmp_path / "run")
+    if "distiller" in raw and raw["distiller"].get("layer_type") == "conformer":
+        assert tc.config_from_yaml_dict(raw).distiller.dedicated_conformer
 
 
 @pytest.mark.parametrize("path", SUPPORTED)

@@ -38,6 +38,15 @@ def _imported_modules(path):
             yield node.module
 
 
+def test_the_scan_covers_every_module_of_the_package():
+    """The import rules below read every module of the package, the
+    conformer, mel and SpecAugment modules among them."""
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("ops/conformer.py", "ops/mel.py", "ops/specaug.py", "ops/attention.py",
+                 "models/student.py", "train/step.py"):
+        assert name in files
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     for mod in _imported_modules(path):

@@ -98,7 +98,7 @@ def test_spec_parsing_rejects_like_jax(bad):
 
 
 def test_unsupported_options_raise():
-    for over in (dict(layer_type="conformer"), dict(tr_layer_type="fc3"),
+    for over in (dict(conv_bias=True), dict(tr_layer_type="fc3"),
                  dict(extractor_mode="layer_norm"), dict(pos_conv_depth=2)):
         cfg = dataclasses.replace(tconfig.fithubert_960h(), **over)
         with pytest.raises(NotImplementedError):
@@ -172,34 +172,66 @@ def test_expert_accepts_and_ignores_hub_arguments():
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("case, match", [("lightning_ckpt", "n_mels"),
+def _lightning_pair(tmp_path, distiller_over):
+    """A Lightning-shaped .ckpt of the small student and a YAML whose
+    distiller section is the student's with ``distiller_over``."""
+    _jcfg, tcfg = configs()
+    sd = jax_student_params_to_state_dict(jax_params(_jcfg, seed=1), tcfg)
+    ckpt = str(tmp_path / "FitHuBERT.ckpt")
+    torch.save({"state_dict": {f"student_model.{k}": v for k, v in sd.items()}}, ckpt)
+    yaml_path = str(tmp_path / "student.yaml")
+    sections = tconfig.dump_config(tconfig.ExperimentConfig(distiller=tcfg), yaml_path)
+    with open(yaml_path, "w") as f:
+        f.write("distiller:\n" + "".join(
+            f"  {k}: {json.dumps(v)}\n" for k, v in {**sections["distiller"],
+                                                      **distiller_over}.items()))
+    return ckpt, yaml_path
+
+
+@pytest.mark.parametrize("case, match", [("lightning_ckpt", "quantize_matmuls"),
                                          ("int8", "quantize_matmuls")],
                          ids=["lightning_ckpt", "int8"])
 def test_expert_refuses_what_the_port_cannot_serve(case, match, tmp_path):
     """A reference Lightning .ckpt is read (tests/test_torch_export.py); one
-    whose YAML asks for a mel head, which the port lacks, is refused by the
-    config's own check before any weight is read. int8 serving is refused."""
+    whose YAML asks for int8 matmuls, which the port lacks, is refused by
+    the config's own check before any weight is read. int8 serving is
+    refused."""
     _jcfg, tcfg = configs()
     if case == "lightning_ckpt":
-        sd = jax_student_params_to_state_dict(jax_params(_jcfg, seed=1), tcfg)
-        ckpt = str(tmp_path / "FitHuBERT-mel.ckpt")
-        torch.save({"state_dict": {f"student_model.{k}": v for k, v in sd.items()}}, ckpt)
-        yaml_path = str(tmp_path / "mel.yaml")
-        sections = tconfig.dump_config(tconfig.ExperimentConfig(distiller=tcfg), yaml_path)
-        with open(yaml_path, "w") as f:  # the distiller section with a mel head
-            f.write("distiller:\n" + "".join(
-                f"  {k}: {json.dumps(v)}\n" for k, v in {**sections["distiller"],
-                                                          "n_mels": 80}.items()))
-        args, kwargs = (ckpt, yaml_path), {}
+        args, kwargs = _lightning_pair(tmp_path, {"quantize_matmuls": True}), {}
     else:
         args, kwargs = ({}, tcfg), dict(int8=True)
     with pytest.raises(NotImplementedError, match=match):
         UpstreamExpert(*args, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("field, value", [
-    ("n_mels", 80), ("enable_log_mel", True), ("quantize_matmuls", True),
-])
+def test_expert_serves_a_lightning_ckpt_of_a_mel_student(tmp_path):
+    """The YAML that the port refused before the mel front-end was ported (a
+    mel head, log-mel features) now loads with a Lightning .ckpt of a mel
+    student's weights, and serves at the hop of 320 samples."""
+    from fithubert_tpu.config import StudentConfig as J
+
+    mel = {"n_mels": 40, "enable_log_mel": True, "mel_spec_head_conv_layers": "[(24, 5, 1)]",
+           "conv_feature_layers": "None"}
+    _, yaml_path = _lightning_pair(tmp_path, mel)
+    cfg = tconfig.load_yaml_config(yaml_path)
+    assert (cfg.n_mels, cfg.enable_log_mel, cfg.mel_spec_head_conv_layers) == \
+        (40, True, ((24, 5, 1),))
+    assert cfg.embed == J(**{f.name: getattr(cfg, f.name)
+                             for f in dataclasses.fields(cfg)}).embed == 24
+    sd = StudentModel(cfg, device="cpu").init_weights(torch.Generator().manual_seed(0))\
+        .state_dict()
+    ckpt = str(tmp_path / "FitHuBERT-mel.ckpt")
+    torch.save({"state_dict": {f"student_model.{k}": v for k, v in sd.items()}}, ckpt)
+    expert = UpstreamExpert(ckpt, yaml_path, device="cpu", length_quantum=800)
+    out = expert([np.random.default_rng(0).standard_normal(3000).astype(np.float32)])
+    assert expert.get_downsample_rates() == 320
+    frames = 1 + (3200 - 400) // 320  # the mel frames, before the student's TR
+    assert out["hidden_states"][0].shape[1] == frames // cfg.tr_reduce_factor
+    assert torch.isfinite(out["last_hidden_state"]).all()
+
+
+@pytest.mark.parametrize("field, value", [("quantize_matmuls", True)])
 def test_from_dict_refuses_fields_the_port_lacks(field, value):
     """A field the port has no counterpart for, set away from its JAX
     default, raises and names itself; at the default it loads."""
@@ -212,6 +244,26 @@ def test_from_dict_refuses_fields_the_port_lacks(field, value):
         == tconfig.StudentConfig.from_dict(section)
     with pytest.raises(NotImplementedError, match=name):
         tconfig.StudentConfig.from_dict({**section, field: value})
+
+
+@pytest.mark.parametrize("field, value", [
+    ("n_mels", 80), ("enable_log_mel", True),
+    ("mel_spec_head_conv_layers", "[(64, 3, 1)] * 2"), ("layer_type", "conformer"),
+    ("depthwise_conv_kernel_size", 15), ("attn_type", "espnet"), ("pos_enc_type", "rope"),
+])
+def test_from_dict_reads_the_mel_and_conformer_fields(field, value):
+    """The mel front-end's and the conformer's fields, which the port once
+    refused or dropped, are read as the JAX StudentConfig.from_dict reads
+    them, and change the config."""
+    import yaml
+
+    with open(YAML) as f:
+        section = yaml.safe_load(f)["distiller"]
+    port = tconfig.StudentConfig.from_dict({**section, field: value})
+    ref = JStudentConfig.from_dict({**section, field: value})
+    assert getattr(port, field) == getattr(ref, field)
+    assert port != tconfig.StudentConfig.from_dict(section)
+    assert (port.embed, port.downsample_rate) == (ref.embed, ref.downsample_rate)
 
 
 @pytest.mark.parametrize("field, value", [

@@ -20,6 +20,7 @@ rank each, data parallel over NCCL. Under torchrun each process is one rank:
 """
 
 import argparse
+import sys
 
 
 def main(argv=None):
@@ -50,7 +51,10 @@ def main(argv=None):
         raw[section] = {**(raw.get(section) or {}), key: yaml.safe_load(value)}
     result = run_training(config_from_yaml_dict(raw), resume=not args.no_resume,
                           test_only=args.test, device=args.device)
-    print(result)
+    # one write of the whole line: under torchrun every rank prints its
+    # result to the same file, and print's separate newline could interleave
+    sys.stdout.write(f"{result}\n")
+    sys.stdout.flush()
     return result
 
 
