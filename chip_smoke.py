@@ -14,7 +14,8 @@ run with a non-zero exit and no final line:
      conv stack (K1) of the student (C0 = 128) and of the teacher (C0 =
      512) with its bf16 GroupNorm prefix kernel, the attention forward
      (K2) at the serving and the teacher's shapes and with dropout on the
-     same keep mask, the attention
+     same keep mask, and at the wav2vec2-Large teacher's (12, 599, 16, 64),
+     the attention
      backward (K3 dQ, K4 dK/dV), the seeded dropout (K5), the conv-stack
      backward (K6, and its dW bit for bit across two calls), and K6's up
      pass against K1's output bit for bit; then at the ex student's shapes
@@ -71,6 +72,23 @@ run with a non-zero exit and no final line:
      prefix or K6) and a falling loss, SpecAugment's draws equal on the
      card and the CPU and its bands within their ranges, an fp32 step
      against the CPU with SpecAugment on, the export served without it;
+  8d. large: the release student (pred_head_final_dim 1024) distilling a
+     seeded fairseq-shaped wav2vec2-Large LV-60 teacher (layer_norm
+     extractor with conv bias, pre-LN, 24 x 1024, 16 heads of 64) written
+     as a .pt and read by load_fairseq_teacher: steps with exact launches
+     (no teacher K1 or prefix; K2 24 at (12, 599, 16, 64)) and a falling
+     loss, fp32 steps against the CPU; int8: torch._int_mm's accumulators
+     against the CPU's bit for bit, the release step with
+     teacher.quantize_int8 (its targets within cosine 0.99 of the bf16
+     teacher's, the launches unchanged), UpstreamExpert(int8=True) on three
+     ragged requests and B = 32 x 16 s against the bf16 expert, the int8
+     and bf16 steps, teacher forwards and serving forwards timed; options:
+     a release-width student with a layer_norm extractor, conv bias, a
+     3-deep positional conv and gelu_fast (no student K1, prefix or K6),
+     steps with exact launches, fp32 against the CPU; conformer-dp: the
+     rel_pos conformer (4 layers) over two gloo ranks sharing the card,
+     fp32 against one process (BatchNorm statistics included) and bf16,
+     each rank's state bit-identical to the other's;
   9. timing: serving at B = 32 x 16 s and the train step at 3 x 4 x 12 s,
      with a profile of each, the steps of paths 6 and 7, and every kernel
      against its bound, its plain version and the library call, one row per
@@ -83,7 +101,9 @@ run with a non-zero exit and no final line:
      the ex rows (path "ex") of K1, its prefix, K2 p = 0.1, K3, K4, K6;
      the rel_pos, abs and mel train steps and the rel_pos serving forward
      (B = 32 x 16 s) with their profiles, and the rows of K5 (path
-     "conformer") and K2 p = 0.1, K3, K4 (path "conformer-abs");
+     "conformer") and K2 p = 0.1, K3, K4 (path "conformer-abs"); the large
+     train step with its profile and K2's row at (12, 599, 16, 64) (path
+     "large");
   10. data parallelism: NCCL as one rank on the card, two release steps
      through the data-parallel path bit for bit against the plain step;
      two gloo ranks sharing the card (spawned by ``launch``), fp32 against
@@ -1933,11 +1953,11 @@ def batch_norms(model):
     return [m for m in model.modules() if isinstance(m, RowMaskedBatchNorm)]
 
 
-def fp32_card_vs_cpu(exp, t_state, s_state, gen, what, steps=2, rand=None):
+def fp32_card_vs_cpu(exp, t_state, s_state, gen, what, steps=2, rand=None, geometry=None):
     """fp32 steps without dropout on the card and on the CPU (plain
     versions), 1 x 2 s: loss and grad_norm to TRAIN_RTOL, the parameters to
     TRAIN_PARAM_ATOL and a conformer's running statistics to BN_STATS_TOL
-    after the steps."""
+    after the steps. ``geometry``: the teacher's, where not the config's."""
     import torch
 
     from fithubert_tpu_torch.train.step import Distiller
@@ -1948,8 +1968,10 @@ def fp32_card_vs_cpu(exp, t_state, s_state, gen, what, steps=2, rand=None):
                                       attention_dropout=0.0, activation_dropout=0.0,
                                       dropout_input=0.0))
     small = train_batch(gen, 1, 1, 2.0, ragged=False)
-    on_card = Distiller(exp32, t_state, s_state, device="cuda", num_training_steps=20)
-    on_cpu = Distiller(exp32, t_state, s_state, device="cpu", num_training_steps=20)
+    on_card = Distiller(exp32, t_state, s_state, device="cuda", num_training_steps=20,
+                        teacher_geometry=geometry)
+    on_cpu = Distiller(exp32, t_state, s_state, device="cpu", num_training_steps=20,
+                       teacher_geometry=geometry)
     for i in range(steps):
         lg, lc = on_card.train_step(small, rand), on_cpu.train_step(small, rand)
         for key in ("loss", "grad_norm"):
@@ -2285,6 +2307,397 @@ def mel_phase(geom, t_state, gen, smi, tmp):
     return d, fixed, launches, rand, expert
 
 
+LARGE_STEPS = 5
+# wav2vec2-Large LV-60 (fairseq examples/wav2vec/config/pretraining/
+# wav2vec2_large_librivox.yaml): the standard 7-block extractor in
+# layer_norm mode with conv bias, pre-LN, 24 layers of 1024, FFN 4096, 16
+# heads of 64, the positional conv k 128 in 16 groups.
+LARGE = dict(model_type="wav2vec2", extractor_mode="layer_norm", conv_bias=True,
+             layer_norm_first=True, encoder_layers=24, encoder_embed_dim=1024,
+             encoder_ffn_embed_dim=4096, encoder_attention_heads=16)
+# The int8 targets against the bf16 teacher's: tests/test_quant.py's bound
+# for the JAX package's int8 teacher (cosine above 0.99 for x, every layer's
+# hidden and the features), and for the int8 expert against the float one.
+INT8_COSINE = 0.99
+# The options of the [options] phase: every encoder and extractor option
+# that the port once refused, at the release student's width.
+OPTIONS = dict(extractor_mode="layer_norm", conv_bias=True, pos_conv_depth=3,
+               activation_fn="gelu_fast")
+# [conformer-dp]: the rel_pos conformer at this depth (an earlier path, cut
+# to keep the script inside its time limit), its global batch of 2
+# microbatches of 2 x DP_WORLD rows.
+CONFORMER_DP_LAYERS = 4
+
+
+def cosine(a, b) -> float:
+    import torch
+
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float(a @ b / torch.clamp(a.norm() * b.norm(), min=1e-9))
+
+
+def timed(fn, n):
+    """(median, min, max) of n host-clock walls of fn, each to a device sync."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def large_phase(exp, gen, smi, tmp):
+    """[large] the release student (pred_head_final_dim 1024) distilling a
+    seeded fairseq-shaped wav2vec2-Large LV-60 teacher, written as a .pt
+    and read by load_fairseq_teacher: a ragged step and LARGE_STEPS steps on
+    one 3 x 4 x 12 s batch in bf16 with dropout 0.1, each with exact
+    launches (the teacher's extractor runs no K1 and no prefix: layer_norm
+    mode with conv bias), a falling loss, then fp32 steps card vs CPU.
+    Returns (the Distiller, its fixed batch, the launches per step, its
+    random layers)."""
+    import torch
+
+    from fithubert_tpu_torch.config import TeacherConfig
+    from fithubert_tpu_torch.export.fairseq_import import load_fairseq_teacher
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+    from fithubert_tpu_torch.train.step import Distiller
+
+    want_geom = TeacherGeometry(**LARGE)
+    t0 = time.perf_counter()
+    sd = TeacherModel(want_geom, device="cpu").init_weights(gen).state_dict()
+    pt = os.path.join(tmp, "wav2vec2_large_lv60.pt")
+    torch.save({"model": sd, "cfg": {"model": dict(fairseq_cfg(want_geom), conv_bias=True)}},
+               pt)
+    del sd
+    geom, t_state = load_fairseq_teacher(pt)
+    os.remove(pt)
+    if geom != want_geom:
+        fail(f"[large] load_fairseq_teacher read {geom}, want {want_geom}")
+    n_params = sum(v.numel() for v in t_state.values())
+    print(f"  teacher: a seeded wav2vec2-Large-shaped fairseq .pt of {n_params / 1e6:.1f} M "
+          f"parameters, read by load_fairseq_teacher as {LARGE} in "
+          f"{time.perf_counter() - t0:.1f} s ok", flush=True)
+    exp_l = dataclasses.replace(
+        exp, teacher=TeacherConfig(**{k: v for k, v in LARGE.items()
+                                      if k.startswith(("model_type", "encoder_"))}),
+        distiller=dataclasses.replace(exp.distiller, pred_head_final_dim=1024))
+    s_state = StudentModel(exp_l.distiller, device="cpu").init_weights(gen).state_dict()
+    cfg, a, b = exp_l.distiller, exp_l.train.accumulate_grad_batches, exp_l.train.batch_size
+    n_stack, l_s = len(cfg.conv_feature_layers) - 1, cfg.encoder_layers
+    per_step = {cf.KERNEL: n_stack, cf.KERNEL_PREFIX: 1, fa.KERNEL: geom.encoder_layers,
+                fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s,
+                cf.KERNEL_BWD: 4 * n_stack}
+    rand = torch.randperm(cfg.encoder_layers - 1, generator=gen)
+    d = Distiller(exp_l, t_state, s_state, device="cuda", num_training_steps=20,
+                  teacher_geometry=geom)
+    logs, launches = launches_of_step(d, train_batch(gen, a, b, 12.0, ragged=True), rand,
+                                      per_step, "[large] ragged step")
+    print(f"  step 0 (ragged 3 x 4, one fabricated row): loss {logs['loss']:.6f} grad_norm "
+          f"{logs['grad_norm']:.6f}; launches {json.dumps(launches)} ok", flush=True)
+    fixed = train_batch(gen, a, b, 12.0, ragged=False)
+    losses = [launches_of_step(d, fixed, rand, per_step, f"[large] step {i + 1}")[0]["loss"]
+              for i in range(LARGE_STEPS)]
+    if not losses[-1] < losses[0]:
+        fail(f"[large] the loss did not fall over {LARGE_STEPS} steps: {losses}")
+    print(f"  steps 1-{LARGE_STEPS} on one 3 x 4 x 12 s batch: loss "
+          f"{[round(x, 6) for x in losses]} fell; every step launched {json.dumps(launches)} "
+          f"ok", flush=True)
+    fp32_card_vs_cpu(exp_l, t_state, s_state, gen, "[large]", rand=rand, geometry=geom)
+    return d, fixed, launches, rand
+
+
+def int8_phase(exp, t_state, s_state, state, cfg, rand_layers, per_step, gen, smi):
+    """[int8] s8 x s8 -> s32 on the card (torch._int_mm) against the CPU bit
+    for bit at the teacher's shapes; the release step with
+    teacher.quantize_int8 (launches unchanged, targets within INT8_COSINE
+    of the bf16 teacher's); UpstreamExpert(int8=True) on three ragged
+    requests and at B = 32 x 16 s against the bf16 expert; the int8 and
+    bf16 teacher steps and serving forwards timed."""
+    import torch
+
+    from fithubert_tpu_torch.export.expert import UpstreamExpert
+    from fithubert_tpu_torch.ops import quant
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+    from fithubert_tpu_torch.train.step import Distiller
+
+    rows = exp.train.batch_size * exp.train.accumulate_grad_batches * cf.out_len(
+        12 * SR, ((512, 10, 5),) + ((512, 3, 2),) * 4 + ((512, 2, 2),) * 2)
+    for k, n in ((512, 768), (768, 768), (768, 3072), (3072, 768)):
+        g = torch.Generator().manual_seed(k * n)
+        a = torch.randint(-127, 128, (rows, k), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        got = quant.int_mm(a.cuda(), w.cuda().t())
+        want = quant.int_mm(a, w.t())
+        if got.dtype != torch.int32 or not torch.equal(got.cpu(), want):
+            fail(f"[int8] int_mm ({rows}, {k}) x ({k}, {n}) on the card differs from the CPU")
+    print(f"  int_mm (torch._int_mm, cuBLASLt) on the card: the int32 accumulators of "
+          f"({rows}, K) x (K, N) for (K, N) in (512, 768), (768, 768), (768, 3072), "
+          f"(3072, 768) equal the CPU's bit for bit ok", flush=True)
+
+    exp_q = dataclasses.replace(exp, teacher=dataclasses.replace(exp.teacher,
+                                                                 quantize_int8=True))
+    a, b = exp.train.accumulate_grad_batches, exp.train.batch_size
+    fixed = train_batch(gen, a, b, 12.0, ragged=False)
+    d_q = Distiller(exp_q, t_state, s_state, device="cuda", num_training_steps=20)
+    d_f = Distiller(exp, t_state, s_state, device="cuda", num_training_steps=20)
+    marked = [m for m in d_q.teacher.modules() if getattr(m, "quantize", False)]
+    if not marked or any(m.weight_q.dtype != torch.int8 for m in marked):
+        fail("[int8] the teacher's call sites hold no int8 payloads")
+    x = fixed["x"].reshape(-1, fixed["x"].shape[-1]).cuda()
+    m = fixed["padding_mask"].reshape(x.shape).cuda()
+    _build.reset_launches()
+    tq = d_q.teacher(x, m)
+    torch.cuda.synchronize()
+    t_launches = dict(_build.LAUNCHES)
+    tf = d_f.teacher(x, m)
+    names = ["x", "features"] + [f"layer {i}" for i in range(len(tq.layer_results))]
+    cos = [cosine(q.float(), f.float()) for q, f in zip(
+        [tq.x, tq.features] + [h for h, _, _ in tq.layer_results],
+        [tf.x, tf.features] + [h for h, _, _ in tf.layer_results])]
+    if min(cos) <= INT8_COSINE:
+        fail(f"[int8] int8 targets vs bf16: cosine {dict(zip(names, cos))}")
+    print(f"  {len(marked)} teacher matmuls int8 ({len(marked) // 6} layers' q/k/v/out, fc1, "
+          f"fc2 and post_extract_proj); its targets on the 3 x 4 x 12 s batch vs the bf16 "
+          f"teacher's: min cosine {min(cos):.6f} ({names[cos.index(min(cos))]}), all > "
+          f"{INT8_COSINE} ok; the teacher's launches {json.dumps(t_launches)}", flush=True)
+    del tq, tf
+    logs, launches = launches_of_step(d_q, fixed, rand_layers, per_step, "[int8] step")
+    print(f"  release step with teacher.quantize_int8: loss {logs['loss']:.6f} grad_norm "
+          f"{logs['grad_norm']:.6f}; launches {json.dumps(launches)} (the release step's) ok",
+          flush=True)
+    for what, d in (("int8", d_q), ("bf16", d_f), ("int8", d_q), ("bf16", d_f)):
+        med, lo, hi = timed(lambda: d.train_step(fixed, rand_layers), 5)
+        print(f"  [timing] release train step, {what} teacher: median {med:.3f} ms over 5 "
+              f"(min {lo:.3f}, max {hi:.3f}); {smi}", flush=True)
+    with torch.no_grad():
+        for what, d in (("int8", d_q), ("bf16", d_f), ("int8", d_q), ("bf16", d_f)):
+            ms = cuda_ms(lambda: d.teacher(x, m), reps=5, warmup=2)
+            print(f"  [timing] the {what} teacher's forward on 12 x 12 s: {ms:.3f} ms (CUDA "
+                  f"events, mean of 5); {smi}", flush=True)
+    del d_q, d_f
+    torch.cuda.empty_cache()
+
+    e_q = UpstreamExpert(state, cfg, device="cuda", int8=True)
+    e_f = UpstreamExpert(state, cfg, device="cuda")
+    requests = [[torch.randn(int(3.7 * SR), generator=gen) * 0.1],
+                ragged_wavs(gen, 4, 2.0, 16.0),
+                [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(32)]]
+    e_q(requests[0])
+    for wav_list in requests:
+        _build.reset_launches()
+        oq = e_q(wav_list)
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        want_l = {cf.KERNEL_PREFIX: 1, cf.KERNEL: len(cfg.conv_feature_layers) - 1,
+                  fa.KERNEL: cfg.encoder_layers}
+        if got != want_l:
+            fail(f"[int8] serving: launches {got}, want {want_l}")
+        of = e_f(wav_list)
+        outs = list(zip((oq["last_hidden_state"], *oq["hidden_states"]),
+                        (of["last_hidden_state"], *of["hidden_states"])))
+        cos = [cosine(q.float(), f.float()) for q, f in outs]
+        if min(cos) <= INT8_COSINE or all(torch.equal(q, f) for q, f in outs):
+            fail(f"[int8] serving B={len(wav_list)}: cosine to the bf16 expert {cos}")
+        if not torch.equal(oq["padding_mask"], of["padding_mask"]):
+            fail("[int8] serving: padding masks differ")
+        print(f"  int8 expert, request B={len(wav_list)}: {len(outs)} outputs, min cosine to "
+              f"the bf16 expert's {min(cos):.6f} > {INT8_COSINE}, launches {json.dumps(got)} "
+              f"ok", flush=True)
+    bench = requests[-1]
+    for what, e in (("int8", e_q), ("bf16", e_f), ("int8", e_q), ("bf16", e_f)):
+        med, lo, hi = timed(lambda: e(bench), 10)
+        print(f"  [timing] serving forward B=32 x 16 s, {what}: median {med:.3f} ms over 10 "
+              f"(min {lo:.3f}, max {hi:.3f}), {32 * 16 / (med / 1e3):.1f} audio-s/s; {smi}",
+              flush=True)
+    profile_device(lambda: e_q(bench), "int8 forward", top=8)
+    del e_q, e_f
+    torch.cuda.empty_cache()
+
+
+def options_phase(exp, geom, t_state, rand_layers, gen, smi):
+    """[options] a release-width student with every option the port once
+    refused (OPTIONS: layer_norm extractor, conv bias, a 3-deep positional
+    conv, gelu_fast): a ragged bf16 step and one on a fixed batch with
+    exact launches (the student's extractor takes JAX's unfused loop: no
+    student K1, prefix or K6), then fp32 steps card vs CPU."""
+    import torch
+
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+    from fithubert_tpu_torch.train.step import Distiller
+
+    exp_o = dataclasses.replace(exp, distiller=dataclasses.replace(exp.distiller, **OPTIONS))
+    cfg, a, b = exp_o.distiller, exp_o.train.accumulate_grad_batches, exp_o.train.batch_size
+    student = StudentModel(cfg, device="cpu").init_weights(gen)
+    if student.feature_extractor.fused:
+        fail("[options] the layer_norm extractor took the fused path")
+    s_state = student.state_dict()
+    l_s = cfg.encoder_layers
+    per_step = {cf.KERNEL: len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 1,
+                fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s,
+                fa.KERNEL_DKV: l_s}
+    d = Distiller(exp_o, t_state, s_state, device="cuda", num_training_steps=20)
+    for what, batch in (("ragged", train_batch(gen, a, b, 12.0, ragged=True)),
+                        ("fixed", train_batch(gen, a, b, 12.0, ragged=False))):
+        logs, launches = launches_of_step(d, batch, rand_layers, per_step, f"[options] {what}")
+        print(f"  {what} step: loss {logs['loss']:.6f} grad_norm {logs['grad_norm']:.6f}; "
+              f"launches {json.dumps(launches)} ok", flush=True)
+    if not all(torch.isfinite(p).all().item() for p in d.params):
+        fail("[options] non-finite parameters")
+    med, lo, hi = timed(lambda: d.train_step(batch, rand_layers), 5)
+    print(f"  [timing] options train step, 3 x 4 x 12 s, bf16: median {med:.3f} ms over 5 "
+          f"(min {lo:.3f}, max {hi:.3f}); {smi}", flush=True)
+    profile_device(lambda: d.train_step(batch, rand_layers), "options train step", top=10,
+                   unprofiled_ms=med)
+    del d
+    torch.cuda.empty_cache()
+    fp32_card_vs_cpu(exp_o, t_state, s_state, gen, "[options]", rand=rand_layers)
+    return launches
+
+
+def conformer_dp_rank(spec_path):
+    """One of the [conformer-dp] gloo ranks: for each case, a data-parallel
+    conformer Distiller takes its steps on this rank's stripe; per step the
+    logs and launches, and the state (parameters and BatchNorm statistics)
+    as numpy arrays."""
+    import torch
+
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.train.step import Distiller
+
+    dp, dev = gloo_rank_setup()
+    spec = torch.load(spec_path, weights_only=False)
+    out = {}
+    for case in ("fp32", "bf16"):
+        c = spec[case]
+        d = Distiller(c["exp"], spec["t_state"], c["s_state"], device=dev,
+                      num_training_steps=20, dp=dp)
+        steps = []
+        for batch in c["batches"]:
+            local = {k: v[:, dp.rank::dp.world] for k, v in batch.items()}
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            logs = d.train_step(local, spec["rand"])
+            torch.cuda.synchronize()
+            steps.append(dict(logs=logs, launches=dict(_build.LAUNCHES)))
+        out[case] = {"steps": steps, "state": {k: v.detach().cpu().numpy() for k, v in
+                                               d.student.state_dict().items()}}
+        del d
+        torch.cuda.empty_cache()
+    return out
+
+
+def conformer_dp_phase(geom, t_state, per_step_of, gen, smi, tmp):
+    """[conformer-dp] the rel_pos conformer (CONFORMER_DP_LAYERS layers)
+    over two gloo ranks sharing the card: fp32 without dropout against one
+    process on the global batch (logs, parameters, every BatchNorm's
+    running statistics), and bf16 with dropout; in both, the ranks' states
+    (statistics included) bit-identical, and each rank's launches a
+    conformer step's on its rows."""
+    import torch
+
+    from fithubert_tpu_torch.config import conformer_experiment
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import dropout as kd
+    from fithubert_tpu_torch.parallel.distributed import launch
+    from fithubert_tpu_torch.train.step import Distiller
+
+    exp_c = conformer_experiment("rel_pos")
+    exp_c = dataclasses.replace(exp_c, distiller=dataclasses.replace(
+        exp_c.distiller, encoder_layers=CONFORMER_DP_LAYERS, pred_layer_id=(3,)),
+        loss=dataclasses.replace(exp_c.loss, distil_random_layer=CONFORMER_DP_LAYERS - 1))
+    exp32 = dataclasses.replace(
+        exp_c, train=dataclasses.replace(exp_c.train, use_fp16=False),
+        distiller=dataclasses.replace(exp_c.distiller, compute_dtype="float32", dropout=0.0,
+                                      attention_dropout=0.0, activation_dropout=0.0,
+                                      dropout_input=0.0))
+    s_state = StudentModel(exp_c.distiller, device="cpu").init_weights(gen).state_dict()
+    a, b = 2, exp_c.train.batch_size
+    rand = torch.randperm(CONFORMER_DP_LAYERS - 1, generator=gen)
+    spec = {"t_state": t_state, "rand": rand,
+            "fp32": {"exp": exp32, "s_state": s_state,
+                     "batches": [train_batch(gen, a, DP_WORLD * 1, 3.0, ragged=True),
+                                 train_batch(gen, a, DP_WORLD * 1, 3.0, ragged=False)]},
+            "bf16": {"exp": exp_c, "s_state": s_state,
+                     "batches": [train_batch(gen, a, DP_WORLD * b, 12.0, ragged=True),
+                                 train_batch(gen, a, DP_WORLD * b, 12.0, ragged=False)]}}
+    spec_path = os.path.join(tmp, "conformer_dp_spec.pt")
+    torch.save(spec, spec_path)
+    t0 = time.perf_counter()
+    try:
+        ranks = launch(conformer_dp_rank, DP_WORLD, spec_path, timeout=DP_RANK_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[conformer-dp] gloo ranks: {e}")
+    print(f"  {DP_WORLD} ranks spawned, joined and done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for case in ("fp32", "bf16"):
+        r0, r1 = ranks[0][case], ranks[1][case]
+        for k in r0["state"]:
+            if not (r0["state"][k] == r1["state"][k]).all():
+                fail(f"[conformer-dp] {case}: {k} differs between the ranks")
+        n_stats = sum(k.endswith(("running_mean", "running_var")) for k in r0["state"])
+        for i, (s0, s1) in enumerate(zip(r0["steps"], r1["steps"])):
+            if s0["logs"] != s1["logs"]:
+                fail(f"[conformer-dp] {case} step {i}: logs differ between the ranks")
+            local_rows = spec[case]["batches"][i]["x"].shape[1] // DP_WORLD
+            want = per_step_of(dataclasses.replace(
+                spec[case]["exp"], train=dataclasses.replace(
+                    spec[case]["exp"].train, accumulate_grad_batches=a,
+                    batch_size=local_rows)))
+            if spec[case]["exp"].distiller.dropout == 0.0:
+                want.pop(kd.KERNEL)  # no dropout: no probabilities dropped
+            if spec[case]["exp"].distiller.compute_dtype == "float32":
+                want.pop(cf.KERNEL_PREFIX)  # fp32: block 0's GroupNorm runs in K1's tiles
+            for r, st in enumerate((s0, s1)):
+                if st["launches"] != want:
+                    fail(f"[conformer-dp] {case} step {i} rank {r}: launches {st['launches']}, "
+                         f"want {want}")
+        print(f"  {case}: after {len(r0['steps'])} steps the ranks' states ({len(r0['state'])} "
+              f"tensors, {n_stats} BatchNorm running statistics) are bit-identical, their logs "
+              f"equal; launches per rank {json.dumps(r0['steps'][-1]['launches'])} ok",
+              flush=True)
+    one = Distiller(exp32, t_state, s_state, device="cuda", num_training_steps=20)
+    for i, batch in enumerate(spec["fp32"]["batches"]):
+        want = one.train_step(batch, rand)
+        got = ranks[0]["fp32"]["steps"][i]["logs"]
+        for key in ("loss", "grad_norm"):
+            rel = abs(got[key] - want[key]) / abs(want[key])
+            if rel > TRAIN_RTOL:
+                fail(f"[conformer-dp] fp32 step {i}: {key} {got[key]} vs one process "
+                     f"{want[key]} (rel {rel:.3e})")
+        print(f"  fp32 step {i}: loss {got['loss']:.8f} vs one process {want['loss']:.8f}, "
+              f"grad_norm {got['grad_norm']:.8f} vs {want['grad_norm']:.8f} tol rel "
+              f"{TRAIN_RTOL} ok", flush=True)
+    worst = worst_bn = 0.0
+    for k, v in one.student.state_dict().items():
+        g, c = torch.from_numpy(ranks[0]["fp32"]["state"][k]), v.detach().cpu()
+        err = (g - c).abs()
+        if k.endswith(("running_mean", "running_var")):
+            worst_bn = max(worst_bn, err.max().item())
+            if not bool((err <= BN_STATS_TOL["atol"] + BN_STATS_TOL["rtol"] * c.abs()).all()):
+                fail(f"[conformer-dp] fp32: {k} differs from one process's by "
+                     f"{err.max().item():.3e}")
+        else:
+            worst = max(worst, err.max().item())
+    if worst > TRAIN_PARAM_ATOL:
+        fail(f"[conformer-dp] fp32: parameters differ from one process's by {worst:.3e}")
+    print(f"  fp32 vs one process on the global batch: parameters max_abs_err={worst:.3e} "
+          f"tol={TRAIN_PARAM_ATOL}, BatchNorm statistics max_abs_err={worst_bn:.3e} "
+          f"tol=({BN_STATS_TOL['atol']}, {BN_STATS_TOL['rtol']}) ok; {smi}", flush=True)
+    del one
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     laps = [("device and build", t_start)]
@@ -2368,7 +2781,11 @@ def main() -> int:
     print("[kernels] flash_attention_fwd_cuda vs attention_plain, ragged masks", flush=True)
     teacher_attn = (12, cf.out_len(12 * SR, geom.conv_feature_layers), geom.encoder_attention_heads,
                     geom.encoder_embed_dim // geom.encoder_attention_heads)
-    for (b, t, h, d) in ((8, 399, 12, 40), (4, 799, 12, 64), teacher_attn, (2, 130, 2, 40)):
+    # the wav2vec2-Large teacher of [large]: 16 heads of 64 over the same frames
+    large_attn = (12, teacher_attn[1], LARGE["encoder_attention_heads"],
+                  LARGE["encoder_embed_dim"] // LARGE["encoder_attention_heads"])
+    for (b, t, h, d) in ((8, 399, 12, 40), (4, 799, 12, 64), teacher_attn, large_attn,
+                         (2, 130, 2, 40)):
         lengths = torch.randint(t // 2, t + 1, (b,), generator=gen)
         lengths[0] = t
         mask = torch.arange(t)[None, :] >= lengths[:, None]
@@ -2392,6 +2809,8 @@ def main() -> int:
                 print("  fully padded row: out = 0, lse = -1e30 ok", flush=True)
             if dtype_name == "bfloat16" and (b, t, h, d) == teacher_attn:
                 errs["attn_train"] = e
+            elif dtype_name == "bfloat16" and (b, t, h, d) == large_attn:
+                errs["attn_large"] = e
             elif dtype_name == "bfloat16" and b != 2:
                 errs["attn"] = max(errs.get("attn", 0.0), e)
 
@@ -2720,6 +3139,33 @@ def main() -> int:
         geom, t_state, gen, smi, work.name)
     print(f"[mel] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- 8d. this slice: a wav2vec2-Large teacher, int8, the encoder
+    # options, and the conformer over two ranks
+    lap("large, int8, options, conformer-dp")
+    t_phase = time.perf_counter()
+    print("[large] Distiller(the release student, pred_head_final_dim 1024, a seeded "
+          "wav2vec2-Large LV-60 teacher from a fairseq .pt), bf16, dropout 0.1, 3 x 4 folded",
+          flush=True)
+    distiller_large, fixed_large, path_launches["large"], rand_large = large_phase(
+        exp, gen, smi, work.name)
+    print(f"[large] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    print("[int8] int8 matmuls: torch._int_mm against the CPU, the release step with "
+          "teacher.quantize_int8, UpstreamExpert(int8=True)", flush=True)
+    int8_phase(exp, t_state, s_state, state, cfg, rand_layers, per_step, gen, smi)
+    print(f"[int8] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    print(f"[options] the release Distiller with the student's {OPTIONS}, HuBERT-Base "
+          f"teacher, bf16, dropout 0.1, 3 x 4 folded", flush=True)
+    path_launches["options"] = options_phase(exp, geom, t_state, rand_layers, gen, smi)
+    print(f"[options] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    print(f"[conformer-dp] the rel_pos conformer ({CONFORMER_DP_LAYERS} layers) over "
+          f"{DP_WORLD} gloo ranks sharing the card, against one process", flush=True)
+    conformer_dp_phase(geom, t_state, lambda e: conformer_per_step(e, geom), gen, smi,
+                       work.name)
+    print(f"[conformer-dp] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- 9. timing
     lap("timing")
     print("[timing] B=32 x 16 s, bf16", flush=True)
@@ -2826,6 +3272,16 @@ def main() -> int:
         profile_device(lambda: d.train_step(batch, rand), f"{what} train step", top=12,
                        unprofiled_ms=med)
     conformers.clear()  # frees the conformers' Distillers
+    print(f"[timing] large train step (the wav2vec2-Large teacher), 3 x 4 x 12 s, bf16; "
+          f"{smi}", flush=True)
+    med, lo, hi = timed(lambda: distiller_large.train_step(fixed_large, rand_large), 5)
+    print(f"  large train step: median {med:.3f} ms over 5 (min {lo:.3f}, max {hi:.3f}), "
+          f"{1e3 / med:.3f} steps/s, {audio_s / (med / 1e3):.1f} audio-s/s; the release step "
+          f"{step_ms:.3f} ms", flush=True)
+    profile_device(lambda: distiller_large.train_step(fixed_large, rand_large),
+                   "large train step", top=14, unprofiled_ms=med)
+    del distiller_large
+    torch.cuda.empty_cache()
     print(f"[timing] rel_pos conformer serving forward, B=32 x 16 s, bf16; {smi}", flush=True)
     for _ in range(2):
         expert_conf(bench)
@@ -2929,6 +3385,14 @@ def main() -> int:
     row(fa.KERNEL, "flash_attention.cu", "flash_attention.py:243", "train",
         f"teacher {tuple(q.shape)}", errs["attn_train"], a_ms, a_plain, a_work, a_lib)
     goals.append((f"K2 p=0 teacher {tuple(q.shape)}", a_ms, a_lib, 1.5, None))
+    del q, k, v, mask
+    # large: K2 at p = 0, the wav2vec2-Large teacher's attention, (12, 599, 16, 64)
+    q, k, v, mask = attention_qkv(*large_attn)
+    a_ms, a_plain, a_work, a_lib = attention_fwd_times(q, k, v, mask)
+    row(fa.KERNEL, "flash_attention.cu", "flash_attention.py:243", "large",
+        f"wav2vec2-Large teacher {tuple(q.shape)}", errs["attn_large"], a_ms, a_plain, a_work,
+        a_lib)
+    goals.append((f"K2 p=0 large teacher {tuple(q.shape)}", a_ms, a_lib, 1.5, None))
     del q, k, v, mask
 
     def attention_train_rows(shape4, path, who):

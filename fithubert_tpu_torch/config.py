@@ -76,15 +76,20 @@ def conv_spec_tuple(spec: Any) -> Tuple[Tuple[int, int, int], ...]:
     return tuple(out)
 
 
-# Fields of the JAX StudentConfig (fithubert_tpu/config.py:95-169) that the
-# port has no counterpart for, with their JAX defaults: int8 matmuls.
-REFUSED = {"quantize_matmuls": False}
+# Fields of the JAX StudentConfig (fithubert_tpu/config.py:95-169) that
+# ``from_dict`` reads and drops: none of them changes the model the JAX
+# package builds. ``tr_conv1d_kernel`` is ignored there too
+# (``fithubert_tpu/ops/transformer.py:141-143``); ``final_dim``,
+# ``max_positions`` and ``fp16`` are read by no JAX module; the rest are
+# its TPU compile switches (remat, lax.scan over layers, the Pallas kernels).
+NO_EFFECT = ("checkpoint_activations", "final_dim", "fp16", "max_positions", "scan_layers",
+             "tr_conv1d_kernel", "use_pallas_attention", "use_pallas_conv")
 
 
 @dataclass(frozen=True)
 class StudentConfig:
     # Extractor
-    extractor_mode: str = "default"  # only 'default' (GroupNorm on block 0)
+    extractor_mode: str = "default"  # 'default' (GroupNorm on block 0) | 'layer_norm' (every block)
     conv_feature_layers: Tuple[Tuple[int, int, int], ...] = (
         (512, 10, 5),
         (512, 3, 2),
@@ -156,6 +161,9 @@ class StudentConfig:
     cnn_weight: float = 0.0
 
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    # int8 matmuls (ops/quant.py) at the encoder's q/k/v/out, fc1 / fc2 and
+    # the conformer's projections and FFN: serving only (Distiller refuses it)
+    quantize_matmuls: bool = False
 
     @property
     def embed(self) -> int:
@@ -191,23 +199,22 @@ class StudentConfig:
         return r
 
     def check_supported(self) -> None:
-        """Raise on options the port's encoder does not implement yet. The
-        heads are checked by ``StudentModel``, so the teacher's encoder view
-        (no TR layer, no heads) passes."""
-        unsupported = {
-            "extractor_mode": (self.extractor_mode, "default"),
-            "conv_bias": (self.conv_bias, False),
-            "pos_conv_depth": (self.pos_conv_depth, 1),
-            "activation_fn": (self.activation_fn, "gelu"),
-        }
-        for name, (got, want) in unsupported.items():
-            if got != want:
-                raise NotImplementedError(
-                    f"{name}={got!r}: the PyTorch port supports only {want!r}")
+        """Raise where the JAX package raises on building the model: an
+        unknown extractor mode, activation or layer type, a TR type other
+        than conv1d / fc1 / fc2 (``fc3`` included), log-mel without mels.
+        The heads are checked by ``StudentModel``, so the teacher's encoder
+        view (no TR layer, no heads) passes."""
+        from fithubert_tpu_torch.ops.activations import ACTIVATIONS
+
+        if self.extractor_mode not in ("default", "layer_norm"):
+            raise ValueError(f"extractor_mode {self.extractor_mode!r}: one of 'default', "
+                             "'layer_norm'")
+        if self.activation_fn not in ACTIVATIONS:
+            raise ValueError(f"activation_fn {self.activation_fn!r}: one of "
+                             f"{sorted(ACTIVATIONS)}")
         if self.layer_type not in ("transformer", "conformer"):
             raise NotImplementedError(
-                f"layer_type={self.layer_type!r}: the PyTorch port supports only "
-                "'transformer' and 'conformer'")
+                f"layer_type={self.layer_type!r}: one of 'transformer' and 'conformer'")
         if self.n_mels <= 0 and self.enable_log_mel:
             raise ValueError("enable_log_mel needs n_mels > 0")
         if self.enable_tr_layer and self.tr_layer_type not in ("conv1d", "fc1", "fc2"):
@@ -218,21 +225,20 @@ class StudentConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any], use_fp16: bool = False) -> "StudentConfig":
-        """Build from a reference-style ``distiller:`` section, keeping only the
-        fields this config has; ``use_fp16`` (the ``train:`` key) selects
-        bfloat16 compute as the JAX loader does. Raises NotImplementedError
-        for a field of ``REFUSED`` set away from the JAX default: the port
-        would build another model than the reference."""
+        """Build from a reference-style ``distiller:`` section; ``use_fp16``
+        (the ``train:`` key) selects bfloat16 compute as the JAX loader
+        does. The fields of ``NO_EFFECT`` are read and dropped; any key that
+        the JAX StudentConfig lacks too raises ValueError, naming it, as
+        ``fithubert_tpu/config.py:209-212`` does."""
         d = dict(d)
         if "_teacher_task_agnostic" in d:  # the reference's private field names
             d["teacher_task_agnostic"] = bool(d.pop("_teacher_task_agnostic"))
         if "_cnn_weight" in d:
             d["cnn_weight"] = float(d.pop("_cnn_weight"))
-        for name, default in REFUSED.items():
-            if name in d and d[name] != default:
-                raise NotImplementedError(
-                    f"{name}={d[name]!r}: the PyTorch port supports only {default!r}")
         known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known - set(NO_EFFECT)
+        if unknown:
+            raise ValueError(f"unknown distiller config keys: {sorted(unknown)}")
         kw = {k: v for k, v in d.items() if k in known}
         for key in ("conv_feature_layers", "mel_spec_head_conv_layers"):
             if key in kw:
@@ -441,18 +447,6 @@ class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     specaug: SpecAugConfig = field(default_factory=SpecAugConfig)
 
-    def check_supported(self) -> None:
-        """Raise NotImplementedError, naming the field and the ROADMAP item
-        that will bring it, for a setting the port's loop cannot honour."""
-        refused = (
-            ("teacher.quantize_int8", self.teacher.quantize_int8,
-             "Queue 1 item 6 (ops/quant.py)"),
-        )
-        for name, on, item in refused:
-            if on:
-                raise NotImplementedError(
-                    f"{name}: the PyTorch port does not run it yet (ROADMAP {item})")
-
 
 _LOSS_KEYS = {f.name for f in dataclasses.fields(LossConfig)}
 
@@ -472,8 +466,8 @@ def config_from_yaml_dict(raw: Dict[str, Any]) -> ExperimentConfig:
     """A reference-schema dict (teacher / train / distiller / optimizer /
     data / specaug) -> ``ExperimentConfig``, resolved as the JAX package's
     ``config_from_yaml_dict`` (``fithubert_tpu/config.py:390``) resolves it.
-    Raises NotImplementedError for what the port cannot run
-    (``ExperimentConfig.check_supported``, ``REFUSED``)."""
+    Raises ValueError for a ``distiller:`` key the JAX package does not
+    know (``StudentConfig.from_dict``)."""
     raw = dict(raw or {})
     teacher = _section(TeacherConfig, raw.get("teacher") or {})
     train_d = dict(raw.get("train") or {})
@@ -497,7 +491,6 @@ def config_from_yaml_dict(raw: Dict[str, Any]) -> ExperimentConfig:
     cfg = ExperimentConfig(teacher=teacher, train=train, loss=loss, distiller=distiller,
                            optimizer=_section(OptimizerConfig, raw.get("optimizer") or {}),
                            data=data, specaug=_section(SpecAugConfig, raw.get("specaug") or {}))
-    cfg.check_supported()
     return cfg
 
 

@@ -12,7 +12,10 @@ them (``hubconf.py:8-12``): ``ckpt`` is a torch state dict, a ``.pt`` file
 of one, or the reference's Lightning ``.ckpt`` (``reference_import.py``),
 ``model_config`` a reference-schema YAML path (its teacher-init flags are
 turned off) or a ``StudentConfig``. Extra hub arguments are accepted and
-ignored, as the JAX expert ignores its ``**kwargs``; ``int8=True`` raises.
+ignored, as the JAX expert ignores its ``**kwargs``. ``int8=True`` (or
+``quantize_matmuls: true`` in the config) serves the student with int8
+matmuls at the JAX package's call sites (``ops/quant.py``), their payloads
+taken once at load: the ones JAX's per-call quantization takes.
 Every layer-wise projection head but the last is dropped, as the
 reference's export does; a SplitLinear head (``layerwise_proj=False``) goes
 whole, and ``last_hidden_state`` is the upsampled final hidden. The rest
@@ -25,6 +28,7 @@ device.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Sequence, Union
 
 import numpy as np
@@ -35,6 +39,7 @@ from fithubert_tpu_torch.data.librispeech import quantize_length
 from fithubert_tpu_torch.device import resolve_device
 from fithubert_tpu_torch.export.reference_import import reference_student_state_dict
 from fithubert_tpu_torch.models.student import StudentModel
+from fithubert_tpu_torch.ops.quant import prequantize_
 
 
 class UpstreamExpert:
@@ -42,12 +47,11 @@ class UpstreamExpert:
                  model_config: Union[StudentConfig, str], *args: Any,
                  device: Union[str, torch.device] = "cuda", length_quantum: int = 16000,
                  **kwargs: Any):
-        if kwargs.get("int8"):
-            raise NotImplementedError("int8=True (quantize_matmuls): the PyTorch port "
-                                      "serves only unquantized matmuls")
         self.device = resolve_device(device)
         self.cfg = load_yaml_config(model_config) if isinstance(model_config, str) \
             else model_config
+        if kwargs.get("int8"):
+            self.cfg = dataclasses.replace(self.cfg, quantize_matmuls=True)
         self.length_quantum = length_quantum
         if not isinstance(ckpt, str):
             sd = ckpt
@@ -62,6 +66,8 @@ class UpstreamExpert:
         self.model = StudentModel(self.cfg, disable_projections=True, device=self.device)
         self.model.load_state_dict(sd)
         self.model.eval()
+        if self.cfg.quantize_matmuls:
+            prequantize_(self.model)
 
     def get_downsample_rates(self, key: str = "") -> int:
         return self.cfg.downsample_rate

@@ -12,7 +12,7 @@ cropped to the utterance's frames by the model's padding mask (kept at the
 post-TR rate, so its count is scaled to the output's rate). Inputs that
 share a file name get ``<name>.1``, ``<name>.2``, ... in order. Audio is
 decoded by ``data/audio.py``; ``--device`` is ``cuda`` (the default) or
-``cpu``; ``--int8`` raises, as the port serves no int8 matmuls.
+``cpu``; ``--int8`` serves with int8 matmuls (``UpstreamExpert(int8=True)``).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, int]:
     ap.add_argument("--layer", type=int, default=-1,
                     help="hidden_states index to dump (-1 = last_hidden_state)")
     ap.add_argument("--batch-size", type=int, default=8)
-    ap.add_argument("--int8", action="store_true", help="not ported: raises")
+    ap.add_argument("--int8", action="store_true", help="int8 matmuls (ops/quant.py)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 

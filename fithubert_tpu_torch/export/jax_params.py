@@ -5,7 +5,9 @@ inverses of
 for the teacher, of ``fithubert_tpu/export/fairseq_import.py``'s
 ``map_extractor`` (``:139``), ``map_pos_conv`` (``:169``),
 ``map_conformer_layer`` (``:71``) and ``map_transformer_encoder``
-(``:186``): the keys are fairseq's.
+(``:186``): the keys are fairseq's. The multi-layer positional conv
+(``pos_conv/conv_{i}``, ``pos_conv_depth`` > 1) has no importer there; its
+mapping to fairseq's ``pos_conv.{i}.0.*`` is this module's own.
 
 The tree is a nested dict of arrays (numpy, or anything ``np.asarray``
 takes); nothing of JAX is imported. Conv kernels are (K, C_in, C_out) in JAX
@@ -85,9 +87,14 @@ def jax_student_params_to_state_dict(params: Mapping[str, Any], cfg: StudentConf
     if cfg.n_mels <= 0:
         fe = params["feature_extractor"]
         for i in range(len(cfg.conv_feature_layers)):
-            sd[f"feature_extractor.conv_layers.{i}.0.weight"] = _t(fe[f"conv_{i}"]["kernel"],
-                                                                   (2, 1, 0))
-        _norm(sd, "feature_extractor.conv_layers.0.2", fe["group_norm"])
+            prefix, conv = f"feature_extractor.conv_layers.{i}", fe[f"conv_{i}"]
+            sd[f"{prefix}.0.weight"] = _t(conv["kernel"], (2, 1, 0))
+            if "bias" in conv:
+                sd[f"{prefix}.0.bias"] = _t(conv["bias"])
+            if f"layer_norm_{i}" in fe:  # layer_norm mode: every block's LayerNorm
+                _norm(sd, f"{prefix}.2.1", fe[f"layer_norm_{i}"])
+        if "group_norm" in fe:
+            _norm(sd, "feature_extractor.conv_layers.0.2", fe["group_norm"])
     for i in range(len(cfg.mel_spec_head_conv_layers) if cfg.n_mels > 0 else 0):
         conv = params["mel_spec_head"][f"conv_{i}"]
         sd[f"mel_spec_head.conv_layers.{i}.weight"] = _t(conv["kernel"], (2, 1, 0))
@@ -101,7 +108,13 @@ def jax_student_params_to_state_dict(params: Mapping[str, Any], cfg: StudentConf
         if batch_stats is None:
             raise ValueError("a conformer student's state needs the JAX batch_stats collection")
         enc_stats = batch_stats["encoder"]
-    if not cfg.dedicated_conformer:
+    if not cfg.dedicated_conformer and cfg.pos_conv_depth > 1:
+        # MultiLayerPositionalConv: conv_{i} (its LayerNorms have no parameters)
+        for i in range(cfg.pos_conv_depth):
+            conv = enc["pos_conv"][f"conv_{i}"]
+            sd[f"encoder.pos_conv.{i}.0.weight"] = _t(conv["kernel"], (2, 1, 0))
+            sd[f"encoder.pos_conv.{i}.0.bias"] = _t(conv["bias"])
+    elif not cfg.dedicated_conformer:
         pos = enc["pos_conv"]
         sd["encoder.pos_conv.0.weight_g"] = _t(pos["weight_g"]).reshape(1, 1, -1)
         sd["encoder.pos_conv.0.weight_v"] = _t(pos["weight_v"], (2, 1, 0))

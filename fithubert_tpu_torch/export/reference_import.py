@@ -42,8 +42,8 @@ def reference_student_state_dict(ckpt_path: str) -> Dict[str, torch.Tensor]:
 def load_reference_student(ckpt_path: str, yaml_path: str
                            ) -> Tuple[ExperimentConfig, Dict[str, torch.Tensor]]:
     """(the experiment of the dumped YAML, the student's state dict). The
-    teacher-init flags are turned off, as for serving; a config the port
-    cannot build (int8 matmuls) raises through the config's own checks."""
+    teacher-init flags are turned off, as for serving; a ``distiller:`` key
+    the JAX package does not know raises through the config's own check."""
     raw = read_yaml(yaml_path)
     raw["distiller"] = dict(raw.get("distiller") or {}, init_conv_layers=False,
                             init_encoder_layers=0)

@@ -113,8 +113,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             uniform(mod.weight, mod.in_dim ** -0.5)
             uniform(mod.bias, mod.in_dim ** -0.5)
         elif isinstance(mod, (FP32LayerNorm, FP32GroupNorm)):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
+            if mod.weight is not None:
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
         elif isinstance(mod, _WeightNormConv):
             k, e = mod.weight_v.shape[2], mod.weight_v.shape[0]
             groups = e // mod.weight_v.shape[1]
@@ -127,8 +128,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 else mod.weight.shape[0] * mod.weight.shape[2]
             uniform(mod.weight, 1.0 / math.sqrt(fan_in))
             uniform(mod.bias, 1.0 / math.sqrt(fan_in))
-        elif isinstance(mod, nn.Conv1d):  # extractor convs: kaiming normal
-            normal(mod.weight, math.sqrt(2.0 / (mod.weight.shape[1] * mod.weight.shape[2])))
+        elif isinstance(mod, nn.Conv1d):  # extractor convs: kaiming normal, torch's bias
+            fan_in = mod.weight.shape[1] * mod.weight.shape[2]
+            normal(mod.weight, math.sqrt(2.0 / fan_in))
+            if mod.bias is not None:
+                uniform(mod.bias, fan_in ** -0.5)
         elif isinstance(mod, nn.Linear):
             std = 0.02 if name.startswith("encoder.") else mod.in_features ** -0.5
             normal(mod.weight, std)
@@ -156,7 +160,9 @@ class StudentModel(nn.Module):
         e = cfg.encoder_embed_dim
         self.feature_extractor = self.mel_spec_head = None
         if cfg.n_mels <= 0:
-            self.feature_extractor = ConvFeatureExtractor(cfg.conv_feature_layers, device=dev)
+            self.feature_extractor = ConvFeatureExtractor(cfg.conv_feature_layers,
+                                                          cfg.extractor_mode, cfg.conv_bias,
+                                                          device=dev)
         elif cfg.mel_spec_head_conv_layers:
             self.mel_spec_head = MelSpecHead(cfg.n_mels, cfg.mel_spec_head_conv_layers,
                                              device=dev)

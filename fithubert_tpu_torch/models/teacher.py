@@ -1,6 +1,7 @@
 """The frozen teacher (``fithubert_tpu/models/teacher.py:37-207``): a
 fairseq HuBERT / wav2vec2 encoder built from the student's blocks with no TR
-layer and no heads; a ``wav2vec_ctc`` teacher (a fine-tuned wav2vec2) adds
+layer and no heads (any extractor mode, conv bias, pre- or post-LN, so
+wav2vec2-Large LV-60's geometry too); a ``wav2vec_ctc`` teacher (a fine-tuned wav2vec2) adds
 ``ctc_proj`` on the encoder's output, whose logits
 (``TeacherOutput.ctc_logits``, (B, T', vocab_size)) seed CTC pseudo-labels.
 
@@ -36,6 +37,7 @@ from fithubert_tpu_torch.ops.padding import (
     lengths_to_padding_mask,
     padding_mask_to_lengths,
 )
+from fithubert_tpu_torch.ops.quant import dense, prequantize_
 from fithubert_tpu_torch.ops.transformer import TransformerEncoder
 
 
@@ -65,6 +67,9 @@ class TeacherGeometry:
     conv_pos_groups: int = 16
     vocab_size: int = 0  # > 0 for wav2vec_ctc: ctc_proj's width
     compute_dtype: str = "float32"
+    # int8 matmuls (ops/quant.py) at post_extract_proj, q/k/v/out, fc1 and
+    # fc2; ctc_proj stays in float, its argmax seeds the CTC pseudo-labels
+    quantize_int8: bool = False
 
     @classmethod
     def from_teacher_config(cls, tc: TeacherConfig) -> "TeacherGeometry":
@@ -72,7 +77,8 @@ class TeacherGeometry:
                    encoder_embed_dim=tc.encoder_embed_dim,
                    encoder_ffn_embed_dim=tc.encoder_ffn_embed_dim,
                    encoder_attention_heads=tc.encoder_attention_heads,
-                   vocab_size=tc.vocab_size if tc.model_type == "wav2vec_ctc" else 0)
+                   vocab_size=tc.vocab_size if tc.model_type == "wav2vec_ctc" else 0,
+                   quantize_int8=tc.quantize_int8)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TeacherGeometry":
@@ -109,6 +115,7 @@ class TeacherGeometry:
             pred_layer_id=(),
             required_seq_len_multiple=1,
             compute_dtype=self.compute_dtype,
+            quantize_matmuls=self.quantize_int8,
         )
 
 
@@ -133,9 +140,12 @@ class TeacherModel(nn.Module):
         self.geometry = geometry
         self.compute_dtype = torch_dtype(geometry.compute_dtype)
         embed, e = cfg.embed, geometry.encoder_embed_dim
-        self.feature_extractor = ConvFeatureExtractor(cfg.conv_feature_layers, device=dev)
+        self.feature_extractor = ConvFeatureExtractor(cfg.conv_feature_layers,
+                                                      geometry.extractor_mode,
+                                                      geometry.conv_bias, device=dev)
         self.layer_norm = FP32LayerNorm(embed, device=dev)
-        self.post_extract_proj = nn.Linear(embed, e, device=dev) if embed != e else None
+        self.post_extract_proj = (dense(embed, e, geometry.quantize_int8, device=dev)
+                                  if embed != e else None)
         self.encoder = TransformerEncoder(cfg, device=dev)
         self.ctc_proj = (nn.Linear(e, geometry.vocab_size, device=dev)
                          if geometry.model_type == "wav2vec_ctc" and geometry.vocab_size > 0
@@ -150,13 +160,17 @@ class TeacherModel(nn.Module):
         """Stop gradients, and store the matmul weights (the extractor convs,
         post_extract_proj, q/k/v/out, fc1, fc2) in the compute dtype once;
         the norms, the weight-normed positional conv and ``ctc_proj`` stay
-        fp32."""
+        fp32. With ``quantize_int8`` the int8 payloads are then taken once
+        from the cast weights (``Distiller.prepare_teacher_params``'s order,
+        ``fithubert_tpu/train/step.py:138-162``)."""
         self.requires_grad_(False)
         self.eval()
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Conv1d)) and mod is not self.ctc_proj:
                 for p in mod.parameters(recurse=False):
                     p.data = p.data.to(self.compute_dtype)
+        if self.geometry.quantize_int8:
+            prequantize_(self)
         return self
 
     def _frame_mask(self, padding_mask: torch.Tensor, t_frames: int) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""GELU in the two flavours the JAX package uses, and the conformer's SiLU
-and GLU.
+"""GELU in the two flavours the JAX package uses, the conformer's SiLU and
+GLU, and ``ACTIVATIONS``, the FFN's table of ``activation_fn``
+(``fithubert_tpu/ops/transformer.py:33-41``).
 
 ``gelu_exact`` is the erf form (``fithubert_tpu/ops/activations.py:28``): the
 FFN, the positional conv, and every GELU in fp32. ``gelu_tanh`` is the tanh
 approximation that the fused conv stack applies whenever its dtype is not
-fp32 (``ops/pallas/conv_frontend.py:85-91,211-212,252``). Both compute in
-fp32 and cast back to the input dtype.
+fp32 (``ops/pallas/conv_frontend.py:85-91,211-212,252``), and what
+``gelu_fast`` and ``gelu_accurate`` name (``jax.nn.gelu(approximate=True)``).
+Both compute in fp32 and cast back to the input dtype.
 """
 
 from __future__ import annotations
@@ -28,6 +30,17 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)``, rounded to x's dtype after each of the two ops, as
     ``jax.nn.silu`` computes it (the conformer's FFN and conv module)."""
     return x * torch.sigmoid(x)
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": gelu_exact,
+    "gelu_fast": gelu_tanh,
+    "gelu_accurate": gelu_tanh,
+    "tanh": torch.tanh,
+    "linear": lambda x: x,
+    "swish": silu,
+}
 
 
 def glu(x: torch.Tensor) -> torch.Tensor:

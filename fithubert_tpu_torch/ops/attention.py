@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from fithubert_tpu_torch.ops.dropout import DropoutRNG
 from fithubert_tpu_torch.ops.kernels.dropout import seeded_dropout
 from fithubert_tpu_torch.ops.kernels.flash_attention import flash_attention
+from fithubert_tpu_torch.ops.quant import dense, quantized_linear
 
 
 class AttentionTaps(NamedTuple):
@@ -37,7 +38,11 @@ class AttentionTaps(NamedTuple):
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """``layer`` applied in x's dtype (fp32 parameters, compute-dtype matmul)."""
+    """``layer`` applied in x's dtype (fp32 parameters, compute-dtype matmul),
+    through the int8 product where ``layer`` is marked ``quantize``
+    (``ops/quant.py``)."""
+    if getattr(layer, "quantize", False):
+        return quantized_linear(x, layer)
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
@@ -65,16 +70,17 @@ def attention_with_taps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class MultiHeadSelfAttention(nn.Module):
     """fairseq's MultiheadAttention: the projections ``q_proj``, ``k_proj``,
-    ``v_proj`` and ``out_proj`` (``PROJ_NAMES``)."""
+    ``v_proj`` and ``out_proj`` (``PROJ_NAMES``), int8 with ``quantize``."""
 
     PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "out_proj")
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device=None):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device=None,
+                 quantize: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
         for name in self.PROJ_NAMES:
-            self.add_module(name, nn.Linear(embed_dim, embed_dim, device=device))
+            self.add_module(name, dense(embed_dim, embed_dim, quantize, device=device))
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None, need_taps: bool = False

@@ -44,7 +44,7 @@ Parameter names are fairseq's and espnet's: ``ffn1`` / ``ffn2``
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -63,6 +63,7 @@ from fithubert_tpu_torch.ops.dropout import DropoutRNG, dropout
 from fithubert_tpu_torch.ops.kernels.dropout import seeded_dropout
 from fithubert_tpu_torch.ops.norms import FP32LayerNorm
 from fithubert_tpu_torch.ops.padding import apply_padding_mask
+from fithubert_tpu_torch.ops.quant import dense
 from fithubert_tpu_torch.ops.transformer import EncoderOutput
 
 
@@ -113,11 +114,12 @@ def _attend(logits: torch.Tensor, v: torch.Tensor, key_padding_mask: Optional[to
 
 
 class _EspnetProjections(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device=None):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device=None,
+                 quantize: bool = False):
         super().__init__()
         self.num_heads, self.dropout = num_heads, dropout
         for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
-            self.add_module(name, nn.Linear(embed_dim, embed_dim, device=device))
+            self.add_module(name, dense(embed_dim, embed_dim, quantize, device=device))
 
 
 class RelPositionAttention(_EspnetProjections):
@@ -125,10 +127,11 @@ class RelPositionAttention(_EspnetProjections):
     rel_shift((q + v_bias) p^T), p = linear_pos(the table), over sqrt(d_k).
     q + u is fp32 (a bf16 q meets the fp32 biases), so both products are."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device=None):
-        super().__init__(embed_dim, num_heads, dropout, device)
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, device=None,
+                 quantize: bool = False):
+        super().__init__(embed_dim, num_heads, dropout, device, quantize)
         dk = embed_dim // num_heads
-        self.linear_pos = nn.Linear(embed_dim, embed_dim, bias=False, device=device)
+        self.linear_pos = dense(embed_dim, embed_dim, quantize, bias=False, device=device)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, dk, device=device))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, dk, device=device))
 
@@ -187,12 +190,13 @@ class RotaryAttention(_EspnetProjections):
 
 
 class FeedForwardModule(nn.Module):
-    def __init__(self, embed_dim: int, ffn_dim: int, dropout: float, device=None):
+    def __init__(self, embed_dim: int, ffn_dim: int, dropout: float, device=None,
+                 quantize: bool = False):
         super().__init__()
         self.dropout = dropout
         self.layer_norm = FP32LayerNorm(embed_dim, device=device)
-        self.w_1 = nn.Linear(embed_dim, ffn_dim, device=device)
-        self.w_2 = nn.Linear(ffn_dim, embed_dim, device=device)
+        self.w_1 = dense(embed_dim, ffn_dim, quantize, device=device)
+        self.w_2 = dense(ffn_dim, embed_dim, quantize, device=device)
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         x = dropout(silu(linear(self.layer_norm(x), self.w_1)), self.dropout, rng)
@@ -204,7 +208,13 @@ class RowMaskedBatchNorm(nn.Module):
     leave out the rows that are padding end to end (``row_valid`` False):
     the reference's batches never hold such rows, so their responses must
     not move the statistics. A real row's padded frames count, as in
-    fairseq's unmasked BatchNorm."""
+    fairseq's unmasked BatchNorm. Under data parallelism
+    (``sum_over_ranks``) the statistics are the global batch's, as the JAX
+    mesh takes them, in the manner of SyncBatchNorm: the row weights and
+    the weighted sum of x are summed over the ranks, then, after the global
+    mean, the weighted squares (JAX's two-pass variance); the backward sums
+    their gradients over the ranks, and every rank moves its buffers the
+    same way."""
 
     def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5, device=None):
         super().__init__()
@@ -213,6 +223,9 @@ class RowMaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
         self.register_buffer("running_mean", torch.zeros(dim, device=device))
         self.register_buffer("running_var", torch.ones(dim, device=device))
+        # set by a data-parallel Distiller: a sum over the ranks with its
+        # gradient summed too (DataParallel.sum_with_grad)
+        self.sum_over_ranks: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)
@@ -224,9 +237,11 @@ class RowMaskedBatchNorm(nn.Module):
         if train:
             w = torch.ones(x.shape[:2], device=x.device) if row_valid is None else \
                 row_valid.float()[:, None].expand(x.shape[:2])
-            denom = torch.clamp(w.sum(), min=1.0)
-            mean = (x32 * w[..., None]).sum((0, 1)) / denom
-            var = ((x32 - mean) ** 2 * w[..., None]).sum((0, 1)) / denom
+            total = self.sum_over_ranks or (lambda t: t)
+            sums = total(torch.cat([w.sum()[None], (x32 * w[..., None]).sum((0, 1))]))
+            denom = torch.clamp(sums[0], min=1.0)
+            mean = sums[1:] / denom
+            var = total(((x32 - mean) ** 2 * w[..., None]).sum((0, 1))) / denom
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -268,22 +283,20 @@ class ConformerEncoderLayer(nn.Module):
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, dropout: float,
                  depthwise_conv_kernel_size: int = 31, pos_enc_type: str = "abs",
-                 attn_type: str = "espnet", device=None):
+                 attn_type: str = "espnet", device=None, quantize: bool = False):
         super().__init__()
         self.dropout = dropout
-        self.ffn1 = FeedForwardModule(embed_dim, ffn_dim, dropout, device)
+        self.ffn1 = FeedForwardModule(embed_dim, ffn_dim, dropout, device, quantize)
         self.self_attn_layer_norm = FP32LayerNorm(embed_dim, device=device)
         if attn_type != "espnet":
-            self.self_attn = MultiHeadSelfAttention(embed_dim, num_heads, dropout, device)
-        elif pos_enc_type == "rel_pos":
-            self.self_attn = RelPositionAttention(embed_dim, num_heads, dropout, device)
-        elif pos_enc_type == "rope":
-            self.self_attn = RotaryAttention(embed_dim, num_heads, dropout, device)
+            attn = MultiHeadSelfAttention
         else:
-            self.self_attn = EspnetAttention(embed_dim, num_heads, dropout, device)
+            attn = {"rel_pos": RelPositionAttention,
+                    "rope": RotaryAttention}.get(pos_enc_type, EspnetAttention)
+        self.self_attn = attn(embed_dim, num_heads, dropout, device, quantize)
         self.conv_module = ConvolutionModule(embed_dim, depthwise_conv_kernel_size, dropout,
                                              device)
-        self.ffn2 = FeedForwardModule(embed_dim, ffn_dim, dropout, device)
+        self.ffn2 = FeedForwardModule(embed_dim, ffn_dim, dropout, device, quantize)
         self.final_layer_norm = FP32LayerNorm(embed_dim, device=device)
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
@@ -321,7 +334,7 @@ class ConformerEncoder(nn.Module):
         self.layers = nn.ModuleList([
             ConformerEncoderLayer(e, cfg.encoder_ffn_embed_dim, cfg.encoder_attention_heads,
                                   cfg.dropout, cfg.depthwise_conv_kernel_size, cfg.pos_enc_type,
-                                  cfg.attn_type, device=device)
+                                  cfg.attn_type, device=device, quantize=cfg.quantize_matmuls)
             for _ in range(cfg.encoder_layers)])
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):

@@ -4,9 +4,12 @@ reference's state-dict names; the JAX kernels are their transposes (see
 ``export/jax_params.py``).
 
   ConvFeatureExtractor  ≙ conv.py:225 (the fused path: block 0, then the
-                          conv_stack kernel with GroupNorm + GELU folded in)
+                          conv_stack kernel with GroupNorm + GELU folded in;
+                          otherwise the unfused loop, layer_norm mode and
+                          conv bias included)
   PositionalConv        ≙ conv.py:384 (weight norm over the kernel axis,
                           SamePad, exact GELU)
+  MultiLayerPositionalConv ≙ conv.py:435 (pos_conv_depth > 1)
   Conv1D                ≙ conv.py:38, the k == s branch (the TR conv1d)
   SameConv1d            ≙ conv.py:38, stride 1 with padding (the conformer's
                           pointwise and depthwise convs, MelSpecHead)
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 
 from fithubert_tpu_torch.ops.activations import gelu_exact
 from fithubert_tpu_torch.ops.kernels.conv_frontend import conv_stack, fusable, gn_scale_shift
-from fithubert_tpu_torch.ops.norms import FP32GroupNorm
+from fithubert_tpu_torch.ops.norms import FP32GroupNorm, FP32LayerNorm
 
 
 class Conv1D(nn.Conv1d):
@@ -63,34 +66,73 @@ class ConvTranspose1D(nn.ConvTranspose1d):
 class ConvFeatureExtractor(nn.Module):
     """Waveform (B, T) -> features (B, T', C) in the waveform's dtype.
 
-    Block 0 (C_in = 1) is a plain unfold + matmul; its GroupNorm(C, C)
+    Where the JAX package takes its fused path (``conv.py:260-264``:
+    ``default`` mode, no conv bias, blocks 1..N that ``fusable`` takes),
+    block 0 (C_in = 1) is a plain unfold + matmul; its GroupNorm(C, C)
     statistics are an fp32 reduce over all T1 rows of the batch as given,
-    and the normalization, the GELU and blocks 1..N run in ``conv_stack``.
-    State-dict keys follow the reference: ``conv_layers.{i}.0.weight``, and
-    ``conv_layers.0.2.*`` for the GroupNorm."""
+    and the normalization, the GELU and blocks 1..N run in ``conv_stack``
+    (K1). Otherwise the blocks run one at a time as JAX's unfused loop
+    (``conv.py:306-321``) does: the strided conv, the optional bias added in
+    fp32 before the cast, in ``layer_norm`` mode an fp32 LayerNorm on every
+    block (in ``default`` mode block 0's GroupNorm), then the exact GELU.
+    State-dict keys follow fairseq: ``conv_layers.{i}.0.weight`` and
+    ``.0.bias``, ``conv_layers.0.2.*`` for the GroupNorm and
+    ``conv_layers.{i}.2.1.*`` for a block's LayerNorm."""
 
-    def __init__(self, conv_layers: Sequence[Tuple[int, int, int]], device=None):
+    def __init__(self, conv_layers: Sequence[Tuple[int, int, int]], mode: str = "default",
+                 conv_bias: bool = False, device=None):
         super().__init__()
         self.spec = tuple(tuple(c) for c in conv_layers)
-        if len(self.spec) < 2 or not fusable(self.spec[1:]):
-            raise NotImplementedError(
-                f"the port's extractor needs block 0 plus blocks with k <= 2s: {self.spec}")
+        self.mode = mode
+        self.fused = mode == "default" and not conv_bias and len(self.spec) > 1 \
+            and fusable(self.spec[1:])
         blocks, c_in = [], 1
         for i, (d, k, s) in enumerate(self.spec):
-            conv = nn.Conv1d(c_in, d, k, stride=s, bias=False, device=device)
-            extra = [nn.Identity(), FP32GroupNorm(d, d, device=device)] if i == 0 else []
+            conv = nn.Conv1d(c_in, d, k, stride=s, bias=conv_bias, device=device)
+            if mode == "layer_norm":  # fairseq's (TransposeLast, LayerNorm, TransposeLast)
+                extra = [nn.Identity(), nn.ModuleList([nn.Identity(),
+                                                       FP32LayerNorm(d, device=device)])]
+            else:
+                extra = [nn.Identity(), FP32GroupNorm(d, d, device=device)] if i == 0 else []
             blocks.append(nn.ModuleList([conv] + extra))
             c_in = d
         self.conv_layers = nn.ModuleList(blocks)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         dtype = wav.dtype
-        conv0, _, gn = self.conv_layers[0]
+        conv0 = self.conv_layers[0][0]
         d0, k0, s0 = self.spec[0]
-        x = wav.unfold(1, k0, s0) @ conv0.weight.to(dtype).reshape(d0, k0).t()
-        scale, shift = gn_scale_shift(x, gn.weight, gn.bias, gn.eps)
-        weights = [blk[0].weight.to(dtype).permute(2, 1, 0) for blk in self.conv_layers[1:]]
-        return conv_stack(x, weights, self.spec[1:], scale, shift)
+        if self.fused:
+            gn = self.conv_layers[0][2]
+            x = wav.unfold(1, k0, s0) @ conv0.weight.to(dtype).reshape(d0, k0).t()
+            scale, shift = gn_scale_shift(x, gn.weight, gn.bias, gn.eps)
+            weights = [blk[0].weight.to(dtype).permute(2, 1, 0) for blk in self.conv_layers[1:]]
+            return conv_stack(x, weights, self.spec[1:], scale, shift)
+        # block 0: an im2col matmul summed in fp32 (JAX's tap-decomposed
+        # einsum with preferred_element_type=f32), the bias added before the cast
+        w0 = conv0.weight.to(dtype).float().reshape(d0, k0)
+        x = F.linear(wav.unfold(1, k0, s0).float(), w0,
+                     None if conv0.bias is None else conv0.bias.float()).to(dtype)
+        x = gelu_exact(self._norm(0, x))
+        for i, blk in enumerate(self.conv_layers[1:], start=1):
+            conv, (d, k, s) = blk[0], self.spec[i]
+            w = conv.weight.to(dtype)
+            bias = None if conv.bias is None else conv.bias.float()
+            if k == s:  # non-overlapping windows: one matmul summed in fp32 (conv.py:88-99)
+                b, t, c = x.shape
+                r = x[:, : t // s * s].reshape(b, t // s, s * c)
+                y = F.linear(r.float(), w.permute(0, 2, 1).reshape(d, s * c).float(), bias)
+            else:  # a conv in dtype, then the fp32 bias
+                y = F.conv1d(x.transpose(1, 2), w, stride=s).transpose(1, 2)
+                if bias is not None:
+                    y = y.float() + bias
+            x = gelu_exact(self._norm(i, y.to(dtype)))
+        return x
+
+    def _norm(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "layer_norm":
+            return self.conv_layers[i][2][1](x)
+        return self.conv_layers[0][2](x) if i == 0 else x
 
 
 class _WeightNormConv(nn.Module):
@@ -198,6 +240,34 @@ class PositionalConv(nn.Module):
         if self.kernel_size % 2 == 0:  # SamePad: drop the trailing step
             y = y[:, :, :-1]
         return gelu_exact(y.transpose(1, 2))
+
+
+class MultiLayerPositionalConv(nn.Module):
+    """``pos_conv_depth`` > 1 (``fithubert_tpu/ops/conv.py:435-462``):
+    ``depth`` blocks, each a grouped conv of kernel k = max(3, conv_pos //
+    depth), padding k // 2 and a bias (``SameConv1d``), SamePad for an even
+    k, an fp32 LayerNorm without affine, then the exact GELU. Block i is
+    child ``i`` and its conv child ``0``, so the keys read
+    ``pos_conv.{i}.0.weight`` as fairseq's ``make_conv_block`` names them."""
+
+    def __init__(self, embed_dim: int, depth: int, kernel_size: int, groups: int,
+                 device=None):
+        super().__init__()
+        self.k = max(3, kernel_size // depth)
+        for i in range(depth):
+            self.add_module(str(i), nn.ModuleList([
+                SameConv1d(embed_dim, embed_dim, self.k, padding=self.k // 2, groups=groups,
+                           device=device),
+                nn.Identity(),
+                FP32LayerNorm(embed_dim, device=device, use_affine=False)]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv, _, norm in self.children():
+            x = conv(x)
+            if self.k % 2 == 0:
+                x = x[:, :-1]
+            x = gelu_exact(norm(x))
+        return x
 
 
 class _GradMultiply(torch.autograd.Function):

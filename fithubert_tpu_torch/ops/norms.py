@@ -11,13 +11,15 @@ import torch.nn.functional as F
 
 
 class FP32LayerNorm(nn.Module):
-    """LayerNorm over the trailing dim; statistics and affine in fp32."""
+    """LayerNorm over the trailing dim; statistics and affine in fp32.
+    ``use_affine=False`` has no parameters (the multi-layer positional
+    conv's norm)."""
 
-    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+    def __init__(self, dim: int, eps: float = 1e-5, device=None, use_affine: bool = True):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.weight = nn.Parameter(torch.ones(dim, device=device)) if use_affine else None
+        self.bias = nn.Parameter(torch.zeros(dim, device=device)) if use_affine else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)

@@ -1,7 +1,9 @@
 """Transformer encoder with the time-reduction layer in its layer list
-(``fithubert_tpu/ops/transformer.py``): ``TransformerEncoderLayer`` (:52),
+(``fithubert_tpu/ops/transformer.py``): ``TransformerEncoderLayer`` (:52,
+its FFN's activation from ``ACTIVATIONS``),
 the ``TimeReduction`` types (:135-194: conv1d, fc1, fc2) and
-``TransformerEncoder`` (:215), run as an unrolled loop. With ``layer_type:
+``TransformerEncoder`` (:215, the positional conv of ``pos_conv_depth``
+blocks when it is above 1), run as an unrolled loop. With ``layer_type:
 conformer`` (and ``pos_enc_type: abs``; rel_pos and rope have their own
 encoder in ``ops/conformer.py``) its layers are ``ConformerEncoderLayer``s
 with fairseq's attention (:349-371). As in the
@@ -36,9 +38,9 @@ import torch
 import torch.nn as nn
 
 from fithubert_tpu_torch.config import StudentConfig
-from fithubert_tpu_torch.ops.activations import gelu_exact
+from fithubert_tpu_torch.ops.activations import ACTIVATIONS, gelu_exact
 from fithubert_tpu_torch.ops.attention import AttentionTaps, MultiHeadSelfAttention, linear
-from fithubert_tpu_torch.ops.conv import Conv1D, PositionalConv
+from fithubert_tpu_torch.ops.conv import Conv1D, MultiLayerPositionalConv, PositionalConv
 from fithubert_tpu_torch.ops.dropout import DropoutRNG, dropout
 from fithubert_tpu_torch.ops.norms import FP32LayerNorm
 from fithubert_tpu_torch.ops.padding import (
@@ -46,6 +48,7 @@ from fithubert_tpu_torch.ops.padding import (
     pad_to_multiple,
     reduce_padding_mask,
 )
+from fithubert_tpu_torch.ops.quant import dense
 
 
 class EncoderOutput(NamedTuple):
@@ -59,24 +62,27 @@ class EncoderOutput(NamedTuple):
 class TransformerEncoderLayer(nn.Module):
     """Pre-/post-LN block. Returns (x, taps, layer_result), where taps is the
     attention's ``AttentionTaps`` (None unless ``need_taps``) and
-    layer_result the FFN output before drop3 and the residual."""
+    layer_result the FFN output before drop3 and the residual. The FFN's
+    activation is ``ACTIVATIONS[activation_fn]``; ``quantize`` makes q/k/v,
+    out, fc1 and fc2 int8."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  layer_norm_first: bool = False, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 device=None):
+                 device=None, activation_fn: str = "gelu", quantize: bool = False):
         super().__init__()
         self.layer_norm_first = layer_norm_first
         self.dropout, self.activation_dropout = dropout, activation_dropout
+        self.act = ACTIVATIONS[activation_fn]
         self.self_attn = MultiHeadSelfAttention(embed_dim, num_heads, attention_dropout,
-                                                device=device)
+                                                device=device, quantize=quantize)
         self.self_attn_layer_norm = FP32LayerNorm(embed_dim, device=device)
-        self.fc1 = nn.Linear(embed_dim, ffn_dim, device=device)
-        self.fc2 = nn.Linear(ffn_dim, embed_dim, device=device)
+        self.fc1 = dense(embed_dim, ffn_dim, quantize, device=device)
+        self.fc2 = dense(ffn_dim, embed_dim, quantize, device=device)
         self.final_layer_norm = FP32LayerNorm(embed_dim, device=device)
 
     def _ffn(self, x, rng):
-        h = dropout(gelu_exact(linear(x, self.fc1)), self.activation_dropout, rng)
+        h = dropout(self.act(linear(x, self.fc1)), self.activation_dropout, rng)
         return linear(h, self.fc2)
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
@@ -146,7 +152,10 @@ class TransformerEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         e = cfg.encoder_embed_dim
-        self.pos_conv = PositionalConv(e, cfg.conv_pos, cfg.conv_pos_groups, device=device)
+        self.pos_conv = (MultiLayerPositionalConv(e, cfg.pos_conv_depth, cfg.conv_pos,
+                                                  cfg.conv_pos_groups, device=device)
+                         if cfg.pos_conv_depth > 1 else
+                         PositionalConv(e, cfg.conv_pos, cfg.conv_pos_groups, device=device))
         self.layer_norm = FP32LayerNorm(e, device=device)
         self.tr_slot = cfg.tr_layer_index if cfg.enable_tr_layer else -1
         n_slots = cfg.encoder_layers + (1 if cfg.enable_tr_layer else 0)
@@ -159,14 +168,16 @@ class TransformerEncoder(nn.Module):
                 return ConformerEncoderLayer(e, cfg.encoder_ffn_embed_dim,
                                              cfg.encoder_attention_heads, cfg.dropout,
                                              cfg.depthwise_conv_kernel_size, "abs",
-                                             cfg.attn_type, device=device)
+                                             cfg.attn_type, device=device,
+                                             quantize=cfg.quantize_matmuls)
         else:
             def layer():
                 return TransformerEncoderLayer(e, cfg.encoder_ffn_embed_dim,
                                                cfg.encoder_attention_heads,
                                                cfg.layer_norm_first, cfg.dropout,
                                                cfg.attention_dropout, cfg.activation_dropout,
-                                               device=device)
+                                               device=device, activation_fn=cfg.activation_fn,
+                                               quantize=cfg.quantize_matmuls)
         self.layers = nn.ModuleList([
             time_reduction(cfg, device=device) if slot == self.tr_slot else layer()
             for slot in range(n_slots)

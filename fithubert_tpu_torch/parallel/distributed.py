@@ -19,10 +19,10 @@ wants another (two gloo ranks sharing one card) initialises the group
 itself. Tensor parallelism (the 'model' axis, ``mesh.py:47-58``) is not
 ported.
 
-A conformer student is refused over more than one rank
-(``check_data_parallel``): the JAX mesh takes its BatchNorm statistics over
-the global microbatch, and a rank here would take them over its stripe
-alone, which is another model.
+A conformer student's BatchNorm takes its statistics over the global
+microbatch, as the JAX mesh does: its sums go through
+``DataParallel.sum_with_grad``, an all-reduce whose backward all-reduces
+the gradient.
 """
 
 from __future__ import annotations
@@ -40,18 +40,6 @@ import torch.distributed as dist
 from fithubert_tpu_torch.device import resolve_device
 
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-
-
-def check_data_parallel(cfg, world: int) -> None:
-    """Raise NotImplementedError, naming the field, for an experiment whose
-    step the ranks cannot take together yet: a conformer student's
-    BatchNorm statistics would be each rank's own (ROADMAP Queue 1, the
-    conformer's statistics under DataParallel)."""
-    if world > 1 and cfg.distiller.layer_type == "conformer":
-        raise NotImplementedError(
-            f"distiller.layer_type='conformer' over {world} ranks: the PyTorch port takes "
-            "the BatchNorm statistics of one rank's rows, not of the global batch (ROADMAP "
-            "Queue 1); run it on one card (train.num_devices: 1)")
 
 
 def maybe_initialize(device: Union[str, torch.device] = "cuda"
@@ -152,6 +140,20 @@ def launch(fn: Callable, n: int, *args: Any, timeout: Optional[float] = None) ->
     return [got[r] for r in range(n)]
 
 
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.contiguous().clone()
+        dist.all_reduce(out)
+        return out
+
+
 @dataclass(frozen=True)
 class DataParallel:
     """The collectives of a data-parallel step over the default process
@@ -172,6 +174,12 @@ class DataParallel:
         out = x.detach().clone()
         dist.all_reduce(out)
         return out
+
+    def sum_with_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks, inside autograd: every rank's output
+        depends on every rank's ``x``, so the gradient into ``x`` is the
+        output's gradient summed over the ranks."""
+        return _SumOverRanks.apply(x)
 
     def all_reduce_grads(self, grads: Sequence[torch.Tensor]) -> None:
         """Sum every gradient over the ranks in place, through one flat

@@ -38,8 +38,16 @@ logs are the global batch's on every rank, so all ranks take the step that
 one process takes on the whole batch. Each rank folds its rank into the
 dropout seeds, so their keep masks differ; SpecAugment's seed stays free of
 the rank, so every rank draws the global batch's masks and applies its own
-rows. A conformer student is refused there
-(``parallel/distributed.py check_data_parallel``).
+rows. A conformer student's BatchNorm then takes the global batch's
+statistics (``ops/conformer.py RowMaskedBatchNorm``), summed over the ranks
+inside autograd (``DataParallel.sum_with_grad``).
+
+``distiller.quantize_matmuls`` raises ValueError, as the JAX Distiller does
+(``fithubert_tpu/train/step.py:60-67``): training through int8 matmuls
+would stop learning. ``teacher.quantize_int8`` makes the frozen teacher's
+matmuls int8 (``TeacherModel.freeze``); it is read from the config even
+where a checkpoint's geometry is given, which the JAX loop's checkpoint
+geometry drops (``fithubert_tpu/train/loop.py:158-162``).
 """
 
 from __future__ import annotations
@@ -55,7 +63,8 @@ from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
 from fithubert_tpu_torch.ops.dropout import DropoutRNG
 from fithubert_tpu_torch.ops.specaug import BatchStripe
-from fithubert_tpu_torch.parallel.distributed import DataParallel, check_data_parallel
+from fithubert_tpu_torch.ops.conformer import RowMaskedBatchNorm
+from fithubert_tpu_torch.parallel.distributed import DataParallel
 from fithubert_tpu_torch.train.losses import LossOutput, collapse_pseudo_labels, compute_losses
 from fithubert_tpu_torch.train.optim import build_optimizer, optimizer_step
 
@@ -82,15 +91,21 @@ class Distiller:
                  num_training_steps: int = 10000,
                  teacher_geometry: Optional[TeacherGeometry] = None,
                  dp: Optional[DataParallel] = None):
+        if cfg.distiller.quantize_matmuls:
+            raise ValueError(
+                "distiller.quantize_matmuls is inference/serving-only: round() has zero "
+                "gradient almost everywhere, so training through int8 matmuls silently stops "
+                "learning. To quantize the FROZEN teacher (exact student gradients) set "
+                "teacher.quantize_int8 instead.")
         self.device = resolve_device(device)
-        if dp is not None:
-            check_data_parallel(cfg, dp.world)
         self.cfg = cfg
         self.dp = dp
         self.need_taps = cfg.loss.attn_loss_weight > 0 or cfg.loss.v_rel_loss_weight > 0
         geom = teacher_geometry or TeacherGeometry.from_teacher_config(cfg.teacher)
         if cfg.train.use_fp16:
             geom = dataclasses.replace(geom, compute_dtype="bfloat16")
+        if cfg.teacher.quantize_int8:
+            geom = dataclasses.replace(geom, quantize_int8=True)
         self.teacher = TeacherModel(geom, device=self.device)
         self.teacher.load_state_dict(teacher_state)
         self.teacher.freeze()
@@ -104,6 +119,9 @@ class Distiller:
         if dp is not None:
             with torch.no_grad():
                 dp.broadcast_(self.params + list(self.student.buffers()))
+            for mod in self.student.modules():
+                if isinstance(mod, RowMaskedBatchNorm):
+                    mod.sum_over_ranks = dp.sum_with_grad
         self.optimizer, self.schedule = build_optimizer(
             self.params, cfg.optimizer, num_training_steps)
         self.step = 0

@@ -659,24 +659,32 @@ def test_conformer_microbatches_update_the_statistics_in_order():
 
 
 def test_conformer_refuses_more_than_one_rank(monkeypatch, tmp_path):
-    """The JAX mesh takes the BatchNorm statistics over the global batch;
-    a rank of the port would take its stripe's. A conformer Distiller over
-    2 ranks raises naming the field, and so does run_training of a
-    conformer experiment that would start 2 ranks; a transformer does not."""
+    """A conformer over 2 ranks, once refused, runs: a data-parallel
+    Distiller hands every BatchNorm the sum over the ranks (its statistics
+    are the global batch's; tests/test_torch_ddp.py runs two ranks against
+    the JAX one-process step), and run_training of a conformer experiment
+    that asks for 2 cards starts 2 ranks (``launch``, recorded here)."""
     _, tcfg = _pair(pos_enc_type="rel_pos")
     _, texp = _experiments(None, tcfg)
     geom = TeacherGeometry(**TEACHER)
     gen = torch.Generator().manual_seed(0)
     t_state = TeacherModel(geom, device="cpu").init_weights(gen).state_dict()
     s_state = StudentModel(tcfg, device="cpu").init_weights(gen).state_dict()
-    with pytest.raises(NotImplementedError, match="layer_type='conformer'"):
-        Distiller(texp, t_state, s_state, device="cpu", teacher_geometry=geom,
-                  dp=DataParallel(0, 2))
+    dp = DataParallel(0, 2)
+    monkeypatch.setattr(DataParallel, "broadcast_", lambda self, tensors: None)
+    d = Distiller(texp, t_state, s_state, device="cpu", teacher_geometry=geom, dp=dp)
+    bns = [m for m in d.student.modules() if isinstance(m, pconf.RowMaskedBatchNorm)]
+    assert len(bns) == tcfg.encoder_layers
+    assert all(bn.sum_over_ranks == dp.sum_with_grad for bn in bns)
+    from fithubert_tpu_torch.ops.kernels import _build
+
+    started = []
     monkeypatch.setattr(loop, "world_size", lambda cfg, dev: cfg.train.num_devices)
+    monkeypatch.setattr(_build, "build_all", lambda sources: None)
+    monkeypatch.setattr(loop, "launch", lambda fn, n, *a: started.append(n) or [{}])
     cfg = _loop_config(tmp_path, "rel_pos", num_devices=2)
-    with pytest.raises(NotImplementedError, match="layer_type='conformer'"):
-        loop.run_training(cfg, device="cpu")
-    assert not os.path.exists(os.path.join(cfg.train.output_dir, "ckpt"))
+    loop.run_training(cfg, device="cpu")
+    assert started == [2]
 
 
 # ---------------------------------------------------------- loop and expert

@@ -453,3 +453,45 @@ def test_a_rank_whose_card_is_missing_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="LOCAL_RANK=1"):
         pd.maybe_initialize("cuda")
     assert not dist.is_initialized()
+
+
+def test_two_conformer_ranks_match_one_jax_process():
+    """A rel_pos conformer over two gloo ranks, each on its stripe of a
+    global batch of 2 microbatches (rank 1's row of microbatch 1 is all
+    padding: its rank holds no valid row there), against the JAX
+    Distiller's one-process step on the whole batch, fp32, no dropout: the
+    logs to LOSS_TOL, every parameter and both BatchNorm running statistics
+    of every layer to PARAM_TOL (tests/test_torch_conformer.py's), and the
+    two ranks' states bit-identical."""
+    from tests import test_torch_conformer as tconf
+
+    jcfg, tcfg = tconf._pair(pos_enc_type="rel_pos")
+    jexp, texp = tconf._experiments(jcfg, tcfg, num_devices=WORLD)
+    jd = JDistiller(jexp, mesh=make_mesh(1), num_training_steps=10,
+                    teacher_geometry=JGeometry(**tconf.TEACHER, use_pallas_attention=False))
+    wav = jnp.zeros((2, 2000), jnp.float32)
+    tp = jax.jit(jd.init_teacher_params)(jax.random.PRNGKey(0), wav)
+    state = jax.jit(jd.init_state)(jax.random.PRNGKey(1), wav)
+    geom = TeacherGeometry(**tconf.TEACHER)
+    t_state = jax_teacher_params_to_state_dict(tp["params"], geom)
+    s_state = jax_student_params_to_state_dict(jax.device_get(state.params), tcfg,
+                                               jax.device_get(state.extra_vars["batch_stats"]))
+    batch = tconf._step_batches(1)[0]
+    state, jl = jd.make_train_step()(state, tp, jax.tree_util.tree_map(jnp.asarray, batch),
+                                     jnp.zeros((0,), jnp.int32), jax.random.PRNGKey(2))
+    want_sd = jax_student_params_to_state_dict(jax.device_get(state.params), tcfg,
+                                               jax.device_get(state.extra_vars["batch_stats"]))
+    ranks = pd.launch(test_torch_ddp_worker.specaug_step_rank, WORLD, texp, t_state, s_state,
+                      geom, batch, timeout=RANK_TIMEOUT)
+    for logs, params in ranks:
+        for k, v in jl.items():
+            np.testing.assert_allclose(logs[k], float(v), err_msg=k, **tconf.LOSS_TOL)
+        assert set(params) == set(want_sd)
+        for k, v in want_sd.items():
+            np.testing.assert_allclose(params[k], v.numpy(), err_msg=k, **tconf.PARAM_TOL)
+    (l0, p0), (l1, p1) = ranks
+    assert l0 == l1
+    stats = [k for k in p0 if k.endswith(("running_mean", "running_var"))]
+    assert len(stats) == 2 * tcfg.encoder_layers
+    for k in p0:
+        np.testing.assert_array_equal(p0[k], p1[k], err_msg=k)

@@ -198,11 +198,21 @@ def test_extract_features_matches_the_jax_script(release, flacs, tmp_path, monke
 
 
 def test_extract_features_refuses_int8_and_writes_nothing(release, flacs, tmp_path):
+    """--int8, once refused, serves with int8 matmuls
+    (UpstreamExpert(int8=True), held against the JAX int8 expert in
+    tests/test_torch_quant.py): the same files and frame counts as the
+    float run, each within cosine 0.99 of its float features (the bound of
+    tests/test_quant.py) and not equal to them."""
     _, ckpt, _, yaml_path, _, _ = release
-    with pytest.raises(NotImplementedError, match="int8"):
-        ef.main(["--ckpt", ckpt, "--config", yaml_path, "--inputs", flacs[0], "--out",
-                 str(tmp_path / "out"), "--int8", "--device", "cpu"])
-    assert not (tmp_path / "out").exists()
+    common = ["--ckpt", ckpt, "--config", yaml_path, "--inputs", *flacs[:2], "--device", "cpu"]
+    q = ef.main([*common, "--out", str(tmp_path / "int8"), "--int8"])
+    f = ef.main([*common, "--out", str(tmp_path / "float")])
+    assert q == f
+    for name in q:
+        a = np.load(tmp_path / "int8" / f"{name}.npy").astype(np.float64).ravel()
+        b = np.load(tmp_path / "float" / f"{name}.npy").astype(np.float64).ravel()
+        assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.99, name
+        assert not np.allclose(a, b), name
 
 
 def test_output_names_are_unique_in_input_order():

@@ -57,8 +57,8 @@ def test_config_from_yaml_dict_equals_the_jax_loader(path):
 def test_unsupported_configs_raise_naming_their_field(path, field):
     """ex.yaml's teacher hint-init and smoke_ctc.yaml's wav2vec_ctc teacher
     load (the port has both), with the setting on, and so does each with
-    train.specaug; each file with a setting the port still lacks
-    (teacher.quantize_int8) raises, naming it."""
+    train.specaug and with teacher.quantize_int8, once refused, as the
+    JAX loader reads them."""
     cfg = tc.config_from_yaml_dict(_raw(path))
     if field == "init_conv_layers":
         assert cfg.distiller.init_conv_layers and cfg.distiller.init_encoder_layers == 2
@@ -69,8 +69,9 @@ def test_unsupported_configs_raise_naming_their_field(path, field):
     raw["train"] = {**raw["train"], "specaug": True}
     assert tc.config_from_yaml_dict(raw).train.specaug
     raw["teacher"] = {**raw["teacher"], "quantize_int8": True}
-    with pytest.raises(NotImplementedError, match="teacher.quantize_int8"):
-        tc.config_from_yaml_dict(raw)
+    cfg = tc.config_from_yaml_dict(raw)
+    assert cfg.teacher.quantize_int8
+    _assert_shared_fields_equal(cfg, j_config_from_yaml_dict(raw))
 
 
 def test_ex_experiment_equals_ex_yaml_and_the_jax_loader():
@@ -97,20 +98,41 @@ def test_load_labels_is_honoured():
     (dict(teacher=dict(quantize_int8=True)), "teacher.quantize_int8"),
 ])
 def test_settings_the_loop_cannot_honour_raise(change, field, monkeypatch, tmp_path):
-    """run_training refuses, naming the field, what it cannot run: a
-    conformer over 2 ranks (its BatchNorm statistics would be each rank's;
-    the host is taken to have the cards it asks for) and an int8 teacher.
-    The same conformer file loads, and runs on one rank."""
+    """What run_training once refused it now runs: a conformer over 2
+    ranks (the host is taken to have the cards it asks for) starts its 2
+    ranks (``launch``, replaced here by a recorder: tests/test_torch_ddp.py
+    runs a conformer over two ranks), and an int8 teacher trains to the
+    end on one rank, its Distiller's teacher int8."""
     monkeypatch.setattr(loop, "world_size", lambda cfg, dev: max(1, cfg.train.num_devices))
     raw = _raw("configs/smoke.yaml")
     raw["train"] = {**raw["train"], "output_dir": str(tmp_path / "run")}
     for section, kw in change.items():
         raw[section] = {**raw[section], **kw}
-    with pytest.raises(NotImplementedError, match=field):
-        loop.run_training(tc.config_from_yaml_dict(raw), device="cpu")
-    assert not os.path.exists(tmp_path / "run")
-    if "distiller" in raw and raw["distiller"].get("layer_type") == "conformer":
-        assert tc.config_from_yaml_dict(raw).distiller.dedicated_conformer
+    cfg = tc.config_from_yaml_dict(raw)
+    if field == "layer_type='conformer'":
+        assert cfg.distiller.dedicated_conformer
+        from fithubert_tpu_torch.ops.kernels import _build
+
+        started = []
+        monkeypatch.setattr(_build, "build_all", lambda sources: None)
+        monkeypatch.setattr(loop, "launch", lambda fn, n, *a: started.append((fn, n, a))
+                            or [{"steps": 0}])
+        loop.run_training(cfg, device="cpu")
+        assert [(fn, n, a[0]) for fn, n, a in started] == [(loop.run_training, 2, cfg)]
+        return
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, max_steps=2))
+    teachers = []
+    plain = Distiller.__init__
+
+    def record(self, *a, **kw):
+        plain(self, *a, **kw)
+        teachers.append(self.teacher)
+
+    monkeypatch.setattr(Distiller, "__init__", record)
+    out = loop.run_training(cfg, device="cpu")
+    assert out["steps"] == 2 and np.isfinite(out["best_v_loss"])
+    assert teachers and all(t.geometry.quantize_int8 for t in teachers)
+    assert any(getattr(m, "weight_q", None) is not None for m in teachers[0].modules())
 
 
 @pytest.mark.parametrize("path", SUPPORTED)

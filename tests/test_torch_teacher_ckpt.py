@@ -121,7 +121,9 @@ def test_converted_pair_round_trips_and_msgpack_is_refused(tmp_path):
 def test_ctc_and_layer_norm_teachers_are_refused(tmp_path):
     """A wav2vec_ctc checkpoint is read now (tests/test_torch_ctc.py holds
     its forward against the JAX teacher): its body and its CTC head. A
-    layer_norm extractor is still refused."""
+    layer_norm extractor, once refused, builds, with fairseq's keys for
+    every block's LayerNorm (tests/test_torch_options.py holds a
+    wav2vec2-Large-shaped one against the JAX teacher)."""
     path = str(tmp_path / "ctc.pt")
     sd = {f"w2v_encoder.w2v_model.{k}": v for k, v in _tiny_sd().items()}
     sd["w2v_encoder.proj.weight"] = torch.zeros(VOCAB, D)
@@ -137,5 +139,7 @@ def test_ctc_and_layer_norm_teachers_are_refused(tmp_path):
                 "cfg": {"model": dict(_INNER_MODEL, extractor_mode="layer_norm")}}, path)
     geom, _ = load_fairseq_teacher(path)
     assert geom.extractor_mode == "layer_norm"
-    with pytest.raises(NotImplementedError, match="extractor_mode"):
-        TeacherModel(geom, device="cpu")
+    keys = TeacherModel(geom, device="cpu").state_dict()
+    assert all(f"feature_extractor.conv_layers.{i}.2.1.weight" in keys
+               for i in range(len(geom.conv_feature_layers)))
+    assert "feature_extractor.conv_layers.0.2.weight" not in keys

@@ -98,11 +98,21 @@ def test_spec_parsing_rejects_like_jax(bad):
 
 
 def test_unsupported_options_raise():
-    for over in (dict(conv_bias=True), dict(tr_layer_type="fc3"),
-                 dict(extractor_mode="layer_norm"), dict(pos_conv_depth=2)):
+    """tr_layer_type fc3 raises, as the JAX TimeReduction does; the conv
+    bias, the layer_norm extractor and the multi-layer positional conv,
+    once refused, build at full width (tests/test_torch_options.py holds
+    them against the JAX package)."""
+    with pytest.raises(NotImplementedError):
+        StudentModel(dataclasses.replace(tconfig.fithubert_960h(), tr_layer_type="fc3"),
+                     device="cpu")
+    for over in (dict(conv_bias=True), dict(extractor_mode="layer_norm"),
+                 dict(pos_conv_depth=2)):
         cfg = dataclasses.replace(tconfig.fithubert_960h(), **over)
-        with pytest.raises(NotImplementedError):
-            StudentModel(cfg, device="cpu")
+        keys = StudentModel(cfg, device="cpu").state_dict()
+        assert ("feature_extractor.conv_layers.3.0.bias" in keys) == cfg.conv_bias
+        assert ("feature_extractor.conv_layers.3.2.1.weight" in keys) == \
+            (cfg.extractor_mode == "layer_norm")
+        assert ("encoder.pos_conv.1.0.weight" in keys) == (cfg.pos_conv_depth == 2)
 
 
 def test_full_width_parameter_shapes_equal_jax():
@@ -192,17 +202,25 @@ def _lightning_pair(tmp_path, distiller_over):
                                          ("int8", "quantize_matmuls")],
                          ids=["lightning_ckpt", "int8"])
 def test_expert_refuses_what_the_port_cannot_serve(case, match, tmp_path):
-    """A reference Lightning .ckpt is read (tests/test_torch_export.py); one
-    whose YAML asks for int8 matmuls, which the port lacks, is refused by
-    the config's own check before any weight is read. int8 serving is
-    refused."""
+    """int8 matmuls, once refused, are served: a Lightning .ckpt whose YAML
+    asks for them (``quantize_matmuls: true``), and ``int8=True`` with the
+    float config. Either way the call sites hold their int8 payloads, and
+    the output is the same as the other's on the same weights
+    (tests/test_torch_quant.py holds it against the JAX int8 expert)."""
     _jcfg, tcfg = configs()
+    ckpt, yaml_path = _lightning_pair(tmp_path, {"quantize_matmuls": True})
     if case == "lightning_ckpt":
-        args, kwargs = _lightning_pair(tmp_path, {"quantize_matmuls": True}), {}
+        expert = UpstreamExpert(ckpt, yaml_path, device="cpu", length_quantum=800)
+        other = UpstreamExpert(ckpt, tcfg, device="cpu", length_quantum=800, int8=True)
     else:
-        args, kwargs = ({}, tcfg), dict(int8=True)
-    with pytest.raises(NotImplementedError, match=match):
-        UpstreamExpert(*args, device="cpu", **kwargs)
+        expert = UpstreamExpert(ckpt, tcfg, device="cpu", length_quantum=800, int8=True)
+        other = UpstreamExpert(ckpt, yaml_path, device="cpu", length_quantum=800)
+    assert getattr(expert.cfg, match)
+    marked = [m for m in expert.model.modules() if getattr(m, "quantize", False)]
+    assert marked and all(m.weight_q.dtype == torch.int8 for m in marked)
+    wavs = [np.random.default_rng(0).standard_normal(1500).astype(np.float32)]
+    torch.testing.assert_close(expert(wavs)["last_hidden_state"],
+                               other(wavs)["last_hidden_state"], rtol=0, atol=0)
 
 
 def test_expert_serves_a_lightning_ckpt_of_a_mel_student(tmp_path):
@@ -233,17 +251,17 @@ def test_expert_serves_a_lightning_ckpt_of_a_mel_student(tmp_path):
 
 @pytest.mark.parametrize("field, value", [("quantize_matmuls", True)])
 def test_from_dict_refuses_fields_the_port_lacks(field, value):
-    """A field the port has no counterpart for, set away from its JAX
-    default, raises and names itself; at the default it loads."""
+    """quantize_matmuls, once refused, is read as the JAX StudentConfig
+    reads it; at its default the config is the file's."""
     import yaml
 
     with open(YAML) as f:
         section = yaml.safe_load(f)["distiller"]
-    name = field.lstrip("_")
-    assert tconfig.StudentConfig.from_dict({**section, field: tconfig.REFUSED[name]}) \
+    assert tconfig.StudentConfig.from_dict({**section, field: False}) \
         == tconfig.StudentConfig.from_dict(section)
-    with pytest.raises(NotImplementedError, match=name):
-        tconfig.StudentConfig.from_dict({**section, field: value})
+    got = tconfig.StudentConfig.from_dict({**section, field: value})
+    assert getattr(got, field) == getattr(JStudentConfig.from_dict({**section, field: value}),
+                                          field) == value
 
 
 @pytest.mark.parametrize("field, value", [
