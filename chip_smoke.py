@@ -89,6 +89,19 @@ run with a non-zero exit and no final line:
      rel_pos conformer (4 layers) over two gloo ranks sharing the card,
      fp32 against one process (BatchNorm statistics included) and bf16,
      each rank's state bit-identical to the other's;
+  8e. smoke-configs: configs/smoke.yaml in fp32 and bf16 and
+     configs/smoke_ctc.yaml through train_torch.py (heads of 12 and 16,
+     widths 32 and 48: the kernels pad them), each with a falling loss and
+     its launches; K2-K4 at head sizes 12, 16, 80 and 128 and K1 / K6 on the
+     smoke student's stack against their plain versions; remat:
+     checkpoint_activations on against off for the release and rel_pos
+     steps, bit for bit, with each step's peak memory; chain:
+     train.steps_per_launch 4 as one CUDA graph against 4 eager steps for
+     the release step, path B and rel_pos (bit for bit, the launches
+     counted at the warm-up and capture, none at a replay), eager and
+     graphed walls, the replay's device time, the capture time, and
+     run_training with
+     steps_per_launch 4;
   9. timing: serving at B = 32 x 16 s and the train step at 3 x 4 x 12 s,
      with a profile of each, the steps of paths 6 and 7, and every kernel
      against its bound, its plain version and the library call, one row per
@@ -122,7 +135,9 @@ run with a non-zero exit and no final line:
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -490,13 +505,17 @@ def bound(flops, bytes_, peak):
 def profile_device(fn, what, n=3, top=14, unprofiled_ms=None):
     """Device time by kernel over n calls of fn (torch.profiler), the
     device's busy share of the wall time (and of ``unprofiled_ms``, the same
-    call timed without the profiler), and peak memory. Ranges that user code
+    call timed without the profiler), and peak memory: the calls' own, above
+    what was allocated before them (the path's weights, and whatever the
+    script still holds), and that resident amount. Ranges that user code
     annotates (torch.optim's ``Optimizer.step#...``) span kernels counted
     already and are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
@@ -511,14 +530,16 @@ def profile_device(fn, what, n=3, top=14, unprofiled_ms=None):
     busy = sum(t for _k, t in rows)
     if not rows:
         print("  profile: the profiler saw no device time (not measured)", flush=True)
-        return
+        return None
     share = "" if unprofiled_ms is None else \
         f", {100 * busy / unprofiled_ms:.1f}% of the unprofiled {unprofiled_ms:.3f} ms"
     print(f"  profile: wall {wall:.3f} ms per {what}, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}%{share}), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{(torch.cuda.max_memory_allocated() - resident) / 2**30:.2f} GiB above the "
+          f"{resident / 2**30:.2f} GiB resident before it", flush=True)
     for key, t in rows[:top]:
         print(f"    {t:8.3f} ms {100 * t / busy:5.1f}%  {key[:90]}", flush=True)
+    return busy
 
 
 def attention_case(gen, b, t, h, d, dtype, dev, full_pad_row):
@@ -535,11 +556,14 @@ def attention_case(gen, b, t, h, d, dtype, dev, full_pad_row):
     return [x.to(dev, dtype) for x in (q, k, v, dout)] + [mask.to(dev)]
 
 
-def seed_words(gen):
+def seed_words(gen, dev):
+    """Two random 32-bit words as a dropout seed, a (2,) int32 tensor on dev."""
     import torch
 
+    from fithubert_tpu_torch.ops.kernels.philox import seed_tensor
+
     w = torch.randint(0, 2 ** 32, (2,), generator=gen)
-    return int(w[0]), int(w[1])
+    return seed_tensor(int(w[0]), int(w[1]), dev)
 
 
 def check_attention_training_kernels(fa, gen, dev, errs,
@@ -554,7 +578,7 @@ def check_attention_training_kernels(fa, gen, dev, errs,
     for (b, t, h, d, pad_row) in cases:
         for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             q, k, v, dout, m = attention_case(gen, b, t, h, d, dtype, dev, pad_row)
-            seed = seed_words(gen)
+            seed = seed_words(gen, dev)
             rows = ~m.all(-1)
             tag = f"{dtype_name} {(b, t, h, d)}"
             keep = fa.keep_mask(b, h, t, ATTN_P, seed, dev)
@@ -597,15 +621,18 @@ def check_attention_training_kernels(fa, gen, dev, errs,
                     print(f"  fully padded row: dq = dk = dv = 0 (p={p}) ok", flush=True)
 
 
-def check_seeded_dropout(kd, shape, gen, dev):
-    """K5 against seeded_dropout_plain at ``shape``, fp32 and bf16:
-    bit-identical forward and backward, and the keep-rate within 4 sigma."""
+def check_seeded_dropout(kd, shape, gen, dev, dtypes=None):
+    """K5 against seeded_dropout_plain at ``shape``, in each of ``dtypes``
+    (fp32 and bf16 by default): bit-identical forward and backward, and the
+    keep-rate within 4 sigma."""
     import torch
 
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    dtypes = dtypes or (torch.float32, torch.bfloat16)
+    for dtype in dtypes:
+        dtype_name = str(dtype).removeprefix("torch.")
         x = torch.rand(shape, generator=gen).to(dev, dtype).requires_grad_()
         cot = torch.randn(shape, generator=gen).to(dev, dtype)
-        seed = seed_words(gen)
+        seed = seed_words(gen, dev)
         y = kd.seeded_dropout(x, seed, ATTN_P)
         (dx,) = torch.autograd.grad(y, x, cot)
         want = (kd.seeded_dropout_plain(x.detach(), seed, ATTN_P),
@@ -1151,18 +1178,18 @@ def gloo_step_rank(spec_path, out_dir):
             rng = DropoutRNG(d._seed(0), dev)
             out[case].update(
                 all_reduce_ms=times, grad_bytes=sum(g.numel() * g.element_size() for g in grads),
-                seed_words=rng.seed_words(),
+                seed_words=rng.seed_words().tolist(),
                 keep=(rng.dropout(torch.ones(1 << 16, device=dev), ATTN_P) != 0).cpu().numpy())
         del d
         torch.cuda.empty_cache()
     return out
 
 
-def dp_nccl_phase(exp, t_state, s_state, batches, rand_layers, per_step, smi):
+def dp_nccl_phase(exp, t_state, s_state, batches, rand_layers, per_step, gen, smi):
     """[dp] NCCL, one rank: the process group on the card, two release steps
     through the data-parallel path against the plain Distiller on the same
     batches, bit for bit, each launching the release step's kernels; the
-    world-1 gradient all-reduce timed on the card."""
+    world-1 gradient all-reduce timed on the card; then ``nccl_slice12``."""
     import torch
     import torch.distributed as dist
 
@@ -1218,8 +1245,65 @@ def dp_nccl_phase(exp, t_state, s_state, batches, rand_layers, per_step, smi):
               f"{statistics.median(walls['dp']):.3f} ms; {smi}", flush=True)
         del plain, via, grads, flat
         torch.cuda.empty_cache()
+        nccl_slice12(exp, t_state, s_state, batches, rand_layers, dp, dev, gen, smi)
     finally:
         dist.destroy_process_group()
+
+
+def nccl_slice12(exp, t_state, s_state, batches, rand_layers, dp, dev, gen, smi):
+    """[dp] the slice's features through the NCCL path of one rank: the
+    K-step CUDA graph with the gradient all-reduce captured, against K
+    eager data-parallel steps from the same state; and
+    checkpoint_activations on against off for a rel_pos conformer (cut to
+    CONFORMER_DP_LAYERS layers) whose BatchNorm sums run over the ranks
+    again in each recompute. Both bit for bit."""
+    import torch
+
+    from fithubert_tpu_torch.config import conformer_experiment
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.train.step import Distiller
+
+    run = [batches[i % len(batches)] for i in range(CHAIN_K)]
+    chained = Distiller(exp, t_state, s_state, device=dev, num_training_steps=20, dp=dp)
+    eager = Distiller(exp, t_state, s_state, device=dev, num_training_steps=20, dp=dp)
+    chained.train_step_chain(run, rand_layers)  # the eager warm-up, then the capture
+    for batch in run:
+        eager.train_step(batch, rand_layers)
+    logs_g = [lg.to_floats() for lg in chained.train_step_chain(run, rand_layers)]
+    logs_e = [eager.train_step(batch, rand_layers) for batch in run]
+    diff, worst = _student_state_equal(chained, eager)
+    if logs_g != logs_e or diff:
+        fail(f"[dp] nccl chain: logs {logs_g} vs {logs_e}; {len(diff)} tensors differ "
+             f"(worst {worst:.3e})")
+    print(f"  steps_per_launch {CHAIN_K} through the NCCL path: the graph (its all-reduce "
+          f"captured) == {CHAIN_K} eager data-parallel steps, logs and parameters bit for bit "
+          f"ok; losses {[round(lg['loss'], 6) for lg in logs_g]}", flush=True)
+    del chained, eager
+    torch.cuda.empty_cache()
+    exp_c = conformer_experiment("rel_pos")
+    exp_c = dataclasses.replace(exp_c, distiller=dataclasses.replace(
+        exp_c.distiller, encoder_layers=CONFORMER_DP_LAYERS))
+    c_state = StudentModel(exp_c.distiller, device="cpu").init_weights(gen).state_dict()
+    rand = torch.randperm(CONFORMER_DP_LAYERS - 1, generator=gen)
+    a, b = exp_c.train.accumulate_grad_batches, exp_c.train.batch_size
+    batch = train_batch(gen, a, b, 12.0, ragged=True)
+    runs = []
+    for remat in (False, True):
+        er = dataclasses.replace(exp_c, distiller=dataclasses.replace(
+            exp_c.distiller, checkpoint_activations=remat))
+        d = Distiller(er, t_state, c_state, device=dev, num_training_steps=20, dp=dp)
+        runs.append((d, d.train_step(batch, rand)))
+    (d0, l0), (d1, l1) = runs
+    diff, worst = _student_state_equal(d0, d1)
+    if l0 != l1 or diff:
+        fail(f"[dp] nccl remat: logs {l0} vs {l1}; {len(diff)} tensors differ (worst "
+             f"{worst:.3e}), first {diff[:3]}")
+    print(f"  checkpoint_activations through the NCCL path, rel_pos conformer cut to "
+          f"{CONFORMER_DP_LAYERS} layers, a ragged step of {a} microbatches: loss "
+          f"{l0['loss']:.6f}, parameters and BatchNorm statistics bit for bit with the flag "
+          f"on and off ok; {smi}", flush=True)
+    del runs, d0, d1
+    torch.cuda.empty_cache()
 
 
 def dp_gloo_phase(exp, exp32, t_state, s_state, rand_layers, gen, per_step, tmp, smi):
@@ -1541,9 +1625,26 @@ def ex_per_step(exp_ex, geom):
 
     n_stack = len(exp_ex.distiller.conv_feature_layers) - 1
     l_s = exp_ex.distiller.encoder_layers
-    return {cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 2,
-            fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s,
-            fa.KERNEL_DKV: l_s, cf.KERNEL_BWD: 4 * n_stack}
+    return plus_k5({cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1,
+                    cf.KERNEL_PREFIX: 2, fa.KERNEL: geom.encoder_layers,
+                    fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s,
+                    cf.KERNEL_BWD: 4 * n_stack}, exp_ex.distiller, 1)
+
+
+def release_per_step(exp, geom):
+    """The launches of one release train step (its microbatches folded
+    into one forward): K1 on both extractors, one prefix each (block 0's
+    GroupNorm), the teacher's K2 at p = 0, the student's K2 with dropout,
+    K3 and K4, K6's up, dW, ordered sum and da per layer, and K5 at every
+    elementwise dropout forward and backward."""
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg, n_stack = exp.distiller, len(exp.distiller.conv_feature_layers) - 1
+    return plus_k5({cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 2,
+                    fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: cfg.encoder_layers,
+                    fa.KERNEL_DQ: cfg.encoder_layers, fa.KERNEL_DKV: cfg.encoder_layers,
+                    cf.KERNEL_BWD: 4 * n_stack}, cfg, 1)
 
 
 def launches_of_step(d, batch, rand, want, what):
@@ -1924,6 +2025,28 @@ CONFORMER_STEPS = 5
 BN_STATS_TOL = dict(atol=1e-5, rtol=1e-4)
 
 
+def dropout_sites(cfg) -> int:
+    """The elementwise dropouts of one training forward of a student
+    ``cfg``, each a K5 launch (``ops/dropout.py``): the front end's
+    ``dropout_input``, the encoder input, and per layer two (a transformer
+    layer, plus its activation dropout) or six (a conformer layer)."""
+    per_layer = (6 * (cfg.dropout > 0) if cfg.layer_type == "conformer" else
+                 2 * (cfg.dropout > 0) + (cfg.activation_dropout > 0))
+    return int(cfg.dropout_input > 0) + int(cfg.dropout > 0) + cfg.encoder_layers * per_layer
+
+
+def plus_k5(per, cfg, forwards):
+    """``per`` with K5's elementwise dropout launches added: a forward and
+    a backward launch per site of each of the step's ``forwards``."""
+    from fithubert_tpu_torch.ops.kernels import dropout as kd
+
+    out = dict(per)
+    n = 2 * forwards * dropout_sites(cfg)
+    if n:
+        out[kd.KERNEL] = out.get(kd.KERNEL, 0) + n
+    return out
+
+
 def conformer_per_step(exp_c, geom):
     """The launches of one train step of a conformer ``exp_c`` (4
     microbatches looped: its BatchNorm statistics never fold): per
@@ -1944,7 +2067,7 @@ def conformer_per_step(exp_c, geom):
         per[kd.KERNEL] = 2 * a * l_s
     else:
         per.update({fa.KERNEL_DROPOUT: a * l_s, fa.KERNEL_DQ: a * l_s, fa.KERNEL_DKV: a * l_s})
-    return per
+    return plus_k5(per, cfg, a)
 
 
 def batch_norms(model):
@@ -2055,16 +2178,36 @@ def served_card_vs_cpu(pt_s, cfg, wavs, what):
           f"worst rel_fro={fro:.3e} tol={BF16_VS_FP32_FRO} ok", flush=True)
 
 
+@contextlib.contextmanager
+def k5_shapes(kd, seen):
+    """Record into the set ``seen`` the (shape, dtype) of every tensor K5 is
+    launched on while the block runs; the launches themselves are left as
+    they are."""
+    launch = kd.seeded_dropout_cuda
+
+    def recorded(x, seed, p):
+        seen.add((tuple(x.shape), x.dtype))
+        return launch(x, seed, p)
+
+    kd.seeded_dropout_cuda = recorded
+    try:
+        yield seen
+    finally:
+        kd.seeded_dropout_cuda = launch
+
+
 def check_k5_at(kd, shape, dev):
     """K5 at a conformer's probabilities ``shape`` (fp32, p = ATTN_P), bit
     for bit against seeded_dropout_plain, forward and backward; the inputs
     are drawn on the card (one (32, 12, 799, 799) tensor is 981 MB)."""
     import torch
 
+    from fithubert_tpu_torch.ops.kernels.philox import seed_tensor
+
     g = torch.Generator(device=dev).manual_seed(int(shape[-1]))
     x = torch.rand(shape, device=dev, generator=g).requires_grad_()
     cot = torch.randn(shape, device=dev, generator=g)
-    seed = (int(shape[0]) * 7919 + 1, int(shape[-1]) * 104729 + 3)
+    seed = seed_tensor(int(shape[0]) * 7919 + 1, int(shape[-1]) * 104729 + 3, dev)
     y = kd.seeded_dropout(x, seed, ATTN_P)
     (dx,) = torch.autograd.grad(y, x, cot)
     with torch.no_grad():
@@ -2228,9 +2371,9 @@ def mel_phase(geom, t_state, gen, smi, tmp):
     l_s = cfg.encoder_layers
     # folded into one batch of a * b rows: the teacher's prefix and K1, its
     # K2 at p = 0, the student's attention with dropout and its backward
-    per_step = {cf.KERNEL_PREFIX: 1, cf.KERNEL: len(geom.conv_feature_layers) - 1,
-                fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s,
-                fa.KERNEL_DKV: l_s}
+    per_step = plus_k5({cf.KERNEL_PREFIX: 1, cf.KERNEL: len(geom.conv_feature_layers) - 1,
+                        fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s,
+                        fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s}, cfg, 1)
     s_state = StudentModel(cfg, device="cpu").init_weights(gen).state_dict()
     d = Distiller(exp_m, t_state, s_state, device="cuda", num_training_steps=20)
     rand = torch.randperm(l_s - 1, generator=gen)
@@ -2390,9 +2533,9 @@ def large_phase(exp, gen, smi, tmp):
     s_state = StudentModel(exp_l.distiller, device="cpu").init_weights(gen).state_dict()
     cfg, a, b = exp_l.distiller, exp_l.train.accumulate_grad_batches, exp_l.train.batch_size
     n_stack, l_s = len(cfg.conv_feature_layers) - 1, cfg.encoder_layers
-    per_step = {cf.KERNEL: n_stack, cf.KERNEL_PREFIX: 1, fa.KERNEL: geom.encoder_layers,
-                fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s,
-                cf.KERNEL_BWD: 4 * n_stack}
+    per_step = plus_k5({cf.KERNEL: n_stack, cf.KERNEL_PREFIX: 1, fa.KERNEL: geom.encoder_layers,
+                        fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s,
+                        cf.KERNEL_BWD: 4 * n_stack}, cfg, 1)
     rand = torch.randperm(cfg.encoder_layers - 1, generator=gen)
     d = Distiller(exp_l, t_state, s_state, device="cuda", num_training_steps=20,
                   teacher_geometry=geom)
@@ -2542,9 +2685,9 @@ def options_phase(exp, geom, t_state, rand_layers, gen, smi):
         fail("[options] the layer_norm extractor took the fused path")
     s_state = student.state_dict()
     l_s = cfg.encoder_layers
-    per_step = {cf.KERNEL: len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 1,
-                fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s,
-                fa.KERNEL_DKV: l_s}
+    per_step = plus_k5({cf.KERNEL: len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 1,
+                        fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s,
+                        fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s}, cfg, 1)
     d = Distiller(exp_o, t_state, s_state, device="cuda", num_training_steps=20)
     for what, batch in (("ragged", train_batch(gen, a, b, 12.0, ragged=True)),
                         ("fixed", train_batch(gen, a, b, 12.0, ragged=False))):
@@ -2698,15 +2841,377 @@ def conformer_dp_phase(geom, t_state, per_step_of, gen, smi, tmp):
     torch.cuda.empty_cache()
 
 
+# [smoke-configs]: the head sizes of the attention checks beside the
+# compiled ones: the smoke configs' student (48 / 4) and teacher (64 / 4),
+# one compiled as it is (80) and the largest (128). Each pads to
+# flash_attention.HEAD_DIMS and is held to the plain version at TOL.
+SMOKE_HEAD_DIMS = (12, 16, 80, 128)
+SMOKE_RUNS = (("smoke fp32", "configs/smoke.yaml", ()),
+              ("smoke bf16", "configs/smoke.yaml", ("train.use_fp16=true",)),
+              ("smoke_ctc fp32", "configs/smoke_ctc.yaml", ()))
+# [chain]: the K of train.steps_per_launch, and where the graph's steps are
+# not bit for bit those of K eager steps, the JAX package's own bounds for
+# its chain against single steps (tests/test_train_step.py:380-412): the
+# loss to 2e-5 relative, each parameter to 1e-5 + 2e-4 relative.
+CHAIN_K = 4
+CHAIN_ROUNDS = 2  # eager, then graphed, K steps a round: the wall medians
+# what a kernel row's launches count, where not one train step's
+LAUNCHES_OVER = {"serving": "over the 3 serving requests",
+                 "smoke": "over the whole smoke bf16 run, its steps and evals"}
+CHAIN_LOSS_RTOL, CHAIN_PARAM_ATOL, CHAIN_PARAM_RTOL = 2e-5, 1e-5, 2e-4
+
+
+def smoke_configs_phase(gen, smi, tmp, errs):
+    """[smoke-configs] configs/smoke.yaml through train_torch.py in fp32
+    and bf16 (``use_fp16``), and configs/smoke_ctc.yaml, each in this
+    process with a falling loss and the kernels it launched; then K2-K4 at
+    SMOKE_HEAD_DIMS against their plain versions in both dtypes, and K1 and
+    K6 at the smoke student's widths (32, 48: padded to 64) in bf16.
+    Returns {run label: its launches}."""
+    import torch
+
+    import train_torch
+    from fithubert_tpu_torch.config import load_experiment_yaml
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+
+    runs = {}
+    for label, path, sets in SMOKE_RUNS:
+        out = os.path.join(tmp, label.replace(" ", "_"))
+        argv = ["-c", path, "--no-resume", "--set", f"train.output_dir={out}"]
+        for item in sets:
+            argv += ["--set", item]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = train_torch.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        train, val = logged(out)
+        losses = [train[k]["loss"] for k in sorted(train)]
+        if not losses or not all(math.isfinite(x) for x in losses):
+            fail(f"[smoke-configs] {label}: no finite losses logged: {losses}")
+        first, last = statistics.mean(losses[:2]), statistics.mean(losses[-2:])
+        if not last < first:
+            fail(f"[smoke-configs] {label}: the loss did not fall: {losses}")
+        want = [cf.KERNEL, fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV, cf.KERNEL_BWD]
+        if "bf16" in label:
+            want.append(cf.KERNEL_PREFIX)
+        if any(launches.get(n, 0) < 1 for n in want):
+            fail(f"[smoke-configs] {label}: launches {launches}, want every one of {want}")
+        runs[label] = launches
+        print(f"  {label}: train_torch.py -c {path} {' '.join(sets)}: {result['steps']} steps "
+              f"in {time.perf_counter() - t0:.1f} s, loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+              f"(means of the first and last two logged {first:.6f} -> {last:.6f}), "
+              f"{len(val)} evals, launches {json.dumps(launches)} ok", flush=True)
+
+    print(f"[smoke-configs] K2 (p = 0 and p = {ATTN_P}), K3 and K4 at head sizes "
+          f"{SMOKE_HEAD_DIMS} (compiled {fa.HEAD_DIMS}), ragged, vs the plain versions",
+          flush=True)
+    dev = torch.device("cuda")
+    for d in SMOKE_HEAD_DIMS:
+        check_attention_training_kernels(fa, gen, dev, errs,
+                                         cases=((4, 299, 4, d, False), (2, 130, 2, d, True)),
+                                         path=f"@D={d}")
+    exp_s = load_experiment_yaml("configs/smoke.yaml")
+    student = StudentModel(exp_s.distiller, device="cpu").init_weights(gen)
+    wavs = ragged_wavs(gen, 3, 0.5, 2.0) + [torch.randn(2 * SR, generator=gen) * 0.1]
+    print(f"[smoke-configs] K1 and its prefix on the smoke student's stack "
+          f"{student.feature_extractor.spec[1:]} (C0 {student.feature_extractor.spec[0][0]}), "
+          f"B=4 x (ragged, up to 2 s); bf16 pads the widths to "
+          f"{cf.WIDTH_MULTIPLE[torch.bfloat16]}", flush=True)
+    errs["conv@smoke"], errs["prefix@smoke"] = check_conv_stack(student, wavs, dev, "smoke")
+    print("[smoke-configs] K6 vs conv_stack_bwd_plain and the library recompute on the smoke "
+          "student's stack, 4 x 2 s", flush=True)
+    train_wavs = [torch.randn(2 * SR, generator=gen) * 0.1 for _ in range(4)]
+    errs[cf.KERNEL_BWD + "@smoke"] = check_conv_backward(cf, student, train_wavs, gen, dev)
+    print(f"[smoke-configs] every check passed; {smi}", flush=True)
+    return runs
+
+
+def _student_state_equal(d0, d1):
+    """(names of the student tensors that differ, worst |difference|)."""
+    import torch
+
+    diff, worst = [], 0.0
+    sd1 = d1.student.state_dict()
+    for name, t in d0.student.state_dict().items():
+        if not torch.equal(t, sd1[name]):
+            diff.append(name)
+            worst = max(worst, (t.float() - sd1[name].float()).abs().max().item())
+    return diff, worst
+
+
+def remat_phase(exp, geom, t_state, s_state, rand_layers, gen, smi):
+    """[remat] ``checkpoint_activations`` on against off from one state: the
+    release step and the rel_pos conformer step (4 microbatches, its
+    BatchNorm statistics), two steps each; loss, grad_norm, every parameter
+    and statistic bit for bit, and the peak memory of each."""
+    import torch
+
+    from fithubert_tpu_torch.config import conformer_experiment
+    from fithubert_tpu_torch.models.student import StudentModel
+    from fithubert_tpu_torch.train.step import Distiller
+
+    exp_c = conformer_experiment("rel_pos")
+    c_state = StudentModel(exp_c.distiller, device="cpu").init_weights(gen).state_dict()
+    for what, e, st, rand in (("release", exp, s_state, rand_layers),
+                              ("rel_pos conformer", exp_c, c_state,
+                               torch.randperm(exp_c.distiller.encoder_layers - 1,
+                                              generator=gen))):
+        a, b = e.train.accumulate_grad_batches, e.train.batch_size
+        batch = train_batch(gen, a, b, 12.0, ragged=False)
+        runs = []
+        for remat in (False, True):
+            er = dataclasses.replace(e, distiller=dataclasses.replace(
+                e.distiller, checkpoint_activations=remat))
+            d = Distiller(er, t_state, st, device="cuda", num_training_steps=20)
+            d.train_step(batch, rand)  # warm-up: the first step's allocations
+            d.optimizer.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()  # everything resident before the step
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logs = d.train_step(batch, rand)
+            torch.cuda.synchronize()
+            runs.append((d, logs, (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                         (time.perf_counter() - t0) * 1e3))
+        (d0, l0, m0, t_off), (d1, l1, m1, t_on) = runs
+        diff, worst = _student_state_equal(d0, d1)
+        if l0 != l1 or diff:
+            fail(f"[remat] {what}: logs {l0} vs {l1}; {len(diff)} tensors differ (worst "
+                 f"{worst:.3e}), first {diff[:3]}")
+        n_stats = sum(n.endswith(("running_mean", "running_var")) for n in
+                      d0.student.state_dict())
+        print(f"  {what}, {b} x {a} x 12 s bf16, 2 steps: loss {l0['loss']:.6f} grad_norm "
+              f"{l0['grad_norm']:.6f} bit for bit, every parameter and {n_stats} BatchNorm "
+              f"statistics bit for bit ok; the second step's peak memory above what was "
+              f"resident before it {m0:.3f} GiB off -> {m1:.3f} GiB on, its wall "
+              f"{t_off:.1f} -> {t_on:.1f} ms; {smi}", flush=True)
+        del runs, d0, d1
+        torch.cuda.empty_cache()
+
+
+def _chain_compare(what, logs_g, logs_e, dg, de):
+    """The graph's K steps against K eager steps from the same state: logs,
+    parameters, AdamW's moments and the BatchNorm statistics bit for bit,
+    or within the JAX chain test's bounds, naming what differs."""
+    import torch
+
+    for i, (g, e) in enumerate(zip(logs_g, logs_e)):
+        for key in e:
+            if g[key] != e[key] and abs(g[key] - e[key]) > CHAIN_LOSS_RTOL * abs(e[key]):
+                fail(f"[chain] {what} step {i}: {key} graph {g[key]} vs eager {e[key]}")
+    diff, worst = _student_state_equal(dg, de)
+    moments = []
+    for p_g, p_e in zip(dg.params, de.params):
+        sg, se = dg.optimizer.state[p_g], de.optimizer.state[p_e]
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            if not torch.equal(sg[key], se[key]):
+                moments.append(key)
+    exact = logs_g == logs_e and not diff and not moments
+    if not exact:
+        sd_e = de.student.state_dict()
+        for name, t in dg.student.state_dict().items():
+            ref = sd_e[name].float()
+            if ((t.float() - ref).abs() > CHAIN_PARAM_ATOL + CHAIN_PARAM_RTOL * ref.abs()).any():
+                fail(f"[chain] {what}: {name} outside the JAX chain bounds")
+    return exact, diff, worst, moments
+
+
+def bucketed_launches(e, k, tmp, n_rows=28539, epochs=3, seed=0):
+    """How ``run_training`` launches a shuffled, length-bucketed corpus with
+    ``steps_per_launch`` k, counted on the host through the loop's own
+    grouping (``loop._launch_groups``, ``_use_chain``): ``n_rows``
+    utterances (train-clean-100's count) with lengths drawn uniformly in
+    [2, 16] s from ``seed`` (a synthetic distribution, not LibriSpeech's),
+    bucketed by ``BucketedLibriSpeech`` with ``e``'s batch size, accumulation
+    and length quantum, ``epochs`` shuffled epochs. Returns (steps, steps in
+    full runs of k, that is chained, chained launches, distinct shapes)."""
+    import csv
+
+    import numpy as np
+
+    from fithubert_tpu_torch.data.librispeech import BucketedLibriSpeech, quantize_length
+    from fithubert_tpu_torch.train import loop as tloop
+
+    lengths = np.random.default_rng(seed).integers(2 * SR, 16 * SR + 1, n_rows)
+    root = os.path.join(tmp, "bucketed_lengths")
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "synthetic.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_path", "length"])
+        w.writeheader()
+        for i, n in enumerate(lengths):
+            w.writerow({"file_path": f"u{i}.wav", "length": int(n)})
+    cfg = dataclasses.replace(e.data, bucketing_path=root, libri_root="")
+    ds = BucketedLibriSpeech(cfg, ["synthetic"], e.train.batch_size,
+                             e.train.accumulate_grad_batches, seed=seed)
+    steps = chained = launches = 0
+    shapes = set()
+    for ep in range(epochs):
+        raws = []
+        for group in ds._groups(ep):  # _build_group's padded length, without the audio
+            t_pad = max(quantize_length(max(n for _p, n in ds.buckets[int(g)]),
+                                        cfg.length_quantum, cfg.max_wav_length)
+                        for g in group if int(g) >= 0)
+            shapes.add(t_pad)
+            x = np.broadcast_to(np.float32(0), (len(group), ds.batch_size, t_pad))
+            raws.append({"x": x})
+        for run in tloop._launch_groups([(r, None) for r in raws], k):
+            steps += len(run)
+            if tloop._use_chain(len(run), k):
+                chained += len(run)
+                launches += 1
+    return steps, chained, launches, len(shapes)
+
+
+def chain_phase(paths, t_state, gen, smi, tmp):
+    """[chain] ``train.steps_per_launch`` = CHAIN_K on the card: for each
+    path in ``paths`` ({name: (experiment, student state, rand layers,
+    per-step launches)}), the graph's K steps (its second call: the first
+    ran K eager steps as the warm-up, then captured) against K eager steps
+    from the same state; the launches counted at capture; the wall per
+    step, eager against graphed, the replay's device time and the capture
+    time. Then
+    run_training with steps_per_launch CHAIN_K on a synthetic corpus."""
+    import torch
+
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.train.loop import run_training
+    from fithubert_tpu_torch.train.step import Distiller
+
+    k = CHAIN_K
+    for name, (e, st, rand, per_step) in paths.items():
+        a, b = e.train.accumulate_grad_batches, e.train.batch_size
+        batches = [train_batch(gen, a, b, 12.0, ragged=False) for _ in range(2 * k)]
+        dg = Distiller(e, t_state, st, device="cuda", num_training_steps=50)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        dg.train_step_chain(batches[:k], rand)  # k eager warm-up steps, then the capture
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counted = dict(_build.LAUNCHES)
+        want = {n: 2 * k * c for n, c in per_step.items()}
+        if counted != want:
+            fail(f"[chain] {name}: the first call launched {counted}, want 2 x {k} steps of "
+                 f"{per_step} (the eager warm-up and the capture)")
+        de = Distiller(e, t_state, st, device="cuda", num_training_steps=50)
+        # a copy: AdamW's load_state_dict keeps tensors already on the card,
+        # so dg's replay would move de's moments too
+        de.load_state_dict(copy.deepcopy(dg.state_dict()))
+        _build.reset_launches()
+        logs_g = [lg.to_floats() for lg in dg.train_step_chain(batches[k:], rand)]
+        torch.cuda.synchronize()
+        if _build.LAUNCHES:
+            fail(f"[chain] {name}: a replay launched from Python: {dict(_build.LAUNCHES)}")
+        logs_e = [de.train_step(bt, rand) for bt in batches[k:]]
+        exact, diff, worst, moments = _chain_compare(name, logs_g, logs_e, dg, de)
+        n_stats = sum(n.endswith(("running_mean", "running_var")) for n in
+                      dg.student.state_dict())
+        how = "bit for bit" if exact else (
+            f"within the JAX chain bounds, not bit for bit: {len(diff)} tensors differ "
+            f"(worst {worst:.3e}, first {diff[:3]}), moments {sorted(set(moments))}")
+        print(f"  {name}: {k} graphed steps == {k} eager steps from one state: logs "
+              f"{[round(lg['loss'], 6) for lg in logs_g]}, parameters, AdamW moments and "
+              f"{n_stats} statistics {how} ok; the first call (the {k} eager warm-up steps "
+              f"and the capture) {first_s:.2f} s, counted {json.dumps(counted)}, a replay "
+              f"counts none", flush=True)
+        # wall and device busy per step, eager against graphed, in turns
+        eager_ms, graph_ms = [], []
+        for _ in range(CHAIN_ROUNDS):
+            for d_, out in ((de, eager_ms), (dg, graph_ms)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if d_ is dg:
+                    dg.train_step_chain(batches[:k], rand)
+                else:
+                    for bt in batches[:k]:
+                        de.train_step_async(bt, rand)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3 / k)
+        e_med, g_med = statistics.median(eager_ms), statistics.median(graph_ms)
+        # the replay's device time, from CUDA events around it (one launch:
+        # the host queues nothing else inside it); the eager steps' device
+        # busy is [timing]'s profile of the same path
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        dg.train_step_chain(batches[:k], rand)
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end)
+        capture_s = next(iter(dg._chains.values())).capture_s  # the capture alone
+        print(f"  {name} per step: wall eager {e_med:.3f} ms, graphed {g_med:.3f} ms (medians "
+              f"of {CHAIN_ROUNDS} rounds of {k}: {sorted(eager_ms)}, {sorted(graph_ms)}); the "
+              f"replay's device time {replay_ms / k:.3f} ms a step (CUDA events); capture "
+              f"{capture_s:.2f} s; {smi}", flush=True)
+        del dg, de, d_
+        torch.cuda.empty_cache()
+
+    name, (e, st, rand, per_step) = next(iter(paths.items()))
+    n_batches, max_steps = 2 * k + 2, k + 2  # train steps an epoch; the cap
+    e_loop = dataclasses.replace(
+        e, data=dataclasses.replace(e.data, synthetic=True,
+                                    synthetic_num_batches=n_batches * e.train.accumulate_grad_batches,
+                                    synthetic_wav_length=12 * SR),
+        train=dataclasses.replace(e.train, steps_per_launch=k, max_steps=max_steps,
+                                  num_epochs=1, log_every=1,
+                                  output_dir=os.path.join(tmp, "chain_loop")),
+        teacher=dataclasses.replace(e.teacher, teacher_model=""))
+    replays, chained = [], Distiller._replay
+
+    def counted_replay(self, chain, inputs):
+        replays.append(len(inputs))
+        return chained(self, chain, inputs)
+
+    Distiller._replay = counted_replay
+    try:
+        t0 = time.perf_counter()
+        result = run_training(e_loop, resume=False, device="cuda")
+    finally:
+        Distiller._replay = chained
+    train, _val = logged(e_loop.train.output_dir)
+    # log_every 1: the loop logs each launch's last step, as the JAX loop does
+    if not max_steps <= result["steps"] < max_steps + k or replays != [k] or \
+            sorted(train) != [k, 2 * k] or not all(math.isfinite(train[s_]["loss"])
+                                                  for s_ in train):
+        fail(f"[chain] run_training: {result}, replays {replays}, logged steps {sorted(train)}")
+    print(f"  run_training, {name}, steps_per_launch {k}, max_steps {max_steps}, "
+          f"{n_batches} synthetic batches: {result['steps']} steps (may pass max_steps by "
+          f"< {k}), the first {k} eager and captured, the next {k} one replay, losses "
+          f"{[round(train[s_]['loss'], 6) for s_ in sorted(train)]} logged at each launch's "
+          f"last step, in {time.perf_counter() - t0:.1f} s ok", flush=True)
+    # real corpora are bucketed by length: a run of K equal shapes is rarer
+    steps, chained, launches, n_shapes = bucketed_launches(e, k, tmp)
+    print(f"  a shuffled, length-bucketed corpus (28539 utterances, lengths uniform in "
+          f"[2, 16] s, {name}'s batch {e.train.accumulate_grad_batches} x "
+          f"{e.train.batch_size}, quantum {e.data.length_quantum} samples, 3 epochs): "
+          f"{steps} steps over {n_shapes} padded lengths, {chained} of them "
+          f"({100.0 * chained / steps:.1f}%) in {launches} graph replays of {k}, the other "
+          f"{steps - chained} single steps", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     laps = [("device and build", t_start)]
 
     def lap(name):
-        """Print how long the phase that ends here took, then start ``name``."""
+        """Print how long the phase that ends here took, the card memory
+        still allocated after it and the Distillers the script still holds,
+        then start ``name``."""
         what, t0 = laps[-1]
         now = time.perf_counter()
-        print(f"[phases] {what}: {now - t0:.1f} s", flush=True)
+        torch_ = sys.modules.get("torch")
+        held = ""
+        if torch_ is not None and torch_.cuda.is_initialized():
+            live = sum(type(o).__name__ == "Distiller" for o in gc.get_objects())
+            held = (f", {torch_.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated after it, "
+                    f"{live} Distillers alive")
+        print(f"[phases] {what}: {now - t0:.1f} s{held}", flush=True)
         laps.append((name, now))
 
     try:
@@ -2717,9 +3222,11 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
     try:
         from fithubert_tpu_torch.config import (
+            conformer_experiment,
             ex_experiment,
             fithubert_960h,
             fithubert_960h_experiment,
+            load_experiment_yaml,
         )
         from fithubert_tpu_torch.export.expert import UpstreamExpert
         from fithubert_tpu_torch.models.student import StudentModel
@@ -2960,13 +3467,7 @@ def main() -> int:
     student_cpu = StudentModel(exp.distiller, device="cpu").init_weights(gen)
     s_state = student_cpu.state_dict()
     rand_layers = torch.randperm(exp.distiller.encoder_layers - 1, generator=gen)
-    n_stack = len(exp.distiller.conv_feature_layers) - 1
-    per_step = {
-        cf.KERNEL: len(exp.distiller.conv_feature_layers) - 1 + len(geom.conv_feature_layers) - 1,
-        cf.KERNEL_PREFIX: 2,  # one per extractor, student and teacher: block 0's GroupNorm
-        fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: exp.distiller.encoder_layers,
-        fa.KERNEL_DQ: exp.distiller.encoder_layers, fa.KERNEL_DKV: exp.distiller.encoder_layers,
-        cf.KERNEL_BWD: 4 * n_stack}  # K6: up, dW, its ordered sum and da per layer
+    per_step = release_per_step(exp, geom)
     distiller = Distiller(exp, t_state, s_state, device="cuda", num_training_steps=20)
     a, b = exp.train.accumulate_grad_batches, exp.train.batch_size
 
@@ -2979,13 +3480,23 @@ def main() -> int:
         logs, path_launches[path] = launches_of_step(d, batch, rand_layers, want, what)
         return logs
 
-    logs = step_checked(distiller, train_batch(gen, a, b, 12.0, ragged=True), per_step,
-                        "ragged step", "train")
+    k5_release = set()  # the (shape, dtype) of each elementwise dropout of the step
+    with k5_shapes(kd, k5_release):
+        logs = step_checked(distiller, train_batch(gen, a, b, 12.0, ragged=True), per_step,
+                            "ragged step", "train")
     if not all(torch.isfinite(p).all().item() for p in distiller.params):
         fail("ragged step: non-finite parameters")
     print(f"  step 0 (ragged 3 x 4, one fabricated row, lr {logs['lr']}): loss "
           f"{logs['loss']:.6f} grad_norm {logs['grad_norm']:.6f} finite ok; launches "
           f"{json.dumps(path_launches['train'])} ok", flush=True)
+    if not k5_release:
+        fail("the release step launched K5 on no activation")
+    print(f"[train] K5 vs seeded_dropout_plain at each shape the release step dropped "
+          f"(dropout_input, the encoder's and the FFN's dropouts), p={ATTN_P}: "
+          f"{sorted(k5_release, key=str)}", flush=True)
+    for shape_, dtype_ in sorted(k5_release, key=str):
+        check_seeded_dropout(kd, shape_, gen, dev, dtypes=(dtype_,))
+    errs[kd.KERNEL + "@train"] = 0.0  # bit for bit at every shape
     fixed = train_batch(gen, a, b, 12.0, ragged=False)
     losses = []
     for i in range(10):
@@ -3059,11 +3570,12 @@ def main() -> int:
           flush=True)
     exp_taps = dataclasses.replace(exp, loss=dataclasses.replace(exp.loss, **TAP_LOSS))
     l_s, l_t = exp.distiller.encoder_layers, geom.encoder_layers
-    per_step_taps = {cf.KERNEL: a * per_step[cf.KERNEL],
-                     cf.KERNEL_PREFIX: a * per_step[cf.KERNEL_PREFIX], fa.KERNEL: a * (l_t - 1),
-                     fa.KERNEL_DROPOUT: a * (l_s - 1), fa.KERNEL_DQ: a * (l_s - 1),
-                     fa.KERNEL_DKV: a * (l_s - 1), kd.KERNEL: 2 * a,
-                     cf.KERNEL_BWD: a * per_step[cf.KERNEL_BWD]}
+    per_step_taps = plus_k5({cf.KERNEL: a * per_step[cf.KERNEL],
+                             cf.KERNEL_PREFIX: a * per_step[cf.KERNEL_PREFIX],
+                             fa.KERNEL: a * (l_t - 1), fa.KERNEL_DROPOUT: a * (l_s - 1),
+                             fa.KERNEL_DQ: a * (l_s - 1), fa.KERNEL_DKV: a * (l_s - 1),
+                             kd.KERNEL: 2 * a, cf.KERNEL_BWD: a * per_step[cf.KERNEL_BWD]},
+                            exp.distiller, a)
     distiller_taps = Distiller(exp_taps, t_state, s_state, device="cuda", num_training_steps=20)
     logs = step_checked(distiller_taps, ragged, per_step_taps, "taps ragged step", "train-taps")
     if not all(torch.isfinite(p).all().item() for p in distiller_taps.params):
@@ -3165,6 +3677,38 @@ def main() -> int:
     conformer_dp_phase(geom, t_state, lambda e: conformer_per_step(e, geom), gen, smi,
                        work.name)
     print(f"[conformer-dp] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- 8e. slice 12: the smoke configs at their head sizes and widths,
+    # checkpoint_activations, and
+    # train.steps_per_launch as one CUDA graph of K steps
+    lap("smoke-configs, remat, chain")
+    t_phase = time.perf_counter()
+    print("[smoke-configs] configs/smoke.yaml in fp32 and bf16 and configs/smoke_ctc.yaml "
+          "through train_torch.py (student heads of 12, teacher heads of 16, widths 32 and "
+          "48), then the kernels at those head sizes and widths", flush=True)
+    smoke_launches = smoke_configs_phase(gen, smi, work.name, errs)
+    path_launches["smoke"] = smoke_launches["smoke bf16"]
+    print(f"[smoke-configs] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    print("[remat] checkpoint_activations on against off: the release step and the rel_pos "
+          "conformer step, bf16, dropout 0.1", flush=True)
+    remat_phase(exp, geom, t_state, s_state, rand_layers, gen, smi)
+    print(f"[remat] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    print(f"[chain] train.steps_per_launch {CHAIN_K}: one CUDA graph of {CHAIN_K} steps "
+          f"against {CHAIN_K} eager steps, for the release step, path B and the rel_pos "
+          f"conformer; then run_training", flush=True)
+    exp_c = conformer_experiment("rel_pos")
+    c_state = StudentModel(exp_c.distiller, device="cpu").init_weights(gen).state_dict()
+    chain_phase({"release": (exp, s_state, rand_layers, per_step),
+                 "path B": (exp_taps, s_state, rand_layers, per_step_taps),
+                 "rel_pos conformer": (exp_c, c_state,
+                                       torch.randperm(exp_c.distiller.encoder_layers - 1,
+                                                      generator=gen),
+                                       conformer_per_step(exp_c, geom))},
+                t_state, gen, smi, work.name)
+    del c_state
+    print(f"[chain] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 9. timing
     lap("timing")
@@ -3399,7 +3943,7 @@ def main() -> int:
         """K2 at p = 0.1, K3 and K4 rows at ``shape4``; returns (K3 ms, K4 ms,
         SDPA's backward ms, the shape's label)."""
         q, k, v, dout, mask = attention_qkv(*shape4, n=4)
-        seed = seed_words(gen)
+        seed = seed_words(gen, dev)
         shape = f"{who} {tuple(q.shape)}, p={ATTN_P}"
         f_ms, f_plain, f_work, f_lib = attention_fwd_times(q, k, v, mask, ATTN_P, seed)
         row(fa.KERNEL_DROPOUT, "flash_attention.cu", "flash_attention.py:243 (dropout branch "
@@ -3445,7 +3989,7 @@ def main() -> int:
 
     # train-taps: K5 at the student's last-layer probabilities of one microbatch
     x = torch.rand((b, h, t_att, t_att), generator=gen).to(dev)
-    seed = seed_words(gen)
+    seed = seed_words(gen, dev)
     with torch.no_grad():
         k5_ms = cuda_ms(lambda: kd.seeded_dropout_cuda(x, seed, ATTN_P), reps=50)
         k5_plain = cuda_ms(lambda: kd.seeded_dropout_plain(x, seed, ATTN_P), reps=5)
@@ -3454,6 +3998,19 @@ def main() -> int:
     row(kd.KERNEL, "seeded_dropout.cu", "dropout.py:83", "train-taps",
         f"student probabilities {tuple(x.shape)} fp32, p={ATTN_P}", errs[kd.KERNEL], k5_ms,
         k5_plain, (x.numel(), 8 * x.numel()), k5_lib, peak=FP32_PEAK)
+    del x
+    # train: K5 at the largest of the release step's elementwise dropouts
+    shape_, dtype_ = max(k5_release, key=lambda sd: math.prod(sd[0]))
+    x = torch.randn(shape_, generator=gen).to(dev, dtype_)
+    with torch.no_grad():
+        k5_ms = cuda_ms(lambda: kd.seeded_dropout_cuda(x, seed, ATTN_P), reps=50)
+        k5_plain = cuda_ms(lambda: kd.seeded_dropout_plain(x, seed, ATTN_P), reps=5)
+        k5_lib = cuda_ms(lambda: F.dropout(x, ATTN_P, training=True), reps=50)
+    row(kd.KERNEL, "seeded_dropout.cu", "dropout.py:83", "train",
+        f"student activations {tuple(x.shape)} {str(dtype_).removeprefix('torch.')}, "
+        f"p={ATTN_P}, the largest of the step's elementwise dropouts, each forward and "
+        f"backward", errs[kd.KERNEL + "@train"], k5_ms, k5_plain,
+        (x.numel(), 2 * x.element_size() * x.numel()), k5_lib, peak=FP32_PEAK)
     del x
     # conformer: K5 at the rel_pos conformer's probabilities of one microbatch
     x = torch.rand(k5_train, generator=gen).to(dev)
@@ -3466,6 +4023,96 @@ def main() -> int:
         f"backward", errs[kd.KERNEL + "@conformer"], k5_ms, k5_plain,
         (x.numel(), 8 * x.numel()), k5_lib, peak=FP32_PEAK)
     del x
+
+    # smoke: configs/smoke.yaml's bf16 run, 2 x 2 rows of 1 s folded into 4:
+    # the student's attention at heads of 12 (padded to 16), the teacher's
+    # at heads of 16, and the student's stack (widths 32, 48, padded to 64)
+    exp_s = load_experiment_yaml("configs/smoke.yaml")
+    smoke_student = StudentModel(exp_s.distiller, device="cpu").init_weights(gen)
+    s_cfg = exp_s.distiller
+    smoke_rows = exp_s.train.batch_size * exp_s.train.accumulate_grad_batches
+    smoke_wav = exp_s.data.synthetic_wav_length
+    t_s = cf.out_len(smoke_wav, s_cfg.conv_feature_layers) // s_cfg.tr_reduce_factor
+    t_t = cf.out_len(smoke_wav, TeacherGeometry.from_teacher_config(
+        exp_s.teacher).conv_feature_layers)
+    for who, shape4 in (("student", (smoke_rows, t_s, s_cfg.encoder_attention_heads,
+                                     s_cfg.encoder_embed_dim // s_cfg.encoder_attention_heads)),
+                        ("teacher", (smoke_rows, t_t, exp_s.teacher.encoder_attention_heads,
+                                     exp_s.teacher.encoder_embed_dim
+                                     // exp_s.teacher.encoder_attention_heads))):
+        q, k, v, dout, mask = attention_qkv(*shape4, n=4)
+        a_ms, a_plain, a_work, a_lib = attention_fwd_times(q, k, v, mask)
+        row(fa.KERNEL, "flash_attention.cu", "flash_attention.py:243", "smoke",
+            f"{who} {tuple(q.shape)}", errs[fa.KERNEL_DROPOUT + f"@D={shape4[3]}"], a_ms,
+            a_plain, a_work, a_lib)
+        if who == "student":
+            with torch.no_grad():
+                out, lse = fa.flash_attention(q, k, v, mask, return_lse=True)
+                delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+                dq_ms = cuda_ms(lambda: fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta),
+                                reps=50)
+                dkv_ms = cuda_ms(lambda: fa.bwd_dkv_cuda(q, k, v, mask, lse, dout, delta),
+                                 reps=50)
+                bwd_plain = cuda_ms(lambda: fa.attention_bwd_plain(q, k, v, mask, out, lse,
+                                                                   dout), reps=10)
+            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+            o_lib = sdpa(qs, ks, vs, mask)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+                o_lib, (qs, ks, vs), dout.transpose(1, 2), retain_graph=True), reps=50)
+            for name, ms, n_out in ((fa.KERNEL_DQ, dq_ms, 1), (fa.KERNEL_DKV, dkv_ms, 2)):
+                row(name, "flash_attention_bwd.cu", "flash_attention.py:304" if n_out == 1
+                    else "flash_attention.py:323", "smoke", f"student {tuple(q.shape)}, p=0",
+                    errs[name + f"@D={shape4[3]}"], ms, bwd_plain,
+                    attn_bwd_work(q, mask, n_out), lib_bwd)
+        del q, k, v, dout, mask
+    smoke_wavs = [torch.randn(smoke_wav, generator=gen) * 0.1 for _ in range(smoke_rows)]
+    sm = conv_times(smoke_student, smoke_wavs, dev, "smoke student")
+    shape = f"smoke student {stack_shape(smoke_student, smoke_wavs)}"
+    row(cf.KERNEL_PREFIX, prefix_src, prefix_of, "smoke", shape, errs["prefix@smoke"],
+        *sm["prefix"], peak=FP32_PEAK)
+    row(cf.KERNEL, "conv_frontend.cu", "conv_frontend.py:283", "smoke",
+        f"{shape}, from a0, widths padded to 64", errs["conv@smoke"], *sm["k1"])
+    spec_s = smoke_student.feature_extractor.spec[1:]
+    x, ws, scale, shift = stack_inputs(smoke_student, smoke_wavs, torch.bfloat16, dev)
+    with torch.no_grad():
+        a0 = cf._prefix(x, scale, shift)
+    g = torch.randn((a0.shape[0], cf.out_len(a0.shape[1], spec_s), spec_s[-1][0]),
+                    generator=gen).to(dev, torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in [a0, *ws]]
+    row(cf.KERNEL_BWD, "conv_frontend_bwd.cu", "conv_frontend_bwd.py:290", "smoke",
+        f"smoke student a0 {tuple(a0.shape)}, g {tuple(g.shape)}, widths padded to 64",
+        errs[cf.KERNEL_BWD + "@smoke"],
+        cuda_ms(lambda: cf.conv_stack_bwd_cuda(a0, ws, g, spec_s), reps=10),
+        cuda_ms(lambda: cf.conv_stack_bwd_plain(a0, ws, g, spec_s), reps=3),
+        conv_bwd_work(a0, spec_s),
+        cuda_ms(lambda: torch.autograd.grad(cf.conv_stack_plain(leaves[0], leaves[1:], spec_s),
+                                            leaves, g), reps=10))
+    del x, ws, scale, shift, a0, g, leaves
+    # head sizes on no path of the repo's configs, at the release teacher's
+    # frames: printed, not rows (no run launches them)
+    for d_ in (80, 128):
+        shape4 = (12, teacher_attn[1], 12, d_)
+        q, k, v, dout, mask = attention_qkv(*shape4, n=4)
+        seed = seed_words(gen, dev)
+        f_ms, _f_plain, f_work, f_lib = attention_fwd_times(q, k, v, mask, ATTN_P, seed)
+        with torch.no_grad():
+            out, lse = fa.flash_attention(q, k, v, mask, dropout_p=ATTN_P, seed=seed,
+                                          return_lse=True)
+            delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+            dq_ms = cuda_ms(lambda: fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
+                                                   seed), reps=30)
+            dkv_ms = cuda_ms(lambda: fa.bwd_dkv_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
+                                                     seed), reps=30)
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = sdpa(qs, ks, vs, mask, ATTN_P)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (qs, ks, vs), dout.transpose(1, 2),
+                                                      retain_graph=True), reps=30)
+        print(f"  D = {d_} ({tuple(q.shape)} bf16, p={ATTN_P}, no config's path): K2 "
+              f"{f_ms:.4f} ms (bound {bound(*f_work, BF16_PEAK)[0]:.4f}, SDPA {f_lib:.4f}); "
+              f"K3 {dq_ms:.4f} ms (bound {bound(*attn_bwd_work(q, mask, 1), BF16_PEAK)[0]:.4f}), "
+              f"K4 {dkv_ms:.4f} ms (bound {bound(*attn_bwd_work(q, mask, 2), BF16_PEAK)[0]:.4f}), "
+              f"SDPA backward {lib_bwd:.4f} ms", flush=True)
+        del q, k, v, dout, mask, qs, ks, vs, o_lib
 
     def k6_row(model, wavs, path, err):
         """K6's row over ``model``'s stack of one step, from a0 = the prefix's
@@ -3516,7 +4163,7 @@ def main() -> int:
         return "met" if ok else "missed"
 
     k1_floor = {"serving": serve["floor_ms"], "train": stu["floor_ms"] + tea["floor_ms"],
-                "ex": ex_stu["floor_ms"] + ex_tea["floor_ms"]}
+                "ex": ex_stu["floor_ms"] + ex_tea["floor_ms"], "smoke": sm["floor_ms"]}
     for kr in kernels:
         lib = "none" if kr["library_ms"] is None else f"{kr['library_ms']:.4f}"
         floor = f", per-layer floor {k1_floor[kr['path']]:.4f} ms" \
@@ -3524,7 +4171,7 @@ def main() -> int:
         print(f"  {kr['name']} ({kr['path']}, {kr['shape']}): {kr['ms']:.4f} ms (bound "
               f"{kr['bound_ms']:.4f} ms by {kr['bound_by']}{floor}, plain "
               f"{kr['plain_ms']:.4f}, library {lib}), {kr['launches']} launches "
-              f"{'over the 3 serving requests' if kr['path'] == 'serving' else 'per train step'}",
+              f"{LAUNCHES_OVER.get(kr['path'], 'per train step')}",
               flush=True)
 
     for what, ms, lib, goal, accept in goals:
@@ -3545,7 +4192,7 @@ def main() -> int:
     lap("data parallelism")
     print("[dp] NCCL, one rank: two release steps through the data-parallel path against the "
           "plain Distiller on the same batches", flush=True)
-    dp_nccl_phase(exp, t_state, s_state, [ragged, fixed], rand_layers, per_step, smi)
+    dp_nccl_phase(exp, t_state, s_state, [ragged, fixed], rand_layers, per_step, gen, smi)
     print(f"[dp] gloo, {DP_WORLD} ranks sharing the card, full width: fp32 without dropout "
           f"against one process, then the bf16 release step with dropout", flush=True)
     dp_gloo_phase(exp, exp32, t_state, s_state, rand_layers, gen, per_step, work.name, smi)

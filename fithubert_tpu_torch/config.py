@@ -81,8 +81,8 @@ def conv_spec_tuple(spec: Any) -> Tuple[Tuple[int, int, int], ...]:
 # package builds. ``tr_conv1d_kernel`` is ignored there too
 # (``fithubert_tpu/ops/transformer.py:141-143``); ``final_dim``,
 # ``max_positions`` and ``fp16`` are read by no JAX module; the rest are
-# its TPU compile switches (remat, lax.scan over layers, the Pallas kernels).
-NO_EFFECT = ("checkpoint_activations", "final_dim", "fp16", "max_positions", "scan_layers",
+# its TPU compile switches (lax.scan over layers, the Pallas kernels).
+NO_EFFECT = ("final_dim", "fp16", "max_positions", "scan_layers",
              "tr_conv1d_kernel", "use_pallas_attention", "use_pallas_conv")
 
 
@@ -164,6 +164,9 @@ class StudentConfig:
     # int8 matmuls (ops/quant.py) at the encoder's q/k/v/out, fc1 / fc2 and
     # the conformer's projections and FFN: serving only (Distiller refuses it)
     quantize_matmuls: bool = False
+    # activation checkpointing of each encoder layer in training (ops/remat.py),
+    # the JAX package's nn.remat: the same results, less activation memory
+    checkpoint_activations: bool = False
 
     @property
     def embed(self) -> int:
@@ -367,8 +370,8 @@ class TrainConfig:
     max_steps: int = 0  # 0 = no cap
     profile_steps: int = 0  # trace steps [2, 2 + N) into <output_dir>/trace
     fuse_grad_accum: bool = True
-    # K optimizer steps per launch in the JAX package; the port runs them
-    # one call at a time, which the JAX package documents as byte-identical
+    # K optimizer steps per launch: on the card one CUDA graph of K steps
+    # (train/step.py Distiller.train_step_chain), on the CPU K single steps
     steps_per_launch: int = 1
     rng_impl: str = "auto"  # the JAX package's PRNG; the port's draws are ops/dropout.py's
 

@@ -50,6 +50,14 @@
 //   - Epilogue: out = acc / l in fp32, stored in bf16; lse (B, H, T) fp32.
 //   The tile steps (row copies, the two products) are flash_tile.cuh's,
 //   shared with K4.
+//   - Head sizes: the kernels are compiled for FA_HEAD_DIMS (16 to 128;
+//     the wrapper zero-pads any other D to the next one). The tiles live in
+//     dynamic shared memory (5 tiles of 64 rows: 46 KB at D = 64, 86 KB at
+//     128), opted in above 48 KB.
+//   - Seed: the two dropout words are read from seed_ptr in device memory,
+//     once per thread as the block starts; under a CUDA graph
+//     the host rewrites them there before each replay, as the TPU kernel
+//     reads its seed from SMEM (:247).
 //
 // fp32 (only the card-vs-CPU checks, held to 2e-3 end to end): the FMA body
 //   of the port's first version, one thread per query row over 64-key fp32
@@ -79,12 +87,15 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               bf16* __restrict__ out, float* __restrict__ lse, int T_len, int H,
               long long sqb, long long sqt, long long sqh, long long skb, long long skt,
               long long skh, long long svb, long long svt, long long svh, uint32_t thr,
-              float inv_keep, uint32_t seed0, uint32_t seed1) {
+              float inv_keep, const uint32_t* __restrict__ seed_ptr) {
   constexpr int LD = Rows<D>::LD, KS = Rows<D>::KS, N8 = Rows<D>::N8;
-  __shared__ __align__(16) bf16 Qs[TILE][LD];
-  __shared__ __align__(16) bf16 Ks[2][TILE][LD];
-  __shared__ __align__(16) bf16 Vs[2][TILE][LD];
-  __shared__ float valid[2][TILE];
+  extern __shared__ __align__(16) unsigned char smem[];  // fwd_mma_smem<D>() bytes
+  auto Qs = reinterpret_cast<bf16 (*)[LD]>(smem);
+  auto Ks = reinterpret_cast<bf16 (*)[TILE][LD]>(smem + Rows<D>::BYTES);
+  auto Vs = reinterpret_cast<bf16 (*)[TILE][LD]>(smem + 3 * Rows<D>::BYTES);
+  auto valid = reinterpret_cast<float (*)[TILE]>(smem + 5 * Rows<D>::BYTES);
+  // the words a graph replay finds there (no pointer without dropout)
+  const uint32_t seed0 = DROPOUT ? seed_ptr[0] : 0u, seed1 = DROPOUT ? seed_ptr[1] : 0u;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -216,11 +227,13 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
           const uint8_t* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse,
           int T_len, int H, long long sqb, long long sqt, long long sqh, long long skb,
           long long skt, long long skh, long long svb, long long svt, long long svh,
-          uint32_t thr, float inv_keep, uint32_t seed0, uint32_t seed1) {
+          uint32_t thr, float inv_keep, const uint32_t* __restrict__ seed_ptr) {
   static_assert(D % 4 == 0, "D must be a multiple of 4");
-  __shared__ __align__(16) float Ks[BKV][D];
-  __shared__ __align__(16) float Vs[BKV][D];
-  __shared__ float valid[BKV];
+  extern __shared__ __align__(16) unsigned char smem[];  // fwd_smem<D>() bytes
+  auto Ks = reinterpret_cast<float (*)[D]>(smem);
+  auto Vs = reinterpret_cast<float (*)[D]>(smem + BKV * D * sizeof(float));
+  auto valid = reinterpret_cast<float*>(smem + 2 * BKV * D * sizeof(float));
+  const uint32_t seed0 = DROPOUT ? seed_ptr[0] : 0u, seed1 = DROPOUT ? seed_ptr[1] : 0u;
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int t = blockIdx.x * BQ + threadIdx.x;
@@ -323,53 +336,66 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
   }
 }
 
+template <int D>
+constexpr int fwd_mma_smem() { return 5 * Rows<D>::BYTES + 2 * TILE * sizeof(float); }
+template <int D>
+constexpr int fwd_smem() { return 2 * BKV * D * sizeof(float) + BKV * sizeof(float); }
+
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out,
             float* lse, int B, int T_len, int H, const long long* st, uint32_t thr,
-            float inv_keep, uint32_t seed0, uint32_t seed1, cudaStream_t stream) {
+            float inv_keep, const uint32_t* seed_ptr, cudaStream_t stream) {
+  static bool opted[2] = {false, false};
   dim3 grid((T_len + BQ - 1) / BQ, B * H);
   if constexpr (sizeof(T) == 2) {
     auto kernel = thr > 0 ? &flash_fwd_mma<D, true> : &flash_fwd_mma<D, false>;
-    kernel<<<grid, 128, 0, stream>>>(
+    opt_in_smem(kernel, fwd_mma_smem<D>(), opted[thr > 0]);
+    kernel<<<grid, 128, fwd_mma_smem<D>(), stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         mask, static_cast<bf16*>(out), lse, T_len, H, st[0], st[1], st[2], st[3], st[4],
-        st[5], st[6], st[7], st[8], thr, inv_keep, seed0, seed1);
+        st[5], st[6], st[7], st[8], thr, inv_keep, seed_ptr);
   } else {
     auto kernel = thr > 0 ? &flash_fwd<D, true> : &flash_fwd<D, false>;
-    kernel<<<grid, BQ, 0, stream>>>(
+    opt_in_smem(kernel, fwd_smem<D>(), opted[thr > 0]);
+    kernel<<<grid, BQ, fwd_smem<D>(), stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), mask, static_cast<float*>(out), lse, T_len, H, st[0],
-        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], thr, inv_keep, seed0, seed1);
+        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], thr, inv_keep, seed_ptr);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 40 or 64. q, k, v (B, T, H, D)
-// with the given (b, t, h) element strides and unit stride along D (bf16:
-// every row 16-byte aligned); mask (B, T) bool with True = padding, or
-// null; out (B, T, H, D) and lse (B, H, T) fp32, contiguous. thr =
-// floor(p * 2^24) (0: no dropout), inv_keep = 1/(1-p), seed0/seed1 the
-// dropout seed. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16; head_dim one of FA_HEAD_DIMS. q, k, v
+// (B, T, H, D) with the given (b, t, h) element strides and unit stride
+// along D (bf16: every row 16-byte aligned); mask (B, T) bool with True =
+// padding, or null; out (B, T, H, D) and lse (B, H, T) fp32, contiguous.
+// thr = floor(p * 2^24) (0: no dropout), inv_keep = 1/(1-p); seed_ptr
+// points to the two dropout seed words in device memory, read by the kernel
+// (null without dropout). Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q, const void* k,
                                    const void* v, const void* mask, void* out, void* lse,
                                    int B, int T_len, int H, long long sqb, long long sqt,
                                    long long sqh, long long skb, long long skt, long long skh,
                                    long long svb, long long svt, long long svh,
-                                   unsigned thr, float inv_keep, unsigned seed0,
-                                   unsigned seed1, void* stream) {
+                                   unsigned thr, float inv_keep, const void* seed_ptr,
+                                   void* stream) {
   const long long st[9] = {sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  const uint32_t* sp = static_cast<const uint32_t*>(seed_ptr);
   float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && head_dim == 40)
-    launch<bf16, 40>(q, k, v, mk, out, ls, B, T_len, H, st, thr, inv_keep, seed0, seed1, s);
-  else if (dtype == 1 && head_dim == 64)
-    launch<bf16, 64>(q, k, v, mk, out, ls, B, T_len, H, st, thr, inv_keep, seed0, seed1, s);
-  else if (dtype == 0 && head_dim == 40)
-    launch<float, 40>(q, k, v, mk, out, ls, B, T_len, H, st, thr, inv_keep, seed0, seed1, s);
-  else if (dtype == 0 && head_dim == 64)
-    launch<float, 64>(q, k, v, mk, out, ls, B, T_len, H, st, thr, inv_keep, seed0, seed1, s);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+#define FA_FWD(DD)                                                                          \
+  if (head_dim == DD) {                                                                     \
+    if (dtype == 1)                                                                         \
+      launch<bf16, DD>(q, k, v, mk, out, ls, B, T_len, H, st, thr, inv_keep, sp, s);       \
+    else if (dtype == 0)                                                                    \
+      launch<float, DD>(q, k, v, mk, out, ls, B, T_len, H, st, thr, inv_keep, sp, s);      \
+    else                                                                                    \
+      return static_cast<int>(cudaErrorInvalidValue);                                       \
+    return static_cast<int>(cudaGetLastError());                                            \
+  }
+  FA_HEAD_DIMS(FA_FWD)
+#undef FA_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,9 +25,11 @@
 //   The keep mask is philox.cuh's pure function of (seed, z = b * H + h, i,
 //   j): counter (j >> 2, i, z, 0), word j & 3, so it equals the forward's
 //   whatever the tiling. fp32 accumulation, written in q's dtype
-//   (:351-353). D in {40, 64}, any T (ragged tails masked here), q, k, v
-//   read through their (B, T, H, D) strides; dO, lse, delta and the outputs
-//   are contiguous.
+//   (:351-353). D one of FA_HEAD_DIMS (the wrapper zero-pads others), any
+//   T (ragged tails masked here), q, k, v read through their (B, T, H, D)
+//   strides; dO, lse, delta and the outputs are contiguous. Tiles live in
+//   dynamic shared memory (opted in above 48 KB); the seed is read from
+//   device memory (seed_ptr), as in the forward.
 //
 // dK/dV (K4), bf16: mma.sync m16n8k16 bf16 -> fp32, the TPU kernel's own
 //   arithmetic (bf16 operands, fp32 sums, P_dropped and dS rounded to bf16
@@ -114,7 +116,8 @@ struct Strides {
 struct Dropout {
   uint32_t thr;  // floor(p * 2^24); 0 = no dropout
   float inv_keep;
-  uint32_t seed0, seed1;
+  const uint32_t* ptr;  // the seed's two words in device memory (null: no dropout)
+  uint32_t seed0, seed1;  // read from ptr as each block starts
 };
 
 template <int D>
@@ -133,9 +136,14 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ delta, float* __restrict__ dq, int T_len, int H,
              Strides st, Dropout dr) {
-  __shared__ __align__(16) float Ks[BKV][D];
-  __shared__ __align__(16) float Vs[BKV][D];
-  __shared__ float valid[BKV];
+  extern __shared__ __align__(16) unsigned char smem[];  // fp32_smem<D>() bytes
+  auto Ks = reinterpret_cast<float (*)[D]>(smem);
+  auto Vs = reinterpret_cast<float (*)[D]>(smem + BKV * D * sizeof(float));
+  auto valid = reinterpret_cast<float*>(smem + 2 * BKV * D * sizeof(float));
+  if (DROPOUT) {  // the words a graph replay finds there
+    dr.seed0 = dr.ptr[0];
+    dr.seed1 = dr.ptr[1];
+  }
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int i = blockIdx.x * BQ + threadIdx.x;
@@ -211,9 +219,15 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
               int T_len, int H, Strides st, Dropout dr) {
-  __shared__ __align__(16) float Qs[BQ][D];
-  __shared__ __align__(16) float dOs[BQ][D];
-  __shared__ float lse_s[BQ], delta_s[BQ];
+  extern __shared__ __align__(16) unsigned char smem[];  // fp32_smem<D>() bytes
+  auto Qs = reinterpret_cast<float (*)[D]>(smem);
+  auto dOs = reinterpret_cast<float (*)[D]>(smem + BQ * D * sizeof(float));
+  float* lse_s = reinterpret_cast<float*>(smem + 2 * BQ * D * sizeof(float));
+  float* delta_s = lse_s + BQ;
+  if (DROPOUT) {  // the words a graph replay finds there
+    dr.seed0 = dr.ptr[0];
+    dr.seed1 = dr.ptr[1];
+  }
 
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int j = blockIdx.x * BKV + threadIdx.x;
@@ -315,9 +329,15 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const float* __restrict__ delta, bf16* __restrict__ dk,
                   bf16* __restrict__ dv, int T_len, int H, Strides st, Dropout dr) {
   constexpr int LD = Rows<D>::LD, KS = Rows<D>::KS, N8 = Rows<D>::N8;
-  __shared__ __align__(16) bf16 Qs[2][TILE][LD];
-  __shared__ __align__(16) bf16 dOs[2][TILE][LD];
-  __shared__ float lse_s[2][TILE], delta_s[2][TILE];
+  extern __shared__ __align__(16) unsigned char smem[];  // mma_smem<D>() bytes
+  auto Qs = reinterpret_cast<bf16 (*)[TILE][LD]>(smem);
+  auto dOs = reinterpret_cast<bf16 (*)[TILE][LD]>(smem + 2 * Rows<D>::BYTES);
+  auto lse_s = reinterpret_cast<float (*)[TILE]>(smem + 4 * Rows<D>::BYTES);
+  auto delta_s = lse_s + 2;
+  if (DROPOUT) {  // the words a graph replay finds there
+    dr.seed0 = dr.ptr[0];
+    dr.seed1 = dr.ptr[1];
+  }
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -440,9 +460,14 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const float* __restrict__ delta, bf16* __restrict__ dq, int T_len, int H,
                  Strides st, Dropout dr) {
   constexpr int LD = Rows<D>::LD, KS = Rows<D>::KS, N8 = Rows<D>::N8;
-  __shared__ __align__(16) bf16 Ks[2][TILE][LD];
-  __shared__ __align__(16) bf16 Vs[2][TILE][LD];
-  __shared__ float valid[2][TILE];
+  extern __shared__ __align__(16) unsigned char smem[];  // mma_smem<D>() bytes
+  auto Ks = reinterpret_cast<bf16 (*)[TILE][LD]>(smem);
+  auto Vs = reinterpret_cast<bf16 (*)[TILE][LD]>(smem + 2 * Rows<D>::BYTES);
+  auto valid = reinterpret_cast<float (*)[TILE]>(smem + 4 * Rows<D>::BYTES);
+  if (DROPOUT) {  // the words a graph replay finds there
+    dr.seed0 = dr.ptr[0];
+    dr.seed1 = dr.ptr[1];
+  }
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -559,20 +584,28 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
+constexpr int mma_smem() { return 4 * Rows<D>::BYTES + 4 * TILE * sizeof(float); }
+template <int D>
+constexpr int fp32_smem() { return 2 * BQ * D * sizeof(float) + 2 * BQ * sizeof(float); }
+
 template <typename T, int D>
 void launch_dq(const void* q, const void* k, const void* v, const uint8_t* mask,
                const void* dout, const float* lse, const float* delta, void* dq, int B,
                int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
+  static bool opted[2] = {false, false};
   dim3 grid((T_len + BQ - 1) / BQ, B * H);
   if constexpr (sizeof(T) == 2) {
     auto kernel = dr.thr > 0 ? &flash_bwd_dq_mma<D, true> : &flash_bwd_dq_mma<D, false>;
-    kernel<<<grid, 128, 0, stream>>>(
+    opt_in_smem(kernel, mma_smem<D>(), opted[dr.thr > 0]);
+    kernel<<<grid, 128, mma_smem<D>(), stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), T_len, H, st,
         dr);
   } else {
     auto kernel = dr.thr > 0 ? &flash_bwd_dq<D, true> : &flash_bwd_dq<D, false>;
-    kernel<<<grid, BQ, 0, stream>>>(
+    opt_in_smem(kernel, fp32_smem<D>(), opted[dr.thr > 0]);
+    kernel<<<grid, BQ, fp32_smem<D>(), stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), mask, static_cast<const float*>(dout), lse, delta,
         static_cast<float*>(dq), T_len, H, st, dr);
@@ -583,16 +616,19 @@ template <typename T, int D>
 void launch_dkv(const void* q, const void* k, const void* v, const uint8_t* mask,
                 const void* dout, const float* lse, const float* delta, void* dk, void* dv,
                 int B, int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
+  static bool opted[2] = {false, false};
   dim3 grid((T_len + BKV - 1) / BKV, B * H);
   if constexpr (sizeof(T) == 2) {
     auto kernel = dr.thr > 0 ? &flash_bwd_dkv_mma<D, true> : &flash_bwd_dkv_mma<D, false>;
-    kernel<<<grid, 128, 0, stream>>>(
+    opt_in_smem(kernel, mma_smem<D>(), opted[dr.thr > 0]);
+    kernel<<<grid, 128, mma_smem<D>(), stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), T_len, H, st, dr);
   } else {
     auto kernel = dr.thr > 0 ? &flash_bwd_dkv<D, true> : &flash_bwd_dkv<D, false>;
-    kernel<<<grid, BKV, 0, stream>>>(
+    opt_in_smem(kernel, fp32_smem<D>(), opted[dr.thr > 0]);
+    kernel<<<grid, BKV, fp32_smem<D>(), stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), mask, static_cast<const float*>(dout), lse, delta,
         static_cast<float*>(dk), static_cast<float*>(dv), T_len, H, st, dr);
@@ -601,20 +637,21 @@ void launch_dkv(const void* q, const void* k, const void* v, const uint8_t* mask
 
 }  // namespace
 
-// Shared arguments: dtype 0 = float32, 1 = bfloat16; head_dim 40 or 64;
-// q, k, v (B, T, H, D) with the given (b, t, h) element strides and unit
-// stride along D; mask (B, T) bool, True = padding, or null; dout
-// (B, T, H, D) contiguous in q's dtype; lse and delta (B, H, T) fp32; the
-// outputs (B, T, H, D) contiguous in q's dtype; thr = floor(p * 2^24) (0:
-// no dropout), inv_keep = 1/(1-p), seed0/seed1 the forward's seed. Each
-// returns cudaGetLastError() after its launch.
-#define FA_BWD_DISPATCH(CALL)                                             \
-  if (dtype == 1 && head_dim == 40) CALL(bf16, 40);                       \
-  else if (dtype == 1 && head_dim == 64) CALL(bf16, 64);                  \
-  else if (dtype == 0 && head_dim == 40) CALL(float, 40);                 \
-  else if (dtype == 0 && head_dim == 64) CALL(float, 64);                 \
-  else return static_cast<int>(cudaErrorInvalidValue);                    \
-  return static_cast<int>(cudaGetLastError());
+// Shared arguments: dtype 0 = float32, 1 = bfloat16; head_dim one of
+// FA_HEAD_DIMS; q, k, v (B, T, H, D) with the given (b, t, h) element
+// strides and unit stride along D; mask (B, T) bool, True = padding, or
+// null; dout (B, T, H, D) contiguous in q's dtype; lse and delta (B, H, T)
+// fp32; the outputs (B, T, H, D) contiguous in q's dtype; thr = floor(p *
+// 2^24) (0: no dropout), inv_keep = 1/(1-p), seed_ptr the forward's two
+// seed words in device memory (null without dropout). Each returns
+// cudaGetLastError() after its launch.
+#define FA_BWD_CASE(CALL, DD)                                             \
+  if (head_dim == DD) {                                                   \
+    if (dtype == 1) CALL(bf16, DD);                                       \
+    else if (dtype == 0) CALL(float, DD);                                 \
+    else return static_cast<int>(cudaErrorInvalidValue);                  \
+    return static_cast<int>(cudaGetLastError());                          \
+  }
 
 extern "C" int flash_attention_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                                       const void* v, const void* mask, const void* dout,
@@ -623,15 +660,18 @@ extern "C" int flash_attention_bwd_dq(int dtype, int head_dim, const void* q, co
                                       long long sqh, long long skb, long long skt,
                                       long long skh, long long svb, long long svt,
                                       long long svh, unsigned thr, float inv_keep,
-                                      unsigned seed0, unsigned seed1, void* stream) {
+                                      const void* seed_ptr, void* stream) {
   const Strides st{sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
-  const Dropout dr{thr, inv_keep, seed0, seed1};
+  const Dropout dr{thr, inv_keep, static_cast<const uint32_t*>(seed_ptr), 0u, 0u};
 #define FA_DQ(TT, DD)                                                                    \
   launch_dq<TT, DD>(q, k, v, static_cast<const uint8_t*>(mask), dout,                    \
                     static_cast<const float*>(lse), static_cast<const float*>(delta), dq, \
                     B, T_len, H, st, dr, static_cast<cudaStream_t>(stream))
-  FA_BWD_DISPATCH(FA_DQ)
+#define FA_DQ_CASE(DD) FA_BWD_CASE(FA_DQ, DD)
+  FA_HEAD_DIMS(FA_DQ_CASE)
+#undef FA_DQ_CASE
 #undef FA_DQ
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_attention_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
@@ -641,13 +681,16 @@ extern "C" int flash_attention_bwd_dkv(int dtype, int head_dim, const void* q, c
                                        long long sqh, long long skb, long long skt,
                                        long long skh, long long svb, long long svt,
                                        long long svh, unsigned thr, float inv_keep,
-                                       unsigned seed0, unsigned seed1, void* stream) {
+                                       const void* seed_ptr, void* stream) {
   const Strides st{sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
-  const Dropout dr{thr, inv_keep, seed0, seed1};
+  const Dropout dr{thr, inv_keep, static_cast<const uint32_t*>(seed_ptr), 0u, 0u};
 #define FA_DKV(TT, DD)                                                                   \
   launch_dkv<TT, DD>(q, k, v, static_cast<const uint8_t*>(mask), dout,                   \
                      static_cast<const float*>(lse), static_cast<const float*>(delta),    \
                      dk, dv, B, T_len, H, st, dr, static_cast<cudaStream_t>(stream))
-  FA_BWD_DISPATCH(FA_DKV)
+#define FA_DKV_CASE(DD) FA_BWD_CASE(FA_DKV, DD)
+  FA_HEAD_DIMS(FA_DKV_CASE)
+#undef FA_DKV_CASE
 #undef FA_DKV
+  return static_cast<int>(cudaErrorInvalidValue);
 }

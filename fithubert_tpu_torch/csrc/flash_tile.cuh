@@ -6,21 +6,40 @@
 // the two .cu files.
 
 #pragma once
+#include <cuda_runtime.h>
+
 #include "mma.cuh"
+
+// The head sizes the attention kernels are compiled for (HEAD_DIMS in
+// ops/kernels/flash_attention.py, which zero-pads any other D up to 128 to
+// the next of them): X(D) once per size.
+#define FA_HEAD_DIMS(X) X(16) X(32) X(40) X(48) X(64) X(80) X(96) X(128)
 
 namespace {
 
 constexpr int TILE = 64;  // rows of a staged tile: queries or keys
 
+// The kernels carve their tiles from dynamic shared memory, so the tiles of
+// the larger head sizes may pass the 48 KB of static shared memory; a
+// kernel takes more than 48 KB only after opting in, once per process.
+template <typename Kernel>
+inline void opt_in_smem(Kernel kernel, int bytes, bool& done) {
+  if (!done && bytes > 48 * 1024)
+    cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = true;
+}
+
 // How a (TILE, D) bf16 tile sits in shared memory.
 template <int D>
 struct Rows {
   static_assert(D % 8 == 0, "rows are copied in 16-byte chunks");
-  static constexpr int DP = (D + 15) / 16 * 16;  // k extent of a product over D: 48 or 64
+  static constexpr int DP = (D + 15) / 16 * 16;  // k extent of a product over D
   static constexpr int LD = DP + 8;  // row pitch: an odd number of 16-byte units, so the
                                      // 8 row addresses of an ldmatrix hit distinct banks
   static constexpr int N8 = D / 8;   // 16-byte chunks of a row; n8 tiles of a (16, D) result
   static constexpr int KS = DP / 16;  // k16 steps of a product over D
+  static constexpr int BYTES = TILE * LD * 2;  // one staged (TILE, D) tile
 };
 
 // Zero columns D..DP-1 of n_rows rows: the last k16 step over D reads them,

@@ -10,7 +10,7 @@
 //   serves four elements, far below what the SMs issue per byte of HBM.
 //
 // Design: the keep decision of flat element e is word e & 3 of
-//   philox4x32((e >> 2, e >> 34, 0, 0), (seed0, seed1)) (philox.cuh), kept
+//   philox4x32((e >> 2, e >> 34, 0, 0), (seed[0], seed[1])) (philox.cuh), kept
 //   when its top 24 bits reach thr = floor(p * 2^24), so the mask depends
 //   on the element alone and not on the launch's shape: the forward on x
 //   and the backward on the cotangent draw the same mask. The TPU kernel
@@ -64,7 +64,8 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __flo
 template <typename T>
 __global__ void __launch_bounds__(256)
 seeded_dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, uint32_t thr,
-                      float inv, uint32_t k0, uint32_t k1, int vec) {
+                      float inv, const uint32_t* __restrict__ seed, int vec) {
+  const uint32_t k0 = seed[0], k1 = seed[1];  // the words a graph replay finds there
   const long long groups = (n + 3) >> 2;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -96,19 +97,23 @@ seeded_dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, u
 
 // dtype: 0 = float32, 1 = bfloat16. x and y contiguous, n elements each;
 // vec != 0 when both are aligned to four elements. thr = floor(p * 2^24),
-// inv = 1 / (1 - p). Returns cudaGetLastError() after the launch.
+// inv = 1 / (1 - p); seed points to the two seed words in device memory,
+// read by each thread as it starts (so a CUDA graph replays the words the
+// host wrote there last, as the TPU kernel reads its seed from SMEM, :87).
+// Returns cudaGetLastError() after the launch.
 extern "C" int seeded_dropout(int dtype, const void* x, void* y, long long n, unsigned thr,
-                              float inv, unsigned k0, unsigned k1, int vec, void* stream) {
+                              float inv, const void* seed, int vec, void* stream) {
+  const uint32_t* sp = static_cast<const uint32_t*>(seed);
   const long long groups = (n + 3) / 4;
   const unsigned blocks = static_cast<unsigned>(
       groups / 256 + 1 < 8192 ? groups / 256 + 1 : 8192);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     seeded_dropout_kernel<float><<<blocks, 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), n, thr, inv, k0, k1, vec);
+        static_cast<const float*>(x), static_cast<float*>(y), n, thr, inv, sp, vec);
   } else if (dtype == 1) {
     seeded_dropout_kernel<bf16><<<blocks, 256, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<bf16*>(y), n, thr, inv, k0, k1, vec);
+        static_cast<const bf16*>(x), static_cast<bf16*>(y), n, thr, inv, sp, vec);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -51,7 +51,7 @@ from fithubert_tpu_torch.ops.padding import (
     lengths_to_padding_mask,
     padding_mask_to_lengths,
 )
-from fithubert_tpu_torch.ops.specaug import BatchStripe, spec_augment
+from fithubert_tpu_torch.ops.specaug import BatchStripe, staged_spec_augment
 from fithubert_tpu_torch.ops.transformer import TransformerEncoder
 
 
@@ -232,7 +232,7 @@ class StudentModel(nn.Module):
         features = mel_spectrogram(source.float(), cfg.n_mels,
                                    log=cfg.enable_log_mel).to(self.compute_dtype)
         if self.specaug is not None and rng is not None:
-            features = spec_augment(rng.specaug, features, self.specaug, stripe=stripe)
+            features = staged_spec_augment(rng, features, self.specaug, stripe=stripe)
         if self.mel_spec_head is not None:
             features = self.mel_spec_head(features)
         return features

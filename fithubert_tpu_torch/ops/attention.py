@@ -3,8 +3,9 @@ scaled by head_dim**-0.5 before QK^T.
 
 Without taps the attention runs in ``flash_attention``: in a training
 forward the probabilities are dropped with ``dropout`` inside the kernel,
-from two seed words drawn per call from the forward's ``DropoutRNG``
-(``attention.py:80-96``), and no taps are returned.
+seeded per call by the next slot of the forward's ``DropoutRNG`` seed
+table, which the kernel reads from device memory (``attention.py:80-96``),
+and no taps are returned.
 
 With ``need_taps`` the probabilities are materialised, as the JAX package's
 taps branch does (``:99-147``), and the layer also returns

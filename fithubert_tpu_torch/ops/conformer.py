@@ -19,7 +19,10 @@ espnet's relative-position (``rel_pos``), rotary (``rope``) or absolute
 The QK, positional and PV products are plain matmuls, as they are XLA
 einsums outside any Pallas kernel there; the materialised probabilities are
 dropped by ``seeded_dropout`` (K5), seeded per call from the forward's
-``DropoutRNG``, whose backward regenerates the mask. Masked keys get the
+``DropoutRNG``, whose backward regenerates the mask. Each layer draws from
+its own slots (``DropoutRNG.fork``), is checkpointed under
+``checkpoint_activations`` (``ops/remat.py``, ``:402-406``), and is gated
+by layerdrop on the device (``transformer.layerdrop``). Masked keys get the
 finite -1e30, so a row of padding only (``pad_batch_to_full``) attends
 uniformly instead of turning NaN; with taps they get -inf and the NaN
 probabilities of such a row are zeroed, as the attention losses read true
@@ -64,7 +67,8 @@ from fithubert_tpu_torch.ops.kernels.dropout import seeded_dropout
 from fithubert_tpu_torch.ops.norms import FP32LayerNorm
 from fithubert_tpu_torch.ops.padding import apply_padding_mask
 from fithubert_tpu_torch.ops.quant import dense
-from fithubert_tpu_torch.ops.transformer import EncoderOutput
+from fithubert_tpu_torch.ops.remat import run_layer
+from fithubert_tpu_torch.ops.transformer import EncoderOutput, layerdrop
 
 
 def rel_positional_encoding(t: int, d: int, dtype=torch.float32,
@@ -226,6 +230,8 @@ class RowMaskedBatchNorm(nn.Module):
         # set by a data-parallel Distiller: a sum over the ranks with its
         # gradient summed too (DataParallel.sum_with_grad)
         self.sum_over_ranks: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+        # off while an activation-checkpointed layer is recomputed (ops/remat.py)
+        self.update_stats = True
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)
@@ -242,10 +248,11 @@ class RowMaskedBatchNorm(nn.Module):
             denom = torch.clamp(sums[0], min=1.0)
             mean = sums[1:] / denom
             var = total(((x32 - mean) ** 2 * w[..., None]).sum((0, 1))) / denom
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
@@ -359,10 +366,12 @@ class ConformerEncoder(nn.Module):
         last = len(self.layers) - 1 if tgt_slot is None else min(tgt_slot, len(self.layers) - 1)
         layer_results = []
         for i, layer in enumerate(self.layers[:last + 1]):
-            y, taps, layer_result = layer(x, padding_mask, rng, need_taps and i == last,
-                                          pos_emb, need_taps)
-            if rng is None or cfg.encoder_layerdrop <= 0.0 \
-                    or rng.uniform() > cfg.encoder_layerdrop:
-                x = y
+            def fn(x, padding_mask, layer=layer, i=i):
+                return layer(x, padding_mask, None if rng is None else rng.fork(i),
+                             need_taps and i == last, pos_emb, need_taps)
+
+            y, taps, layer_result = run_layer(
+                layer, fn, cfg.checkpoint_activations and rng is not None, x, padding_mask)
+            x = layerdrop(x, y, cfg.encoder_layerdrop, rng)
             layer_results.append((x, taps, layer_result))
         return EncoderOutput(x, layer_results, [], padding_mask)

@@ -2,52 +2,126 @@
 
 The JAX package draws its dropout masks from flax's ``dropout``,
 ``specaug`` and ``layerdrop`` RNG streams
-(``fithubert_tpu/train/step.py:309-314``). Here a ``DropoutRNG`` owns three
-``torch.Generator``s: one on the tensors' device for elementwise dropout
-masks (``bernoulli_``, the counterpart of ``nn.Dropout``, which is XLA's
-RNG and not a kernel there), one on the CPU for the per-call
-attention-dropout seeds and the layerdrop draws, and ``specaug``, on the
-CPU, for SpecAugment's widths and positions (``ops/specaug.py``), so the
-card and the CPU draw the same masks. The first two are seeded from
-``seed``, the third from ``specaug_seed`` (default ``seed``), which a
-data-parallel step keeps free of the rank: every rank draws the global
-batch's masks. The same seed replays the same masks on the same device. A
-forward given no ``DropoutRNG`` is deterministic.
+(``fithubert_tpu/train/step.py:309-314``). Here a ``DropoutRNG`` owns two
+host ``torch.Generator``s: ``host``, seeded from ``seed``, and ``specaug``,
+seeded from ``specaug_seed`` (default ``seed``), which a data-parallel step
+keeps free of the rank, so every rank draws the global batch's SpecAugment
+masks (``ops/specaug.py``).
+
+Every draw that a kernel or a device op reads goes through ``stage``: a
+host function of the generators whose tensors are put on the device. Made
+when the forward starts, ``table`` holds ``TABLE_SLOTS`` pairs of 32-bit
+words drawn from ``host`` in one call; each random site of the forward
+takes the next pair (``seed_words``): the attention kernels' and K5's seeds
+(``ops/kernels``), elementwise dropout (``dropout``, K5 on the activation,
+whose mask its backward regenerates, in the place of ``nn.Dropout``, which
+is XLA's RNG and not a kernel there) and the layerdrop gates (``keep``, a
+device flag, JAX's ``jnp.where``). SpecAugment's widths and positions are
+drawn on the host from ``specaug`` and staged likewise. The card and the
+CPU therefore draw the same masks, and the forward makes no host decision
+and no host copy of its own, so a CUDA graph can be captured over it: the
+graph's ``stage`` records each draw function and the static tensor it
+fills, and the host replays the functions on the next step's generators
+and writes their results there before each replay (``train/step.py``).
+
+The slots are laid out so that a layer's draws do not depend on what ran
+before it: the encoder's own draws (the front end, the encoder input,
+layerdrop) take slots ``[0, ENCODER_SLOTS)``, and encoder layer ``i`` takes
+``LAYER_SLOTS`` slots of its own (``fork``). An activation-checkpointed
+layer replays its draws when it is recomputed, with checkpointing on or
+off alike. The same seed replays the same masks; a forward given no
+``DropoutRNG`` is deterministic.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import copy
+import types
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
+from fithubert_tpu_torch.ops.kernels.dropout import seeded_dropout
+from fithubert_tpu_torch.ops.kernels.philox import M32, keep_bits
 
 # folded into the SpecAugment seed, so its stream is not the host stream's
 _SPECAUG_STREAM = 0x5DEECE66D
 
+TABLE_SLOTS = 1024  # seed-word pairs of one forward
+ENCODER_SLOTS = 64  # the slots drawn outside the encoder layers
+LAYER_SLOTS = 16  # the slots of one encoder layer: a conformer layer takes 7
+
+Draw = Callable[["DropoutRNG"], Tuple[torch.Tensor, ...]]
+Stage = Callable[["DropoutRNG", Draw], Tuple[torch.Tensor, ...]]
+
+
+def draw_table(gen: torch.Generator) -> torch.Tensor:
+    """(TABLE_SLOTS, 2) int32: uniform 32-bit words as their bit patterns."""
+    w = torch.randint(0, 2 ** 32, (TABLE_SLOTS, 2), generator=gen, dtype=torch.int64)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def host_streams(seed: int, specaug_seed: Optional[int] = None) -> types.SimpleNamespace:
+    """The two host generators of a ``DropoutRNG``: ``host`` and
+    ``specaug``, as the forward's draw functions read them."""
+    base = seed if specaug_seed is None else specaug_seed
+    return types.SimpleNamespace(
+        host=torch.Generator().manual_seed(seed),
+        specaug=torch.Generator().manual_seed((base ^ _SPECAUG_STREAM) % (1 << 63)))
+
+
+def to_device(rng: "DropoutRNG", draw: Draw) -> Tuple[torch.Tensor, ...]:
+    """The eager ``stage``: the draws on ``rng.device``; to a card from
+    pinned memory, without waiting for it."""
+    out = draw(rng)
+    if rng.device.type != "cuda":
+        return tuple(t.to(rng.device) for t in out)
+    return tuple(t.pin_memory().to(rng.device, non_blocking=True) for t in out)
+
 
 class DropoutRNG:
     def __init__(self, seed: int, device: Union[str, torch.device],
-                 specaug_seed: Optional[int] = None):
-        device = torch.device(device)
-        self.host = torch.Generator().manual_seed(seed)
-        self.device_gen = (torch.Generator(device=device).manual_seed(seed)
-                           if device.type == "cuda" else self.host)
-        base = seed if specaug_seed is None else specaug_seed
-        self.specaug = torch.Generator().manual_seed((base ^ _SPECAUG_STREAM) % (1 << 63))
+                 specaug_seed: Optional[int] = None, stage: Optional[Stage] = None):
+        self.device = torch.device(device)
+        streams = host_streams(seed, specaug_seed)
+        self.host, self.specaug = streams.host, streams.specaug
+        self._stage = stage or to_device
+        (self.table,) = self.stage(lambda r: (draw_table(r.host),))
+        self._next, self._end = 0, ENCODER_SLOTS
 
-    def seed_words(self) -> Tuple[int, int]:
-        """Two 32-bit words for one attention call's keep mask."""
-        w = torch.randint(0, 2 ** 32, (2,), generator=self.host)
-        return int(w[0]), int(w[1])
+    def stage(self, draw: Draw) -> Tuple[torch.Tensor, ...]:
+        """``draw(self)``, host tensors drawn from ``host`` or ``specaug``,
+        on the device."""
+        return self._stage(self, draw)
 
-    def uniform(self) -> float:
-        return float(torch.rand((), generator=self.host))
+    def fork(self, index: int) -> "DropoutRNG":
+        """The draws of encoder layer ``index``: the same table and
+        generators, from the layer's own slots. Forking again replays them."""
+        child = copy.copy(self)
+        child._next = ENCODER_SLOTS + index * LAYER_SLOTS
+        child._end = child._next + LAYER_SLOTS
+        if child._end > TABLE_SLOTS:
+            raise ValueError(f"layer {index}: a forward draws for at most "
+                             f"{(TABLE_SLOTS - ENCODER_SLOTS) // LAYER_SLOTS} layers")
+        return child
+
+    def seed_words(self) -> torch.Tensor:
+        """The next slot: (2,) int32 on the device, the two 32-bit words of
+        one kernel's keep mask."""
+        if self._next >= self._end:
+            raise RuntimeError("a block of the seed table is used up: a layer draws at most "
+                               f"{LAYER_SLOTS} times, the encoder {ENCODER_SLOTS}")
+        words = self.table[self._next]
+        self._next += 1
+        return words
+
+    def keep(self, p: float) -> torch.Tensor:
+        """A 0-d bool on the device, True with probability 1 - p."""
+        return keep_bits(self.seed_words()[0].long() & M32, p)
 
     def dropout(self, x: torch.Tensor, p: float) -> torch.Tensor:
         """Zero each element with probability p, scale the rest by 1/(1-p)."""
-        keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=self.device_gen)
-        return x * keep / (1.0 - p)
+        return seeded_dropout(x, self.seed_words(), p)
 
 
 def dropout(x: torch.Tensor, p: float, rng: Optional[DropoutRNG]) -> torch.Tensor:

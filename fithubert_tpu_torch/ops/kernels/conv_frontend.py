@@ -13,9 +13,19 @@ folds the block-0 GroupNorm(C, C) in; ``gn_scale_shift`` computes it as
 On a CUDA tensor ``conv_stack`` launches ``csrc/conv_frontend.cu`` once per
 layer; on a CPU tensor it runs ``conv_stack_plain``. In bf16 the layer is a
 wgmma GEMM fed by TMA, whose A operand is two strided views of the layer's
-input (``a_operand_view``); it takes widths that are multiples of 64 and
-raises otherwise (``check_widths``). The bf16 GroupNorm prefix is a kernel
-of its own, ``gn_prefix_cuda``, launched before the first layer.
+input (``a_operand_view``); the kernels take widths that are multiples of
+``WIDTH_MULTIPLE`` (``check_widths``). Other widths are zero-padded on the
+way in and cropped on the way out (``padded_conv_stack``,
+``padded_conv_stack_bwd``), as the Pallas stack takes any width: a padded
+input channel meets zero weight rows, a padded output channel has zero
+weights, so its pre-activation is 0 and gelu(0) = 0 feeds the next layer
+zeros; the prefix's padded channels get scale and shift 0, so they are
+gelu(0) = 0 too. The bf16 GroupNorm prefix is a kernel of its own,
+``gn_prefix_cuda``, launched before the first layer. The TMA tensor maps
+are encoded on the host at each launch from that call's addresses and
+passed by value (``__grid_constant__``); nothing outlives the call, so a
+CUDA graph keeps the maps of the buffers it captured, which its replays
+reuse.
 
 Its gradient has the JAX package's two backwards. ``conv_backward_kind``,
 a function of ``FITHUBERT_CONV_BWD`` (the JAX package's variable, read at
@@ -90,10 +100,61 @@ def a_operand_view(t_in: int, c_in: int, k: int, s: int) -> AView:
 
 
 def check_widths(c0: int, spec: Spec, dtype: torch.dtype, what: str) -> None:
-    """Raise unless C0 and every layer's width suit the card's kernels."""
+    """Raise unless C0 and every layer's width suit the card's kernels
+    (``padded_widths`` makes them so)."""
     mult = WIDTH_MULTIPLE[dtype]
     if any(c % mult for c in [c0] + [d for (d, _k, _s) in spec]):
         raise ValueError(f"{what} needs every width to be a multiple of {mult} in {dtype}")
+
+
+def padded_widths(c0: int, spec: Spec, dtype: torch.dtype) -> Tuple[int, Spec]:
+    """(C0, spec) with C0 and every layer's width rounded up to a multiple
+    of ``WIDTH_MULTIPLE[dtype]``."""
+    mult = WIDTH_MULTIPLE[dtype]
+
+    def up(c: int) -> int:
+        return -(-c // mult) * mult
+
+    return up(c0), tuple((up(d), k, s) for (d, k, s) in spec)
+
+
+def _pad_last(x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    return x if x is None or x.shape[-1] == n else F.pad(x, (0, n - x.shape[-1]))
+
+
+def _pad_weights(weights: Sequence[torch.Tensor], c0: int, spec: Spec) -> List[torch.Tensor]:
+    """Each (k, C_in, d) weight zero-padded to the padded (C_in, d)."""
+    out, c_in = [], c0
+    for w, (d, _k, _s) in zip(weights, spec):
+        out.append(w if tuple(w.shape[1:]) == (c_in, d) else
+                   F.pad(w, (0, d - w.shape[2], 0, c_in - w.shape[1])))
+        c_in = d
+    return out
+
+
+def padded_conv_stack(fwd, x: torch.Tensor, weights: Sequence[torch.Tensor], spec: Spec,
+                      scale: Optional[torch.Tensor] = None,
+                      shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fwd(x, weights, spec, scale, shift)`` run at the padded widths
+    (``padded_widths``), its output cropped to the last layer's width."""
+    c0, pspec = padded_widths(x.shape[-1], spec, x.dtype)
+    out = fwd(_pad_last(x, c0), _pad_weights(weights, c0, pspec), pspec,
+              _pad_last(scale, c0), _pad_last(shift, c0))
+    d = spec[-1][0]
+    return out if out.shape[-1] == d else out[..., :d].contiguous()
+
+
+def padded_conv_stack_bwd(bwd, a0: torch.Tensor, weights: Sequence[torch.Tensor],
+                          g: torch.Tensor, spec: Spec) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """``bwd(a0, weights, g, spec) -> (da0, dWs)`` run at the padded
+    widths, da0 and each dW cropped back."""
+    c0, pspec = padded_widths(a0.shape[-1], spec, a0.dtype)
+    da0, dws = bwd(_pad_last(a0, c0), _pad_weights(weights, c0, pspec),
+                   _pad_last(g, pspec[-1][0]), pspec)
+    shapes = [tuple(w.shape) for w in weights]
+    return (da0[..., :a0.shape[-1]].contiguous() if c0 != a0.shape[-1] else da0,
+            [dw if tuple(dw.shape) == shp else dw[:, :shp[1], :shp[2]].contiguous()
+             for dw, shp in zip(dws, shapes)])
 
 
 def fusable(spec: Spec) -> bool:
@@ -245,6 +306,10 @@ def gn_prefix_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) ->
 
 
 def _conv_stack_cuda(x, weights, spec, scale, shift) -> torch.Tensor:
+    return padded_conv_stack(_conv_stack_kernels, x, weights, spec, scale, shift)
+
+
+def _conv_stack_kernels(x, weights, spec, scale, shift) -> torch.Tensor:
     fn = _conv_layer_fn()
     check_widths(x.shape[-1], spec, x.dtype, KERNEL)
     if not x.is_contiguous() or (scale is not None and not (
@@ -427,7 +492,12 @@ def da_cuda(dz: torch.Tensor, wk: torch.Tensor, layer: Tuple[int, int, int], t_i
 def conv_stack_bwd_cuda(a0: torch.Tensor, weights: Sequence[torch.Tensor],
                         g: torch.Tensor, spec: Spec) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """K6 on CUDA tensors: (da0, [dW_i]), fp32, in 4L launches: L up passes
-    (the last writes dz), L dW, L ordered sums of its chunks, L da."""
+    (the last writes dz), L dW, L ordered sums of its chunks, L da; at any
+    width (``padded_conv_stack_bwd``)."""
+    return padded_conv_stack_bwd(_conv_stack_bwd_kernels, a0, weights, g, spec)
+
+
+def _conv_stack_bwd_kernels(a0, weights, g, spec):
     check_widths(a0.shape[-1], spec, a0.dtype, KERNEL_BWD)  # its up pass is K1's GEMM
     # the weights' layouts, once per backward: (C_out, k, C_in) rows of K for
     # the up pass, (k, C_in, C_out) with C_out contiguous for da

@@ -31,7 +31,9 @@ from fithubert_tpu_torch.ops.kernels.philox import (
     M32,
     Seed,
     check_rate,
+    check_seed,
     keep_bits,
+    key_words,
     philox4x32,
     pick_word,
     threshold,
@@ -45,7 +47,7 @@ def keep_at(e: torch.Tensor, p: float, seed: Seed) -> torch.Tensor:
     """True where the flat elements of int64 indices ``e`` are kept."""
     g = e >> 2
     zero = torch.zeros((), device=e.device, dtype=torch.int64)
-    words = philox4x32(g & M32, g >> 32, zero, zero, seed)
+    words = philox4x32(g & M32, g >> 32, zero, zero, key_words(seed))
     return keep_bits(pick_word(words, e & 3), p)
 
 
@@ -57,7 +59,8 @@ def keep_flat(n: int, p: float, seed: Seed, device=None) -> torch.Tensor:
 def seeded_dropout_plain(x: torch.Tensor, seed: Seed, p: float) -> torch.Tensor:
     """``where(keep_flat, x * 1/(1-p), 0)`` in fp32, returned in x's dtype."""
     keep = keep_flat(x.numel(), p, seed, x.device).view(x.shape)
-    inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32, device=x.device)
+    # x * 1/(1-p) with the scale rounded to fp32 first, as the kernel does
+    inv = float(torch.tensor(1.0 / (1.0 - p), dtype=torch.float32))
     return torch.where(keep, x.float() * inv, 0.0).to(x.dtype)
 
 
@@ -66,20 +69,22 @@ def _dropout_fn():
     fn = _build.load("seeded_dropout").seeded_dropout
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_uint, ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+                   ctypes.c_uint, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
     return fn
 
 
 def seeded_dropout_cuda(x: torch.Tensor, seed: Seed, p: float) -> torch.Tensor:
-    """K5 on a CUDA tensor: one launch."""
+    """K5 on a CUDA tensor: one launch. ``seed`` is a (2,) int32 tensor
+    on x's card, read by the kernel."""
+    seed = check_seed(seed, x.device)
     x = x.contiguous()
     y = torch.empty_like(x)
     group = 4 * x.element_size()  # a thread's four elements, loaded as one vector
     vec = int(x.data_ptr() % group == 0 and y.data_ptr() % group == 0)
     with torch.cuda.device(x.device):
         err = _dropout_fn()(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(), x.numel(),
-                            threshold(p), 1.0 / (1.0 - p), seed[0], seed[1], vec,
+                            threshold(p), 1.0 / (1.0 - p), seed.data_ptr(), vec,
                             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, KERNEL)
     _build.count_launch(KERNEL)
@@ -109,13 +114,15 @@ class _SeededDropout(torch.autograd.Function):
 
 def seeded_dropout(x: torch.Tensor, seed: Seed, p: float) -> torch.Tensor:
     """Drop each element of x with probability p, scale the rest by
-    1/(1-p); the mask comes from ``seed`` (two 32-bit words). x is float32
-    or bfloat16; p = 0 returns x. Differentiable in x."""
+    1/(1-p); the mask comes from ``seed`` (a (2,) int32 tensor on x's
+    device holding two 32-bit words, ``philox.seed_tensor``). x is float32
+    or bfloat16; p = 0
+    returns x. Differentiable in x."""
     check_rate(p)
     if p == 0.0:
         return x
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"seeded_dropout takes float32 or bfloat16, got {x.dtype}")
     if seed is None:
-        raise ValueError("dropout needs a seed: two 32-bit words")
-    return _SeededDropout.apply(x, (int(seed[0]) & M32, int(seed[1]) & M32), float(p))
+        raise ValueError("dropout needs a seed: a (2,) int32 tensor")
+    return _SeededDropout.apply(x, check_seed(seed, x.device), float(p))

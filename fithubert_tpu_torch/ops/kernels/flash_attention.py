@@ -14,10 +14,23 @@ online softmax that also returns the per-row logsumexp (B, H, T)) and the
 backward launches ``csrc/flash_attention_bwd.cu``: one kernel for dQ and one
 for dK and dV. In bf16 the forward and the dK/dV kernel multiply on the
 tensor cores as the TPU kernels do (bf16 operands, fp32 sums, P and dS
-rounded to bf16 before their second product) and need every (b, t, h) row
-of q, k and v on a 16-byte boundary (``rows_aligned``). On a CPU tensor
-both run their plain versions, which mirror ``_attention_reference``
-(``:35-46``) with an fp32 softmax and the backward formulas of ``:295-357``.
+rounded to bf16 before their second product). On a CPU tensor both run
+their plain versions, which mirror ``_attention_reference`` (``:35-46``)
+with an fp32 softmax and the backward formulas of ``:295-357``.
+
+The kernels are compiled for the head sizes ``HEAD_DIMS``; any other D up
+to 128 is zero-padded to the next of them and the results cropped
+(``padded_attention``, ``padded_attention_bwd``), as XLA pads the TPU
+kernel's lane dimension (``:14-17``). That is exact: q is pre-scaled by the
+caller, zero columns add nothing to Q K^T, and zero columns of V give zero
+output columns, which are dropped. The bf16 kernels copy each (b, t, h)
+row in 16-byte chunks (``rows_aligned``); operands whose rows are not so
+aligned are copied too.
+
+The dropout seed is a (2,) int32 tensor on the data's device, which the
+kernels read from device memory when they start: a CUDA graph
+captured over them draws the masks of whatever words the tensor holds at
+each replay (``train/step.py``).
 
 Dropout acts on the unnormalised probabilities while the normaliser keeps
 the undropped sum (``:100-106``). The keep mask is a pure function of
@@ -44,11 +57,14 @@ from typing import Optional, Tuple
 import torch
 
 from fithubert_tpu_torch.ops.kernels import _build
+import torch.nn.functional as F
+
 from fithubert_tpu_torch.ops.kernels.philox import (
-    M32,
     Seed,
     check_rate,
+    check_seed,
     keep_bits,
+    key_words,
     philox4x32,
     pick_word,
     threshold,
@@ -59,14 +75,16 @@ KERNEL_DROPOUT = "flash_attention_fwd_dropout_cuda"
 KERNEL_DQ = "flash_attention_bwd_dq_cuda"
 KERNEL_DKV = "flash_attention_bwd_dkv_cuda"
 NEG_INF = -1e30
-HEAD_DIMS = (40, 64)  # head sizes the kernels are compiled for: student, teacher
+# head sizes the kernels are compiled for (csrc/flash_attention*.cu
+# FA_HEAD_DIMS); others pad to the next one
+HEAD_DIMS = (16, 32, 40, 48, 64, 80, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(q, k, v, key_padding_mask, dropout_p, seed) -> None:
     check_rate(dropout_p)
     if dropout_p > 0.0 and seed is None:
-        raise ValueError("dropout needs a seed: two 32-bit words")
+        raise ValueError("dropout needs a seed: a (2,) int32 tensor")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q, k and v must share one (B, T, H, D) shape")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -86,7 +104,7 @@ def keep_mask(b: int, h: int, t: int, dropout_p: float, seed: Seed,
     z = torch.arange(b * h, device=device, dtype=torch.int64).view(b, h, 1, 1)
     i = torch.arange(t, device=device, dtype=torch.int64).view(1, 1, t, 1)
     j = torch.arange(t, device=device, dtype=torch.int64).view(1, 1, 1, t)
-    words = philox4x32(j >> 2, i, z, torch.zeros_like(j), seed)
+    words = philox4x32(j >> 2, i, z, torch.zeros_like(j), key_words(seed))
     return keep_bits(pick_word(words, (j & 3).expand(b, h, t, t)), dropout_p)
 
 
@@ -142,26 +160,13 @@ def attention_bwd_plain(q, k, v, key_padding_mask, out, lse, dout,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_fn():
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-        + [ctypes.c_longlong] * 9 + [ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
-                                     ctypes.c_uint, ctypes.c_void_p]
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_fns():
-    lib = _build.load("flash_attention_bwd")
-    fns = (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv)
-    for fn, n_out in zip(fns, (1, 2)):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * (7 + n_out) \
-            + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 9 \
-            + [ctypes.c_uint, ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
-    return fns
+def padded_head_dim(d: int) -> int:
+    """The compiled head size a D pads to: the least of ``HEAD_DIMS`` >= d."""
+    for dp in HEAD_DIMS:
+        if dp >= d:
+            return dp
+    raise ValueError(f"head size {d}: the attention kernels take head sizes up to "
+                     f"{HEAD_DIMS[-1]}")
 
 
 def rows_aligned(shape, strides, storage_offset: int, itemsize: int, align: int = 16) -> bool:
@@ -173,17 +178,81 @@ def rows_aligned(shape, strides, storage_offset: int, itemsize: int, align: int 
         (s * itemsize) % align == 0 for n, s in zip(shape[:3], strides[:3]) if n > 1)
 
 
+def _readable(x: torch.Tensor) -> bool:
+    """Whether the kernels can read x in place: unit stride along D and, in
+    bf16, every row on a 16-byte boundary (cp.async copies 16 bytes)."""
+    return x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or (
+        rows_aligned(x.shape, x.stride(), x.storage_offset(), x.element_size())
+        and x.untyped_storage().data_ptr() % 16 == 0))
+
+
+def pad_heads(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """x (B, T, H, D) as the kernels read it at head size dp >= D: itself
+    where it can be, else a contiguous copy zero-padded along D."""
+    d = x.shape[-1]
+    if d == dp and _readable(x):
+        return x
+    return F.pad(x, (0, dp - d)) if dp > d else x.clone(memory_format=torch.contiguous_format)
+
+
+def padded_attention(fwd, q, k, v, key_padding_mask, dropout_p, seed):
+    """``fwd(q, k, v, mask, p, seed) -> (out, lse)`` run at the compiled
+    head size ``padded_head_dim(D)``, its output cropped back to D."""
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    out, lse = fwd(*(pad_heads(x, dp) for x in (q, k, v)), key_padding_mask, dropout_p, seed)
+    return (out if dp == d else out[..., :d].contiguous()), lse
+
+
+def padded_attention_bwd(bwd, q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
+    """``bwd(q, k, v, mask, lse, dout, delta, p, seed) -> grads`` run at the
+    compiled head size, each gradient cropped back to D. ``delta`` =
+    rowsum(dO * O) (B, H, T) is the same padded or not."""
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    qp, kp, vp = (pad_heads(x, dp) for x in (q, k, v))
+    dop = dout.contiguous() if dp == d else F.pad(dout, (0, dp - d))
+    grads = bwd(qp, kp, vp, key_padding_mask, lse, dop, delta, dropout_p, seed)
+    return tuple(g if dp == d else g[..., :d].contiguous() for g in grads)
+
+
+_SEED_TAIL = [ctypes.c_uint, ctypes.c_float, ctypes.c_void_p,
+              ctypes.c_void_p]  # thr, inv_keep, seed pointer, stream
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_fn():
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+        + [ctypes.c_longlong] * 9 + _SEED_TAIL
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fns():
+    lib = _build.load("flash_attention_bwd")
+    fns = (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv)
+    for fn, n_out in zip(fns, (1, 2)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * (7 + n_out) \
+            + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 9 + _SEED_TAIL
+    return fns
+
+
 def _cuda_args(q, k, v, key_padding_mask):
+    """The mask and the strides of q, k and v, which the kernels read in
+    place (``pad_heads`` made them readable at a compiled head size)."""
     b, t, h, d = q.shape
     if d not in HEAD_DIMS:
-        raise ValueError(f"the attention kernels are built for head sizes {HEAD_DIMS}, not {d}")
+        raise ValueError(f"the attention kernels are built for head sizes {HEAD_DIMS}, not "
+                         f"{d} (padded_attention pads to them)")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("q, k and v need unit stride along D")
-    if q.dtype == torch.bfloat16 and not all(
-            rows_aligned(x.shape, x.stride(), x.storage_offset(), x.element_size())
-            and x.untyped_storage().data_ptr() % 16 == 0 for x in (q, k, v)):
+    if not all(_readable(x) for x in (q, k, v)):
         # the bf16 kernels copy rows of q, k and v in 16-byte chunks (cp.async)
-        raise ValueError("bf16 q, k and v need every (b, t, h) row on a 16-byte boundary")
+        raise ValueError("bf16 q, k and v need every (b, t, h) row on a 16-byte boundary "
+                         "(pad_heads copies them)")
     if b * h > 65535:
         raise ValueError("B * H must be at most 65535 (one grid row per (b, h))")
     mask = None if key_padding_mask is None else key_padding_mask.contiguous()
@@ -193,11 +262,12 @@ def _cuda_args(q, k, v, key_padding_mask):
 
 def _dropout_args(dropout_p: float, seed: Optional[Seed]):
     if dropout_p <= 0.0:
-        return [0, 1.0, 0, 0]
-    return [threshold(dropout_p), 1.0 / (1.0 - dropout_p), seed[0] & M32, seed[1] & M32]
+        return [0, 1.0, None]
+    return [threshold(dropout_p), 1.0 / (1.0 - dropout_p), seed.data_ptr()]
 
 
-def _flash_cuda(q, k, v, key_padding_mask, dropout_p, seed):
+def _fwd_kernel(q, k, v, key_padding_mask, dropout_p, seed):
+    """K2 on q, k, v at a compiled head size."""
     b, t, h, d = q.shape
     mask, strides = _cuda_args(q, k, v, key_padding_mask)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -210,6 +280,10 @@ def _flash_cuda(q, k, v, key_padding_mask, dropout_p, seed):
     _build.check(err, name)
     _build.count_launch(name)
     return out, lse
+
+
+def _flash_cuda(q, k, v, key_padding_mask, dropout_p, seed):
+    return padded_attention(_fwd_kernel, q, k, v, key_padding_mask, dropout_p, seed)
 
 
 def _bwd_args(q, k, v, key_padding_mask, lse, dout, delta):
@@ -232,8 +306,7 @@ def _check_bwd(q, dout, lse, delta) -> None:
             raise ValueError(f"{name} must be a contiguous (B, H, T) float32 tensor")
 
 
-def bwd_dq_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, seed=None):
-    """K3: dQ (B, T, H, D) in q's dtype. ``delta`` is rowsum(dO * O), (B, H, T)."""
+def _dq_kernel(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
     _check_bwd(q, dout, lse, delta)
     head, tail, _mask = _bwd_args(q, k, v, key_padding_mask, lse, dout, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -241,11 +314,10 @@ def bwd_dq_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, seed
                         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, KERNEL_DQ)
     _build.count_launch(KERNEL_DQ)
-    return dq
+    return (dq,)
 
 
-def bwd_dkv_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, seed=None):
-    """K4: (dK, dV), each (B, T, H, D) in q's dtype."""
+def _dkv_kernel(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
     _check_bwd(q, dout, lse, delta)
     head, tail, _mask = _bwd_args(q, k, v, key_padding_mask, lse, dout, delta)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
@@ -257,12 +329,28 @@ def bwd_dkv_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, see
     return dk, dv
 
 
+def _dqkv_kernels(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
+    args = (q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed)
+    return _dq_kernel(*args) + _dkv_kernel(*args)
+
+
+def bwd_dq_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, seed=None):
+    """K3: dQ (B, T, H, D) in q's dtype. ``delta`` is rowsum(dO * O), (B, H, T)."""
+    return padded_attention_bwd(_dq_kernel, q, k, v, key_padding_mask, lse, dout, delta,
+                                dropout_p, seed)[0]
+
+
+def bwd_dkv_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, seed=None):
+    """K4: (dK, dV), each (B, T, H, D) in q's dtype."""
+    return padded_attention_bwd(_dkv_kernel, q, k, v, key_padding_mask, lse, dout, delta,
+                                dropout_p, seed)
+
+
 def _flash_bwd_cuda(q, k, v, key_padding_mask, out, lse, dout, dropout_p, seed):
     dout = dout.contiguous()
     delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()  # (B, H, T)
-    dq = bwd_dq_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed)
-    dk, dv = bwd_dkv_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed)
-    return dq, dk, dv
+    return padded_attention_bwd(_dqkv_kernels, q, k, v, key_padding_mask, lse, dout, delta,
+                                dropout_p, seed)
 
 
 def _on_device(fn_cuda, fn_plain, x, *args):
@@ -300,13 +388,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dropout_p: float = 0.0, seed: Optional[Seed] = None,
                     return_lse: bool = False):
     """Softmax attention of pre-scaled q over k, v, all (B, T, H, D), with
-    probability dropout ``dropout_p`` drawn from ``seed`` (two 32-bit
-    words). Differentiable in q, k and v.
+    probability dropout ``dropout_p`` drawn from ``seed`` (a (2,) int32
+    tensor on q's device holding two 32-bit words, ``philox.seed_tensor``).
+    Differentiable in q, k and v.
 
     Returns (B, T, H, D) in q's dtype, and the fp32 logsumexp (B, H, T) too
     when ``return_lse``. CUDA tensors run the kernels, CPU tensors the plain
     versions."""
     _check(q, k, v, key_padding_mask, dropout_p, seed)
-    seed = None if dropout_p == 0.0 else (int(seed[0]) & M32, int(seed[1]) & M32)
+    seed = None if dropout_p == 0.0 else check_seed(seed, q.device)
     out, lse = _FlashAttention.apply(q, k, v, key_padding_mask, float(dropout_p), seed)
     return (out, lse) if return_lse else out

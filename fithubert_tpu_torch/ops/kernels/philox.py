@@ -20,7 +20,36 @@ M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
-Seed = Tuple[int, int]  # two 32-bit words
+# the dropout seed: two 32-bit words as a (2,) int32 tensor on the data's
+# device, which the kernels read from device memory when they start
+Seed = torch.Tensor
+
+
+def seed_tensor(w0: int, w1: int, device=None) -> torch.Tensor:
+    """Two host words as a seed: their 32-bit patterns in a (2,) int32
+    tensor on ``device``."""
+    bits = [(int(w) & M32) - ((int(w) & M32) >> 31 << 32) for w in (w0, w1)]
+    return torch.tensor(bits, dtype=torch.int32, device=device)
+
+
+def check_seed(seed, device: torch.device) -> Seed:
+    """``seed`` as the kernels take it: a contiguous (2,) int32 tensor on
+    ``device``."""
+    if not isinstance(seed, torch.Tensor):
+        raise TypeError(f"a seed is a (2,) int32 tensor (seed_tensor makes one from two "
+                        f"words), got {type(seed).__name__}")
+    if tuple(seed.shape) != (2,) or seed.dtype != torch.int32 or not seed.is_contiguous():
+        raise ValueError(f"a seed tensor must be a contiguous (2,) int32 tensor, got "
+                         f"{tuple(seed.shape)} {seed.dtype}")
+    if seed.device != device:
+        raise ValueError(f"the seed lies on {seed.device}, the data on {device}")
+    return seed
+
+
+def key_words(seed: Seed) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A seed's two words as int64 tensors in [0, 2^32): Philox's key."""
+    s = seed.long() & M32
+    return s[0], s[1]
 
 
 def threshold(p: float) -> int:
@@ -51,10 +80,11 @@ def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
-def philox4x32(c0, c1, c2, c3, seed: Seed, rounds: int = 10):
-    """Philox-4x32 (Salmon et al., SC'11) in int64 torch ops: the same
+def philox4x32(c0, c1, c2, c3, key, rounds: int = 10):
+    """Philox-4x32 (Salmon et al., SC'11) in int64 torch ops under ``key``,
+    two words in [0, 2^32) (ints, or ``key_words`` of a seed): the same
     function as ``philox4x32`` in ``csrc/philox.cuh``."""
-    k0, k1 = seed[0] & M32, seed[1] & M32
+    k0, k1 = key
     for _ in range(rounds):
         hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
         hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])

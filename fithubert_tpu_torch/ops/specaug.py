@@ -9,6 +9,7 @@ each transform split in two:
     draws = draw_spec_augment(gen, cfg, b, t, d)
     spec = apply_spec_augment(spec, draws, cfg)
     spec = spec_augment(gen, spec, cfg)          # the two in one
+    spec = staged_spec_augment(rng, spec, cfg)   # drawn from rng.specaug, staged
 
 Semantics of ``_mask_along_axis`` (``specaug.py:21-68``, espnet's
 MaskAlongAxis): widths are drawn in [lo, hi) with hi = max(hi, lo + 1);
@@ -22,6 +23,11 @@ frequency-masked batch. The time warp (``:71-103``) resamples [0, c) onto
 Under data parallelism (``BatchStripe``) the batch is global: every rank
 draws the global batch's widths and positions from the same seed, applies
 its own rows, and sums the mean's numerator over the ranks.
+
+A training forward takes ``staged_spec_augment``: the draws (this rank's
+rows of them) are made on the host and put on the device through the
+``DropoutRNG``'s ``stage``, so the apply step copies nothing from the host
+and a CUDA graph replays it on the draws staged before each replay.
 """
 
 from __future__ import annotations
@@ -149,6 +155,11 @@ def _rows(draw, rows: Optional[torch.Tensor]):
     return draw if rows is None else type(draw)(*(x[rows.cpu()] for x in draw))
 
 
+def _inv_count(n: int) -> float:
+    """1 / n rounded to fp32, as the fp32 reciprocal of the count."""
+    return float(torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(n)))
+
+
 def apply_spec_augment(spec: torch.Tensor, draws: SpecAugDraws, cfg: SpecAugConfig,
                        lengths: Optional[torch.Tensor] = None,
                        stripe: Optional[BatchStripe] = None) -> torch.Tensor:
@@ -164,7 +175,7 @@ def apply_spec_augment(spec: torch.Tensor, draws: SpecAugDraws, cfg: SpecAugConf
         if stripe is not None:
             total, n = stripe.sum(total), stripe.n_rows * spec[0].numel()
         # jnp.mean's arithmetic: the fp32 sum times the fp32 reciprocal of the count
-        return (total * (1.0 / torch.tensor(float(n), device=total.device))).to(spec.dtype)
+        return (total * _inv_count(n)).to(spec.dtype)
 
     if draws.warp is not None:
         spec = apply_time_warp(spec, _rows(draws.warp, rows))
@@ -185,3 +196,34 @@ def spec_augment(gen: torch.Generator, spec: torch.Tensor, cfg: SpecAugConfig,
     b = spec.shape[0] if stripe is None else stripe.n_rows
     draws = draw_spec_augment(gen, cfg, b, spec.shape[1], spec.shape[2])
     return apply_spec_augment(spec, draws, cfg, lengths, stripe)
+
+
+def _present(cfg: SpecAugConfig, t: int, d: int) -> Tuple[bool, bool, bool]:
+    """Which of (warp, freq, time) ``draw_spec_augment`` draws at (t, d)."""
+    freq_n = mask_shape(d, tuple(cfg.freq_mask_width_range), cfg.num_freq_mask, False)[0]
+    time_n = mask_shape(t, tuple(cfg.time_mask_width_range), cfg.num_time_mask, True,
+                        cfg.adaptive, cfg.adaptive_number_ratio, cfg.adaptive_size_ratio,
+                        cfg.max_n_time_masks)[0]
+    return (cfg.apply_time_warp and t - cfg.time_warp_window > cfg.time_warp_window,
+            cfg.apply_freq_mask and freq_n > 0, cfg.apply_time_mask and time_n > 0)
+
+
+def staged_spec_augment(rng, spec: torch.Tensor, cfg: SpecAugConfig,
+                        lengths: Optional[torch.Tensor] = None,
+                        stripe: Optional[BatchStripe] = None) -> torch.Tensor:
+    """``spec_augment`` drawn from ``rng.specaug`` (a ``DropoutRNG``), the
+    draws of this rank's rows put on the device by ``rng.stage``."""
+    b = spec.shape[0] if stripe is None else stripe.n_rows
+    t, d = spec.shape[1], spec.shape[2]
+    rows = None if stripe is None else stripe.rows.cpu()
+
+    def draw(r):
+        draws = draw_spec_augment(r.specaug, cfg, b, t, d)
+        return tuple(v for x in draws if x is not None for v in _rows(x, rows))
+
+    flat = iter(rng.stage(draw))
+    kinds = (WarpDraw, MaskDraw, MaskDraw)
+    draws = SpecAugDraws(*(kind(next(flat), next(flat)) if on else None
+                           for kind, on in zip(kinds, _present(cfg, t, d))))
+    local = None if stripe is None else dataclasses.replace(stripe, rows=None)
+    return apply_spec_augment(spec, draws, cfg, lengths, local)

@@ -14,8 +14,11 @@ importer maps, ``fithubert_tpu/export/reference_import.py:91-103``).
 
 Given a ``DropoutRNG`` a forward trains: drop1/drop2/drop3 in both LN orders
 (``:99-130``), the dropout of the encoder input (``:283``), attention
-dropout, and the layerdrop gate (``:386-389``). Without one it is
-deterministic.
+dropout, and the layerdrop gate (``:386-389``), a device select on a drawn
+flag as JAX's ``jnp.where``. Each layer draws from its own slots
+(``DropoutRNG.fork``) and, with ``checkpoint_activations``, is checkpointed
+(``ops/remat.py``, the JAX package's ``nn.remat``, ``:355-360, 378-380``);
+the TR module is not. Without a ``DropoutRNG`` it is deterministic.
 
 With ``need_taps`` only the last transformer layer that runs takes the
 attention's materialised taps branch and returns ``AttentionTaps`` in its
@@ -49,6 +52,7 @@ from fithubert_tpu_torch.ops.padding import (
     reduce_padding_mask,
 )
 from fithubert_tpu_torch.ops.quant import dense
+from fithubert_tpu_torch.ops.remat import run_layer
 
 
 class EncoderOutput(NamedTuple):
@@ -96,6 +100,16 @@ class TransformerEncoderLayer(nn.Module):
         x = self.self_attn_layer_norm(x + dropout(y, self.dropout, rng))
         y = self._ffn(x, rng)
         return self.final_layer_norm(x + dropout(y, self.dropout, rng)), taps, y
+
+
+def layerdrop(x: torch.Tensor, y: torch.Tensor, p: float, rng: Optional[DropoutRNG]
+              ) -> torch.Tensor:
+    """A layer's output y, or in a training forward with p > 0 its input x
+    where the drawn gate drops the layer (``:386-389``): a device select,
+    so the forward makes no host decision."""
+    if rng is None or p <= 0.0:
+        return y
+    return torch.where(rng.keep(p), y, x)
 
 
 def concat_frames(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -183,6 +197,13 @@ class TransformerEncoder(nn.Module):
             for slot in range(n_slots)
         ])
 
+    def _layer(self, layer, slot, x, padding_mask, rng, need_taps):
+        def fn(x, padding_mask):
+            return layer(x, padding_mask, None if rng is None else rng.fork(slot), need_taps)
+
+        return run_layer(layer, fn, self.cfg.checkpoint_activations and rng is not None,
+                         x, padding_mask)
+
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 tgt_slot: Optional[int] = None,
                 rng: Optional[DropoutRNG] = None, need_taps: bool = False) -> EncoderOutput:
@@ -202,7 +223,7 @@ class TransformerEncoder(nn.Module):
         x, pad_length = pad_to_multiple(x, cfg.required_seq_len_multiple, axis=-2)
         if pad_length > 0 and padding_mask is None:
             padding_mask = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
-            padding_mask[:, -pad_length:] = True
+            padding_mask[:, -pad_length:].fill_(True)  # a kernel: no copy from the host
         elif padding_mask is not None:
             padding_mask, _ = pad_to_multiple(
                 padding_mask, cfg.required_seq_len_multiple, axis=-1, value=True)
@@ -217,10 +238,9 @@ class TransformerEncoder(nn.Module):
                 padding_mask = reduce_padding_mask(padding_mask, cfg.tr_reduce_factor,
                                                    ceil=cfg.tr_layer_type in ("fc1", "fc2"))
             else:
-                y, taps, layer_result = layer(x, padding_mask, rng, slot == taps_slot)
-                if rng is None or cfg.encoder_layerdrop <= 0.0 \
-                        or rng.uniform() > cfg.encoder_layerdrop:
-                    x = y
+                y, taps, layer_result = self._layer(layer, slot, x, padding_mask, rng,
+                                                    slot == taps_slot)
+                x = layerdrop(x, y, cfg.encoder_layerdrop, rng)
                 layer_results.append((x, taps, layer_result))
             if tgt_slot is not None and slot >= tgt_slot:
                 break

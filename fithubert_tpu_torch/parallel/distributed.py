@@ -169,6 +169,11 @@ class DataParallel:
             return None
         return cls(dist.get_rank(), dist.get_world_size())
 
+    @property
+    def backend(self) -> str:
+        """The process group's backend: ``nccl`` or ``gloo``."""
+        return str(dist.get_backend())
+
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the ranks (a copy; no gradient flows)."""
         out = x.detach().clone()

@@ -21,10 +21,15 @@ reads its stripe; evals are the global batch's, so v_loss, the top-k and
 early stop agree on every rank; a stop on any rank (a signal, checked at
 ``log_every`` boundaries and at each epoch's end) stops every rank on the
 same step; rank 0 writes the configs, ``metrics.jsonl``, the checkpoints,
-the trace and the export while the others wait. ``train.steps_per_launch`` >
-1 runs its steps one call at a time: the JAX package documents its chain
-of K steps as byte-identical to K single launches, so results do not
-change. The step's logs stay on the device between ``log_every``
+the trace and the export while the others wait. With
+``train.steps_per_launch`` K > 1 the loop groups each epoch's batches into
+runs of up to K of one shape (``_launch_groups``, a shape change or the
+epoch's end flushing a run early); a full run is one
+``Distiller.train_step_chain`` call (on the card one CUDA graph replay),
+a shorter one K single steps (``_use_chain``), as in the JAX package
+(``fithubert_tpu/train/loop.py:25-58``). Logging, the stop checks and
+``max_steps`` then act per launch, so a run may overshoot ``max_steps`` by
+fewer than K steps. The step's logs stay on the device between ``log_every``
 boundaries, so only a logged step (and ``StepTimer``'s barrier, every
 ``log_every`` steps) waits for the card; the next batches are copied to the
 card from pinned memory ahead of the step that reads them.
@@ -55,7 +60,7 @@ from fithubert_tpu_torch.parallel.distributed import (
     maybe_initialize,
 )
 from fithubert_tpu_torch.train.checkpoint import CheckpointManager, export_student
-from fithubert_tpu_torch.train.step import Distiller
+from fithubert_tpu_torch.train.step import Distiller, check_graphable
 from fithubert_tpu_torch.utils.logging import MetricsLogger
 from fithubert_tpu_torch.utils.profiling import StepTimer, trace
 from fithubert_tpu_torch.utils.text import GreedyCTCDecoder, edit_stats
@@ -126,6 +131,31 @@ def _to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, tor
         t = torch.from_numpy(np.ascontiguousarray(v))
         out[k] = t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
     return out
+
+
+def _launch_groups(pairs, k: int):
+    """Runs of up to k consecutive (host batch, device batch) pairs of one
+    shape (the host batch's arrays but those whose key starts with ``_``),
+    as the JAX package's ``_launch_groups``: a shape change flushes the run
+    early."""
+    run, key = [], None
+    for raw, dev in pairs:
+        shape = tuple((name, tuple(np.asarray(v).shape)) for name, v in sorted(raw.items())
+                      if not name.startswith("_"))
+        if run and (shape != key or len(run) == k):
+            yield run
+            run = []
+        run.append((raw, dev))
+        key = shape
+    if run:
+        yield run
+
+
+def _use_chain(k: int, steps_per_launch: int) -> bool:
+    """Only a full run of ``steps_per_launch`` > 1 steps is one chained
+    launch; a shorter run takes single steps, as in the JAX package: each
+    run length would capture a graph of its own."""
+    return k == steps_per_launch and k > 1
 
 
 def _prefetched(batches: Iterable[Dict[str, np.ndarray]], dev: torch.device,
@@ -256,25 +286,36 @@ def _train(cfg: ExperimentConfig, dev: torch.device, out_dir: str, logger: Metri
     prof_start = global_step + 2  # past the warm-up steps
     prof_stop = prof_start + cfg.train.profile_steps
     profiler = None
+    steps_per_launch = max(1, cfg.train.steps_per_launch)
+    if steps_per_launch > 1:
+        check_graphable(dev, None if dp is None else dp.backend)
     try:
         for epoch in range(start_epoch, cfg.train.num_epochs):
             rand = sample_rand()
-            for raw, batch in _prefetched(train_data.epoch(epoch), dev):
+            for run in _launch_groups(_prefetched(train_data.epoch(epoch), dev),
+                                      steps_per_launch):
+                k = len(run)
                 if rank == 0 and profiler is None and prof_start <= global_step < prof_stop:
                     profiler = trace(os.path.join(out_dir, "trace"))
                     profiler.__enter__()
-                logs = distiller.train_step_async(batch, rand)
-                global_step += 1
+                if _use_chain(k, steps_per_launch):
+                    logs = distiller.train_step_chain([b for _raw, b in run], rand)[-1]
+                else:
+                    for _raw, batch in run:
+                        logs = distiller.train_step_async(batch, rand)
+                global_step += k
                 if profiler is not None and global_step >= prof_stop:
                     profiler.__exit__(None, None, None)
                     profiler = None
-                rates = timer.tick(audio_sec=float(np.sum(~raw["padding_mask"])) / SR)
-                if cfg.train.monitor_losses and global_step % cfg.train.log_every == 0:
+                rates = timer.tick(audio_sec=sum(float(np.sum(~raw["padding_mask"]))
+                                                 for raw, _b in run) / SR, steps=k)
+                # a launch crossed a log boundary if one of its steps hit it
+                log_boundary = global_step % cfg.train.log_every < k
+                if cfg.train.monitor_losses and log_boundary:
                     logger.log(global_step, {**logs.to_floats(), **rates})
                 # a signal on any rank stops them all on one step; the
                 # ranks agree at log boundaries, one process at every step
-                if (dp is None or global_step % cfg.train.log_every == 0) and \
-                        any_rank(guard.should_stop):
+                if (dp is None or log_boundary) and any_rank(guard.should_stop):
                     guard.should_stop = True
                     # last/ only: a snapshot without v_loss takes no best/ slot
                     ckpt.save_last(global_step, distiller.state_dict())

@@ -133,10 +133,22 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor, axes: Sequence[int],
     return (x * valid).sum(dim=tuple(axes)) / gsum(valid.sum(dim=tuple(axes))).clamp_min(1.0)
 
 
+_LAYER_IDS: Dict[Tuple[Tuple[int, ...], str], torch.Tensor] = {}
+
+
+def _layer_ids(ids: Sequence[int], device) -> torch.Tensor:
+    """``ids`` as an int64 tensor on ``device``, copied there once: a step
+    under a CUDA graph copies nothing from the host."""
+    key = (tuple(int(i) for i in ids), str(device))
+    if key not in _LAYER_IDS:
+        _LAYER_IDS[key] = torch.as_tensor(key[0], dtype=torch.long, device=device)
+    return _LAYER_IDS[key]
+
+
 def _layer_weights(n: int, random_layer_weight: float, device) -> torch.Tensor:
     """(random_layer_weight,) * (n - 1) + (1,): the last slot is the final layer."""
     w = torch.full((n,), random_layer_weight, dtype=torch.float32, device=device)
-    w[-1] = 1.0
+    w[-1:].fill_(1.0)  # a kernel: no copy from the host (a CUDA graph captures it)
     return w
 
 
@@ -185,7 +197,7 @@ def ctc_per_sequence(logits: torch.Tensor, labels: torch.Tensor,
     lp_blank = logp[:, :, :1]  # (B, T, 1)
     lp_emit = logp.gather(2, labels[:, None, :].expand(b, t, n))  # (B, T, U)
     phi = torch.full((b, n + 1), LOG_EPSILON, device=logp.device)
-    phi[:, 0] = 0.0
+    phi[:, 0].fill_(0.0)
     emit = torch.full((b, n), LOG_EPSILON, device=logp.device)
 
     def add_to_tail(p, score):  # p[:, 1:] += score in log space
@@ -269,7 +281,7 @@ def compute_losses(loss_cfg: LossConfig, student_cfg: StudentConfig,
                 ids = rand_layers.clamp(0, proj_stack.shape[1] - 1)
                 pred = torch.cat([proj_stack[:, ids], proj_stack[:, -1:]], dim=1)
         else:
-            ids = torch.as_tensor(student_cfg.pred_layer_id, dtype=torch.long, device=dev)
+            ids = _layer_ids(student_cfg.pred_layer_id, dev)
             target = teacher_stack[:, ids]
             # layer-wise heads are gathered; the SplitLinear head predicts
             # exactly the pred_layer_id layers, in that order

@@ -42,6 +42,28 @@ rows. A conformer student's BatchNorm then takes the global batch's
 statistics (``ops/conformer.py RowMaskedBatchNorm``), summed over the ranks
 inside autograd (``DataParallel.sum_with_grad``).
 
+``train_step_chain(batches, rand_layers)`` takes K optimizer steps in one
+launch, the counterpart of the JAX package's ``make_train_step_chain``
+(``fithubert_tpu/train/step.py:242-262``, a ``lax.scan`` over K steps). On
+the card the K steps (teacher forward, student forward and backward, the
+gradient all-reduce under NCCL, AdamW) are captured once per shape of the
+K batches into one ``torch.cuda.CUDAGraph`` (``_Chain``), after the first K
+steps of that shape have run eagerly on a side stream as its warm-up; the
+graphs share one memory pool. A replay copies the K batches into the
+graph's static inputs, the K learning rates into its lr buffer, and the
+host draws of each step and microbatch (its seed table, SpecAugment's
+draws: ``ops/dropout.py``), made by the same generators from the same
+seeds as an eager step, into the static tensors the capture read. Those
+tensors are allocated before the capture, at the shapes the warm-up drew
+(``_Staged``): made inside it, a later step's would share memory with an
+earlier step's temporaries, which the replay overwrites before the later
+step reads them. So the graph computes what K eager steps compute. A capture that fails raises; a
+gloo process group on the card raises ValueError (``check_graphable``):
+host collectives cannot be captured. On the CPU the chain is K single
+steps. Launch counts (``_build.LAUNCHES``) count kernels where Python
+launches them, so a replay adds none: a captured chain counted its
+launches once, when it was captured.
+
 ``distiller.quantize_matmuls`` raises ValueError, as the JAX Distiller does
 (``fithubert_tpu/train/step.py:60-67``): training through int8 matmuls
 would stop learning. ``teacher.quantize_int8`` makes the frozen teacher's
@@ -53,7 +75,9 @@ geometry drops (``fithubert_tpu/train/loop.py:158-162``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple, Union
+import functools
+import time
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -61,12 +85,17 @@ from fithubert_tpu_torch.config import ExperimentConfig
 from fithubert_tpu_torch.device import resolve_device
 from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.models.teacher import TeacherGeometry, TeacherModel
-from fithubert_tpu_torch.ops.dropout import DropoutRNG
+from fithubert_tpu_torch.ops.dropout import DropoutRNG, host_streams, to_device
 from fithubert_tpu_torch.ops.specaug import BatchStripe
 from fithubert_tpu_torch.ops.conformer import RowMaskedBatchNorm
 from fithubert_tpu_torch.parallel.distributed import DataParallel
 from fithubert_tpu_torch.train.losses import LossOutput, collapse_pseudo_labels, compute_losses
-from fithubert_tpu_torch.train.optim import build_optimizer, optimizer_step
+from fithubert_tpu_torch.train.optim import (
+    build_optimizer,
+    load_optimizer_state,
+    lr_tensor,
+    set_lr,
+)
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -123,18 +152,21 @@ class Distiller:
                 if isinstance(mod, RowMaskedBatchNorm):
                     mod.sum_over_ranks = dp.sum_with_grad
         self.optimizer, self.schedule = build_optimizer(
-            self.params, cfg.optimizer, num_training_steps)
+            self.params, cfg.optimizer, num_training_steps, device=self.device)
         self.step = 0
+        self._chains: Dict[Any, _Chain] = {}  # captured K-step graphs, by shape
+        self._pool = None  # their shared memory pool
 
-    def _seed(self, micro: int, rank_free: bool = False) -> int:
-        seed = (self.cfg.train.seed * 1_000_003 + self.step) * 131_071 + micro
+    def _seed(self, micro: int, rank_free: bool = False, step: Optional[int] = None) -> int:
+        step = self.step if step is None else step
+        seed = (self.cfg.train.seed * 1_000_003 + step) * 131_071 + micro
         if self.dp is not None and not rank_free:  # rank 0 keeps one process's seeds
             seed += self.dp.rank * 0x9E3779B97F4A7C15
         return seed % (1 << 63)
 
-    def _rng(self, micro: int) -> DropoutRNG:
-        return DropoutRNG(self._seed(micro), self.device,
-                          specaug_seed=self._seed(micro, rank_free=True))
+    def _rng(self, micro: int, step: Optional[int] = None, stage=None) -> DropoutRNG:
+        return DropoutRNG(self._seed(micro, step=step), self.device,
+                          specaug_seed=self._seed(micro, rank_free=True, step=step), stage=stage)
 
     def _stripe(self, a: int, b: int) -> Optional[BatchStripe]:
         """This rank's rows of the global batch of SpecAugment, for a batch
@@ -193,8 +225,24 @@ class Distiller:
     def train_step_async(self, batch: Batch, rand_layers) -> "StepLogs":
         """``train_step`` whose logs stay on the device until asked for, so
         a loop that reads them every few steps does not wait for each."""
+        return self._eager_step(self._inputs(batch, rand_layers), self._rng)
+
+    def _eager_step(self, inputs, make_rng: Callable[[int], DropoutRNG]) -> "StepLogs":
+        lr = self.schedule(self.step)
+        set_lr(self.optimizer, lr)
+        names, values = self._step(inputs, make_rng)
+        self.step += 1
+        return StepLogs(names, values, lr)
+
+    def _step(self, inputs, make_rng: Callable[[int], DropoutRNG]
+              ) -> Tuple[Tuple[str, ...], torch.Tensor]:
+        """The device work of one step at the optimizer's current lr: the
+        microbatches' forwards and backwards, the gradient sums, AdamW.
+        ``make_rng(i)`` gives microbatch i's draws. Returns the log names
+        and their values on the device; nothing here waits for the card or
+        copies from the host, so a CUDA graph can capture it."""
         cfg = self.cfg
-        x, mask, rand, labels, pads = self._inputs(batch, rand_layers)
+        x, mask, rand, labels, pads = inputs
         if x.dim() != 3:
             raise ValueError("train_step takes x of shape (A, B, T_wav)")
         fuse_ok = (cfg.train.fuse_grad_accum and not self._has_batch_stats
@@ -210,7 +258,7 @@ class Distiller:
         self.optimizer.zero_grad(set_to_none=True)
         losses, logs = [], []
         for i in range(n_micro):
-            out = self._forward_loss(x[i], mask[i], rand, self._rng(i),
+            out = self._forward_loss(x[i], mask[i], rand, make_rng(i),
                                      None if labels is None else labels[i],
                                      None if pads is None else pads[i], stripe)
             out.total.backward()
@@ -226,15 +274,93 @@ class Distiller:
         if self.dp is not None:
             self.dp.all_reduce_grads(grads)
         grad_norm = torch.nn.utils.get_total_norm(grads)
-        lr = optimizer_step(self.optimizer, self.schedule, self.step)
-        self.step += 1
+        self.optimizer.step()
         names = list(logs[0])
         means = torch.stack([torch.stack([lg[k].detach().float() for lg in logs]).mean()
                              for k in names] + [torch.stack(losses).mean()])
         if self.dp is not None:  # each rank's logs are its share of the global batch's
             means = self.dp.sum(means)
         values = torch.cat([means, grad_norm.float()[None]])
-        return StepLogs(tuple(names) + ("loss", "grad_norm"), values, lr)
+        return tuple(names) + ("loss", "grad_norm"), values
+
+    def train_step_chain(self, batches: Sequence[Batch], rand_layers) -> List["StepLogs"]:
+        """K = len(batches) optimizer steps, one per batch, all of one
+        shape: on the card one replay of the K-step CUDA graph of that
+        shape (captured after its first K steps, which run eagerly as the
+        warm-up), on the CPU K single steps. Returns each step's logs."""
+        if self.device.type != "cuda" or len(batches) < 2:
+            return [self.train_step_async(b, rand_layers) for b in batches]
+        check_graphable(self.device, None if self.dp is None else self.dp.backend)
+        inputs = [self._inputs(b, rand_layers) for b in batches]
+        key = tuple(tuple(None if t is None else (tuple(t.shape), t.dtype) for t in inp)
+                    for inp in inputs)
+        if key not in self._chains:
+            # the warm-up: K eager steps on a side stream, which also note
+            # the shapes of each step's host draws (_Staged.record)
+            staged = _Staged()
+            side = _warmup_stream(self.device.index)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                logs = [self._eager_step(inp, lambda i, k=k: self._rng(
+                    i, stage=staged.record(k, i))) for k, inp in enumerate(inputs)]
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            t0 = time.perf_counter()
+            chain = self._capture(inputs, staged)
+            self._chains[key] = chain._replace(capture_s=time.perf_counter() - t0)
+            return logs
+        return self._replay(self._chains[key], inputs)
+
+    def _capture(self, inputs, staged: "_Staged") -> "_Chain":
+        """The K steps over static copies of ``inputs`` captured in one
+        CUDA graph (nothing runs): each step reads its lr from ``lrs``, its
+        host draws from the static tensors ``staged`` allocated before the
+        capture (outside the graph's pool, so no step's temporaries share
+        their memory), and writes its logs to ``out``. The gradients are
+        dropped at the end, so no tensor of the graph's pool outlives it but
+        ``out``, which the last kernels write."""
+        lr = lr_tensor(self.optimizer)
+        static = [tuple(None if t is None else t.clone() for t in inp) for inp in inputs]
+        lrs = torch.zeros(len(inputs), dtype=torch.float32, device=self.device)
+        staged.allocate(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        values = []
+        with torch.cuda.graph(graph, pool=self._pool):
+            for k, inp in enumerate(static):
+                lr.copy_(lrs[k])
+                names, v = self._step(inp, lambda i, k=k: self._rng(
+                    i, step=self.step + k, stage=staged.stage(k, i)))
+                values.append(v)
+            out = torch.stack(values)
+            self.optimizer.zero_grad(set_to_none=True)
+        return _Chain(graph, static, lrs, staged, out, names, 0.0)
+
+    def _replay(self, chain: "_Chain", inputs) -> List["StepLogs"]:
+        """One replay of ``chain``: the K batches, lrs and host draws
+        written into its static tensors, in stream order before it runs."""
+        k_steps = len(inputs)
+        for dst, src in zip(chain.inputs, inputs):
+            for d, t in zip(dst, src):
+                if d is not None:
+                    d.copy_(t, non_blocking=True)
+        lrs = [self.schedule(self.step + k) for k in range(k_steps)]
+        chain.lrs.copy_(torch.tensor(lrs, dtype=torch.float32).pin_memory(), non_blocking=True)
+        streams = {}
+        for k, i, draw, dst in chain.staged.entries:
+            if (k, i) not in streams:
+                step = self.step + k
+                streams[k, i] = host_streams(self._seed(i, step=step),
+                                             self._seed(i, rank_free=True, step=step))
+            for d, t in zip(dst, draw(streams[k, i])):
+                if d.shape != t.shape:
+                    raise RuntimeError(f"a host draw of shape {tuple(t.shape)} for a static "
+                                       f"tensor of {tuple(d.shape)}")
+                d.copy_(t.pin_memory(), non_blocking=True)
+        chain.graph.replay()
+        out = chain.out.clone()
+        self.step += k_steps
+        return [StepLogs(chain.names, out[k], lrs[k]) for k in range(k_steps)]
 
     def state_dict(self) -> Dict[str, Any]:
         """What a resume needs: the student's weights (and a conformer's
@@ -245,8 +371,9 @@ class Distiller:
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         self.student.load_state_dict(state["student"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(self.optimizer, state["optimizer"])
         self.step = int(state["step"])
+        self._chains.clear()  # they read the optimizer's former state tensors
 
     @torch.no_grad()
     def eval_step(self, batch: Batch, rand_layers) -> Dict[str, float]:
@@ -273,3 +400,68 @@ class Distiller:
         x, mask, _, _, _ = self._inputs(batch, None)
         out = self.student(x, mask)
         return out.x[..., :vocab_size].argmax(-1), out.padding_mask
+
+
+@functools.lru_cache(maxsize=None)
+def _warmup_stream(index: Optional[int]) -> "torch.cuda.Stream":
+    """The side stream of every chain's warm-up on card ``index``: cuBLAS
+    keeps workspaces for each stream it has run on until the process ends,
+    so a new stream per capture would hold card memory for good."""
+    return torch.cuda.Stream(torch.device("cuda", index))
+
+
+def check_graphable(device: torch.device, backend: Optional[str]) -> None:
+    """Raise ValueError where K steps cannot be captured in a CUDA graph:
+    on the card under a process group whose collectives run on the host
+    (gloo), which a graph cannot capture."""
+    if torch.device(device).type == "cuda" and backend is not None and backend != "nccl":
+        raise ValueError(f"train.steps_per_launch > 1 on the card needs the nccl backend: "
+                         f"the {backend} backend's collectives run on the host, and a CUDA "
+                         "graph cannot capture them")
+
+
+class _Staged:
+    """The host draws a captured chain reads (``DropoutRNG.stage``). The
+    warm-up's eager steps ``record`` the shapes of each (step k, microbatch
+    i)'s draws; ``allocate`` makes their static tensors before the capture;
+    in the capture ``stage`` hands them out in order and keeps, in capture
+    order, each draw function with the tensors it fills (``entries``)."""
+
+    def __init__(self):
+        self.shapes: Dict[Tuple[int, int], List[List[Tuple[torch.Size, torch.dtype]]]] = {}
+        self.buffers: Dict[Tuple[int, int], List[Tuple[torch.Tensor, ...]]] = {}
+        self.entries: List[Tuple[int, int, Callable, Tuple[torch.Tensor, ...]]] = []
+
+    def record(self, k: int, i: int):
+        def stage(rng: DropoutRNG, draw) -> Tuple[torch.Tensor, ...]:
+            out = to_device(rng, draw)
+            self.shapes.setdefault((k, i), []).append([(t.shape, t.dtype) for t in out])
+            return out
+        return stage
+
+    def allocate(self, device: torch.device) -> None:
+        self.buffers = {key: [tuple(torch.empty(shape, dtype=dtype, device=device)
+                                    for shape, dtype in call) for call in calls]
+                        for key, calls in self.shapes.items()}
+
+    def stage(self, k: int, i: int):
+        calls = iter(self.buffers.get((k, i), ()))
+
+        def stage(rng: DropoutRNG, draw) -> Tuple[torch.Tensor, ...]:
+            dst = next(calls, None)
+            if dst is None:
+                raise RuntimeError(f"step {k} microbatch {i} draws more under capture than in "
+                                   "its warm-up")
+            self.entries.append((k, i, draw, dst))
+            return dst
+        return stage
+
+
+class _Chain(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: List[Tuple[Optional[torch.Tensor], ...]]  # per step: x, mask, rand, labels, pads
+    lrs: torch.Tensor  # (K,) fp32: each step's lr
+    staged: _Staged
+    out: torch.Tensor  # (K, n_logs): each step's log values
+    names: Tuple[str, ...]
+    capture_s: float  # host seconds the capture took

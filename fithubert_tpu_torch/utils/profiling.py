@@ -48,16 +48,18 @@ class StepTimer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def tick(self, audio_sec: float = 0.0) -> Dict[str, float]:
-        """After each step; ``audio_sec`` is the step's unpadded audio."""
+    def tick(self, audio_sec: float = 0.0, steps: int = 1) -> Dict[str, float]:
+        """After each launch; ``audio_sec`` is its unpadded audio, ``steps``
+        its optimizer steps (K under ``train.steps_per_launch``); the
+        barrier comes when a multiple of ``sync_every`` was crossed."""
         now = time.perf_counter()
         if self._t0 is None:
             self._sync()
             self._t0 = time.perf_counter()
         else:
-            self._n += 1
+            self._n += steps
             self._audio += audio_sec
-            if self._n % self.sync_every == 0:
+            if self._n % self.sync_every < steps:
                 self._sync()
                 now = time.perf_counter()
             dt = max(now - self._t0, 1e-9)

@@ -14,6 +14,7 @@ import torch
 
 from fithubert_tpu.ops.pallas.flash_attention import flash_attention as j_flash
 from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+from fithubert_tpu_torch.ops.kernels.philox import key_words, seed_tensor
 
 torch.set_num_threads(2)
 
@@ -90,7 +91,7 @@ def test_plain_backward_equals_autograd_of_plain_forward(dropout_p):
     seed) against autograd through attention_plain on the same mask; fp32,
     ragged mask, T = 77."""
     q, k, v, g, mask = _inputs(2, 77, 3, 8, seed=3)
-    seed = (0x12345678, 0x9ABCDEF0)
+    seed = seed_tensor(0x12345678, 0x9ABCDEF0)
     got = _port_grads(q, k, v, g, mask, "float32", dropout_p, seed if dropout_p else None)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out, _ = fa.attention_plain(tq, tk, tv, torch.from_numpy(mask), dropout_p, seed)
@@ -114,7 +115,7 @@ def test_philox_matches_known_answers():
 @pytest.mark.parametrize("p", [0.1, 0.5])
 def test_keep_rate_is_one_minus_p(p):
     b, h, t = 2, 12, 300
-    keep = fa.keep_mask(b, h, t, p, (7, 9))
+    keep = fa.keep_mask(b, h, t, p, seed_tensor(7, 9))
     n = keep.numel()
     sigma = (p * (1 - p) / n) ** 0.5
     assert abs(keep.float().mean().item() - (1 - p)) < 4 * sigma
@@ -123,7 +124,7 @@ def test_keep_rate_is_one_minus_p(p):
 def test_dropout_scales_kept_probabilities_by_one_over_keep():
     """With v = I the output is the dropped probability matrix itself:
     every entry is 0 or softmax / (1 - p), and its mean is unbiased."""
-    b, t, h, p, seed = 2, 64, 2, 0.25, (5, 6)
+    b, t, h, p, seed = 2, 64, 2, 0.25, seed_tensor(5, 6)
     rng = np.random.default_rng(0)
     q, k = (torch.from_numpy(rng.standard_normal((b, t, h, t)).astype(np.float32))
             for _ in range(2))
@@ -141,26 +142,27 @@ def test_mask_does_not_depend_on_tiling():
     a larger mask equals the mask of the smaller T, and 64 x 16 tiles drawn
     one Philox call per four keys (the forward and dQ kernels' order) or
     one call per (row, key) (the dK/dV kernel's order) rebuild it."""
-    b, h, t, p, seed = 1, 3, 150, 0.3, (11, 22)
+    b, h, t, p, seed = 1, 3, 150, 0.3, seed_tensor(11, 22)
     full = fa.keep_mask(b, h, t, p, seed)
     assert torch.equal(full[:, :, :70, :70], fa.keep_mask(b, h, 70, p, seed))
     thr = int(p * (1 << 24))
     z = 2
     i = torch.arange(64, 128).view(-1, 1)
     j = torch.arange(16, 32).view(1, -1)
-    words = fa.philox4x32(j >> 2, i, torch.tensor(z), torch.tensor(0), seed)
+    words = fa.philox4x32(j >> 2, i, torch.tensor(z), torch.tensor(0), key_words(seed))
     tile = torch.stack(words, -1).gather(-1, (j & 3).expand(64, 16)[..., None])[..., 0]
     assert torch.equal((tile >> 8) >= thr, full[0, z, 64:128, 16:32])
     one = fa.philox4x32(torch.tensor(149 >> 2), torch.tensor(3), torch.tensor(1),
-                        torch.tensor(0), seed)[149 & 3]
+                        torch.tensor(0), key_words(seed))[149 & 3]
     assert bool((one >> 8) >= thr) == bool(full[0, 1, 3, 149])
 
 
 def test_masks_differ_across_seeds_and_heads():
     b, h, t, p = 1, 2, 200, 0.1
-    a = fa.keep_mask(b, h, t, p, (1, 2))
+    a = fa.keep_mask(b, h, t, p, seed_tensor(1, 2))
     expect = 2 * p * (1 - p)  # fraction of elements where two independent masks differ
-    for other in (fa.keep_mask(b, h, t, p, (1, 3)), fa.keep_mask(b, h, t, p, (2, 2))):
+    for other in (fa.keep_mask(b, h, t, p, seed_tensor(1, 3)),
+                  fa.keep_mask(b, h, t, p, seed_tensor(2, 2))):
         assert abs((a != other).float().mean().item() - expect) < 0.01
     assert abs((a[:, 0] != a[:, 1]).float().mean().item() - expect) < 0.01
 
@@ -169,8 +171,10 @@ def test_dropout_needs_a_seed_and_a_valid_rate():
     q = torch.zeros(1, 4, 1, 8)
     with pytest.raises(ValueError, match="seed"):
         fa.flash_attention(q, q, q, dropout_p=0.1)
+    with pytest.raises(TypeError, match="seed_tensor"):  # host words are not a seed
+        fa.flash_attention(q, q, q, dropout_p=0.1, seed=(1, 2))
     with pytest.raises(ValueError, match="dropout_p"):
-        fa.flash_attention(q, q, q, dropout_p=1.0, seed=(1, 2))
+        fa.flash_attention(q, q, q, dropout_p=1.0, seed=seed_tensor(1, 2))
     with pytest.raises(ValueError, match="2\\^-24"):  # kernel and plain version would differ
-        fa.flash_attention(q, q, q, dropout_p=2.0 ** -25, seed=(1, 2))
-    fa.flash_attention(q, q, q, dropout_p=2.0 ** -24, seed=(1, 2))  # the finest rate
+        fa.flash_attention(q, q, q, dropout_p=2.0 ** -25, seed=seed_tensor(1, 2))
+    fa.flash_attention(q, q, q, dropout_p=2.0 ** -24, seed=seed_tensor(1, 2))  # the finest rate

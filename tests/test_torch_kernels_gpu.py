@@ -23,6 +23,7 @@ from fithubert_tpu_torch.ops.kernels import _build
 from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
 from fithubert_tpu_torch.ops.kernels import dropout as kd
 from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+from fithubert_tpu_torch.ops.kernels.philox import seed_tensor
 
 pytestmark = pytest.mark.gpu
 
@@ -226,7 +227,7 @@ def test_attention_backward_matches_plain(dev, case, dtype, dropout_p):
     the same keep mask: ragged tails (T = 1, 63, 65), D = 64, strided views.
     The fully padded row has exactly zero gradients."""
     q, k, v, mask, dout = _attention_inputs(case, dtype, dev, seed=sum(case))
-    seed = (0xDEADBEEF, 12345) if dropout_p else None
+    seed = seed_tensor(0xDEADBEEF, 12345, dev) if dropout_p else None
     _build.reset_launches()
     out, lse = fa.flash_attention(q, k, v, mask, dropout_p=dropout_p, seed=seed,
                                   return_lse=True)
@@ -248,7 +249,7 @@ def test_dq_kernel_is_deterministic(dev, case):
     """K3 in bf16 on the tensor cores: each dQ element is summed by one warp
     in a fixed key order, no atomics; two launches are bit-identical."""
     q, k, v, mask, dout = _attention_inputs(case, torch.bfloat16, dev, seed=3)
-    seed = (11, 12)
+    seed = seed_tensor(11, 12, dev)
     out, lse = fa.flash_attention(q, k, v, mask, dropout_p=0.1, seed=seed, return_lse=True)
     delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     runs = [fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta, 0.1, seed) for _ in range(2)]
@@ -263,7 +264,7 @@ def test_attention_backward_is_deterministic(dev, case):
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
     runs = []
     for _ in range(2):
-        out = fa.flash_attention(qs, ks, vs, mask, dropout_p=0.1, seed=(1, 2))
+        out = fa.flash_attention(qs, ks, vs, mask, dropout_p=0.1, seed=seed_tensor(1, 2, dev))
         runs.append(torch.autograd.grad(out, (qs, ks, vs), dout))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -296,7 +297,7 @@ def test_seeded_dropout_is_bit_identical_to_plain(dev, shape, dtype):
     g = torch.Generator().manual_seed(sum(shape))
     x = torch.randn(shape, generator=g).to(dev, dtype).requires_grad_()
     cot = torch.randn(shape, generator=g).to(dev, dtype)
-    seed, p = (0xDEADBEEF, 0x12345678), 0.1
+    seed, p = seed_tensor(0xDEADBEEF, 0x12345678, dev), 0.1
     _build.reset_launches()
     y = kd.seeded_dropout(x, seed, p)
     (dx,) = torch.autograd.grad(y, x, cot)
@@ -311,7 +312,8 @@ def test_seeded_dropout_of_an_unaligned_view(dev):
     big = torch.randn(4 * 1000 + 3, device=dev)
     x = big[3:]
     assert x.data_ptr() % 16 != 0
-    assert torch.equal(kd.seeded_dropout(x, (5, 6), 0.3), kd.seeded_dropout_plain(x, (5, 6), 0.3))
+    seed = seed_tensor(5, 6, dev)
+    assert torch.equal(kd.seeded_dropout(x, seed, 0.3), kd.seeded_dropout_plain(x, seed, 0.3))
 
 
 # K6 against its plain version, norm-wise: fp32 sums the same products in

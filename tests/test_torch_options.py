@@ -263,7 +263,7 @@ def test_a_misspelt_distiller_key_raises_in_both_packages(key):
         tc.config_from_yaml_dict(raw)
 
 
-@pytest.mark.parametrize("key, value", [("checkpoint_activations", True), ("final_dim", 64),
+@pytest.mark.parametrize("key, value", [("final_dim", 64),
                                         ("fp16", False), ("max_positions", 10),
                                         ("scan_layers", True), ("tr_conv1d_kernel", 5),
                                         ("use_pallas_attention", False),
@@ -275,6 +275,17 @@ def test_jax_only_keys_are_read_and_change_nothing(key, value):
     changed = dict(raw, distiller={**raw["distiller"], key: value})
     j_config_from_yaml_dict(changed)
     assert tc.config_from_yaml_dict(changed) == tc.config_from_yaml_dict(raw)
+
+
+def test_checkpoint_activations_is_carried():
+    """``checkpoint_activations`` is no longer dropped: both packages read
+    it, and the port's StudentConfig carries it to the encoders
+    (``ops/remat.py``)."""
+    raw = _release_distiller()
+    changed = dict(raw, distiller={**raw["distiller"], "checkpoint_activations": True})
+    assert j_config_from_yaml_dict(changed).distiller.checkpoint_activations
+    assert tc.config_from_yaml_dict(changed).distiller.checkpoint_activations
+    assert not tc.config_from_yaml_dict(raw).distiller.checkpoint_activations
 
 
 @pytest.mark.parametrize("over, error", [

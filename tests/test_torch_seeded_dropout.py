@@ -18,7 +18,8 @@ from fithubert_tpu_torch.ops.kernels import philox
 
 torch.set_num_threads(2)
 
-SEED = (0x2545F491, 0x9E3779B9)
+WORDS = (0x2545F491, 0x9E3779B9)
+SEED = philox.seed_tensor(*WORDS)
 KEEP_SIGMAS = 4.0  # a binomial keep count within 4 sigma of n (1 - p)
 
 
@@ -90,16 +91,16 @@ def test_flat_index_is_read_as_a_64_bit_counter():
     got = kd.keep_at(e, p, SEED)
     for ei, gi in zip(e.tolist(), got.tolist()):
         words = philox.philox4x32(torch.tensor((ei >> 2) & 0xFFFFFFFF), torch.tensor(ei >> 34),
-                                  torch.tensor(0), torch.tensor(0), SEED)
+                                  torch.tensor(0), torch.tensor(0), WORDS)
         assert gi == bool((int(words[ei & 3]) >> 8) >= philox.threshold(p))
 
 
 def test_distinct_seeds_draw_distinct_masks():
     p, n = 0.1, 200_000
-    a = kd.keep_flat(n, p, (1, 2))
+    a = kd.keep_flat(n, p, philox.seed_tensor(1, 2))
     expect = 2 * p * (1 - p)  # fraction where two independent masks differ
     for other in ((1, 3), (2, 2), (2, 1)):
-        diff = (a != kd.keep_flat(n, p, other)).float().mean().item()
+        diff = (a != kd.keep_flat(n, p, philox.seed_tensor(*other))).float().mean().item()
         assert abs(diff - expect) < 0.01, other
 
 
