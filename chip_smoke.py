@@ -2841,6 +2841,328 @@ def conformer_dp_phase(geom, t_state, per_step_of, gen, smi, tmp):
     torch.cuda.empty_cache()
 
 
+# [tp]: tensor parallelism, the 'model' axis of the mesh (parallel/mesh.py),
+# over gloo ranks that share the one card. NCCL refuses two ranks on one
+# card, so every collective of the axis goes through the host, and the
+# ranks' step walls measure gloo on this host, not tensor parallelism.
+TP_MODEL = 2
+# fp32 under the model axis against one process on the card: the row-parallel
+# layers sum their partial products in another order, so the logs move by a
+# few fp32 roundings (TP_LOGS_RTOL relative) and the parameters after AdamW
+# by a small fraction of lr (TRAIN_PARAM_ATOL, the card-vs-CPU limit).
+TP_LOGS_RTOL = 1e-5
+TP_BF16_STEPS = 8  # on one fixed batch after a ragged one: the loss must fall
+
+
+def tp_mesh_setup(model_axis):
+    """This spawned rank's gloo group on the card and its mesh: (Mesh, device)."""
+    from fithubert_tpu_torch.parallel.mesh import make_mesh
+
+    _dp, dev = gloo_rank_setup()
+    return make_mesh(model_axis=model_axis), dev
+
+
+def tp_replicated_same(d, mesh):
+    """True when this rank's replicated student parameters equal its row's
+    rank 0's bit for bit (a broadcast over the row)."""
+    import torch
+    import torch.distributed as dist
+
+    from fithubert_tpu_torch.parallel.mesh import shard_dims
+
+    sharded = shard_dims(d.student, mesh.model)
+    flat = torch.cat([p.detach().reshape(-1) for n, p in d.student.named_parameters()
+                      if n not in sharded])
+    ref = flat.clone()
+    dist.broadcast(ref, mesh.data_rank * mesh.model, group=mesh.tp.group)
+    return bool(torch.equal(flat, ref))
+
+
+def tp_steps(d, mesh, batches, rand):
+    """One step per batch on this rank's data stripe, each with the counts
+    set to 0 just before it: per step the logs, launches, host wall (to a
+    sync) and whether the replicated parameters equal the row's rank 0's."""
+    import torch
+
+    from fithubert_tpu_torch.ops.kernels import _build
+
+    steps = []
+    for batch in batches:
+        local = {k: v[:, mesh.data_rank::mesh.data] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        logs = d.train_step(local, rand)
+        torch.cuda.synchronize()
+        steps.append(dict(logs=logs, launches=dict(_build.LAUNCHES),
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          replicated_same=tp_replicated_same(d, mesh)))
+    return steps
+
+
+def tp_rank(spec_path, out_dir):
+    """One of the [tp] (data 1 x model 2) gloo ranks: (a) fp32 without
+    dropout, two steps (rank 0 saves the gathered state); (b) the bf16
+    release step with dropout, a ragged step then TP_BF16_STEPS on one
+    batch, and the keep masks of a sharded and a replicated site; (d) the
+    int8 teacher sharded against one process's on this rank: payloads and
+    forward. The result holds no tensor (see ``gloo_step_rank``)."""
+    import torch
+
+    from fithubert_tpu_torch.models.teacher import TeacherModel
+    from fithubert_tpu_torch.parallel.mesh import COLUMN, shard_plan
+    from fithubert_tpu_torch.train.step import Distiller
+
+    mesh, dev = tp_mesh_setup(TP_MODEL)
+    spec = torch.load(spec_path, weights_only=False)
+    out = {}
+    d = Distiller(spec["exp32"], spec["t_state"], spec["s_state"], device=dev,
+                  num_training_steps=20, mesh=mesh)
+    out["fp32"] = tp_steps(d, mesh, spec["fp32_batches"], spec["rand"])
+    state = d.state_dict()["student"]
+    if mesh.rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in state.items()},
+                   os.path.join(out_dir, "tp_fp32_params.pt"))
+    out["fp32_shapes"] = {k: tuple(v.shape) for k, v in state.items()}
+    out["fp32_local"] = sum(p.numel() for p in d.params)
+    del d, state
+    torch.cuda.empty_cache()
+
+    d = Distiller(spec["exp"], spec["t_state"], spec["s_state"], device=dev,
+                  num_training_steps=20, mesh=mesh)
+    out["bf16"] = tp_steps(d, mesh, spec["bf16_batches"], spec["rand"])
+    ones = torch.ones(1 << 16, device=dev)
+    out["keep_sharded"] = (d._rng(0).dropout(ones, ATTN_P, sharded=True) != 0).cpu().numpy()
+    out["keep_replicated"] = (d._rng(0).dropout(ones, ATTN_P) != 0).cpu().numpy()
+    del d
+    torch.cuda.empty_cache()
+
+    geom_q = dataclasses.replace(spec["geom"], compute_dtype="bfloat16", quantize_int8=True)
+    teachers = []
+    for tp in (None, mesh.tp):
+        t = TeacherModel(geom_q, device=dev)
+        t.load_state_dict(spec["t_state"])
+        teachers.append(t.freeze(tp))
+    one, sharded = teachers
+    payloads = 0
+    for name, kind in shard_plan(one, TP_MODEL).items():
+        dim = 0 if kind == COLUMN else 1
+        a, b = one.get_submodule(name), sharded.get_submodule(name)
+        same = torch.equal(mesh.tp.local(a.weight_q, dim), b.weight_q) and torch.equal(
+            mesh.tp.local(a.weight_scale, 0) if kind == COLUMN else a.weight_scale,
+            b.weight_scale)
+        if not same:
+            raise RuntimeError(f"[tp] int8 payload of {name} is not one process's slice")
+        payloads += 1
+    x, m = (spec["int8_batch"][k].to(dev) for k in ("x", "padding_mask"))
+    with torch.no_grad():
+        want, got = one(x, m), sharded(x, m)
+    valid = ~want.padding_mask
+    errs = []
+    for (hw, _, _), (hg, _, _) in zip(want.layer_results, got.layer_results):
+        errs.append(dict(max_abs=(hg.float() - hw.float())[valid].abs().max().item(),
+                         scale=hw.float()[valid].abs().max().item(),
+                         equal=bool(torch.equal(hg[valid], hw[valid]))))
+    out["int8"] = dict(payloads=payloads, layers=errs)
+    return out
+
+
+def tp4_rank(spec_path, out_dir):
+    """One of the [tp] (data 2 x model 2) gloo ranks: (c) fp32 steps on the
+    data stripes (rank 0 saves the gathered state), then dryrun_multichip's
+    tail: an eval, a checkpoint save, a restore into a fresh tensor-parallel
+    Distiller and its eval."""
+    import torch
+
+    from fithubert_tpu_torch.train.checkpoint import CheckpointManager
+    from fithubert_tpu_torch.train.step import Distiller
+
+    mesh, dev = tp_mesh_setup(TP_MODEL)
+    spec = torch.load(spec_path, weights_only=False)
+    d = Distiller(spec["exp32"], spec["t_state"], spec["s_state"], device=dev,
+                  num_training_steps=20, mesh=mesh)
+    steps = tp_steps(d, mesh, spec["fp32_batches"], spec["rand"])
+    state = d.state_dict()
+    if mesh.rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in state["student"].items()},
+                   os.path.join(out_dir, "tp4_fp32_params.pt"))
+    ev = {k: v[mesh.data_rank::mesh.data] for k, v in spec["eval_batch"].items()}
+    v0 = d.eval_step(ev, spec["rand"])["v_loss"]
+    ckpt = CheckpointManager(os.path.join(out_dir, "tp_ckpt"), dp=mesh.world)
+    ckpt.save(d.step, state, v0)
+    del d, state
+    fresh = Distiller(spec["exp32"], spec["t_state"], spec["s_state"], device=dev,
+                      num_training_steps=20, mesh=mesh)
+    fresh.load_state_dict(ckpt.restore())
+    return dict(steps=steps, v_loss=v0, v_loss_restored=fresh.eval_step(ev, spec["rand"])["v_loss"],
+                step_restored=fresh.step)
+
+
+def tp_phase(exp, exp32, geom, t_state, s_state, rand_layers, gen, per_step, tmp, smi, errs):
+    """[tp] the model axis over gloo ranks sharing the card, the release
+    config at full width: (a) (data 1 x model 2) fp32 without dropout
+    against one process (logs, gathered parameters, replicated parameters
+    bit for bit across the row, one process's keys and shapes); (b) the
+    same mesh in bf16 with dropout (each rank's launches the release
+    step's, K2-K4 at 6 heads; a falling loss; replicated parameters bit
+    for bit; keep masks apart on the sharded sites); (c) (data 2 x model 2)
+    fp32 against one process, then an eval, a save, a restore and an equal
+    v_loss; (d) the int8 teacher sharded: its payloads one process's
+    slices, its forward against one process's. Returns rank 0's launches
+    of its last bf16 step."""
+    import torch
+
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+    from fithubert_tpu_torch.parallel.distributed import launch
+    from fithubert_tpu_torch.train.step import Distiller
+
+    cfg = exp.distiller
+    a, b = exp.train.accumulate_grad_batches, exp.train.batch_size
+    h, d_head = cfg.encoder_attention_heads, cfg.encoder_embed_dim // cfg.encoder_attention_heads
+    t_att = cf.out_len(12 * SR, cfg.conv_feature_layers) // cfg.tr_reduce_factor
+    t_teacher = cf.out_len(12 * SR, geom.conv_feature_layers)
+    student_rank = (a * b, t_att, h // TP_MODEL, d_head)
+    teacher_rank = (a * b, t_teacher, geom.encoder_attention_heads // TP_MODEL,
+                    geom.encoder_embed_dim // geom.encoder_attention_heads)
+    print(f"  K2 with dropout p={ATTN_P}, K3 and K4 at the student's per-rank "
+          f"{student_rank}, and K2 at the teacher's per-rank {teacher_rank}, vs the plain "
+          f"versions", flush=True)
+    check_attention_training_kernels(fa, gen, torch.device("cuda"), errs,
+                                     cases=(student_rank + (False,),), path="@tp")
+    q, k, v, _dout, m = attention_case(gen, *teacher_rank, torch.bfloat16, "cuda", False)
+    errs["attn_tp"] = compare(f"flash_attention bfloat16 {teacher_rank}",
+                              fa.flash_attention(q, k, v, m), fa.attention_plain(q, k, v, m)[0],
+                              "bfloat16", ~m.all(-1))
+    del q, k, v, _dout, m
+
+    fp32_batches = [train_batch(gen, 2, 2, 3.0, ragged=True),
+                    train_batch(gen, 2, 2, 3.0, ragged=False)]
+    bf16_batches = [train_batch(gen, a, b, 12.0, ragged=True)] + \
+        [train_batch(gen, a, b, 12.0, ragged=False)] * TP_BF16_STEPS
+    spec = {"t_state": t_state, "s_state": s_state, "rand": rand_layers, "geom": geom,
+            "exp": exp, "exp32": exp32, "fp32_batches": fp32_batches,
+            "bf16_batches": bf16_batches,
+            "eval_batch": {k: v[0] for k, v in fp32_batches[0].items()},
+            "int8_batch": {k: v[0] for k, v in train_batch(gen, 1, b, 12.0, ragged=True).items()}}
+    spec_path = os.path.join(tmp, "tp_spec.pt")
+    torch.save(spec, spec_path)
+    runs = {}
+    for name, fn, world in (("data 1 x model 2", tp_rank, TP_MODEL),
+                            ("data 2 x model 2", tp4_rank, 2 * TP_MODEL)):
+        t0 = time.perf_counter()
+        try:
+            runs[name] = launch(fn, world, spec_path, tmp, timeout=DP_RANK_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"[tp] {name} gloo ranks: {e}")
+        print(f"  {name}: {world} gloo ranks spawned, joined and done in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    r2, r4 = runs["data 1 x model 2"], runs["data 2 x model 2"]
+
+    # (a) and (c): fp32 against one process on the card, on the global batch
+    one = Distiller(exp32, t_state, s_state, device="cuda", num_training_steps=20)
+    want_shapes = None
+    for i, batch in enumerate(fp32_batches):
+        want = one.train_step(batch, rand_layers)
+        for mesh_name, ranks, steps_of in (("(a) data 1 x model 2", r2, lambda r: r["fp32"]),
+                                           ("(c) data 2 x model 2", r4, lambda r: r["steps"])):
+            for r, rank in enumerate(ranks):
+                got = steps_of(rank)[i]
+                worst = max(abs(got["logs"][key] - w) / max(abs(w), 1e-12)
+                            for key, w in want.items() if key != "lr")
+                if worst > TP_LOGS_RTOL or got["logs"]["lr"] != want["lr"]:
+                    fail(f"[tp] {mesh_name} fp32 step {i} rank {r}: logs {got['logs']} vs one "
+                         f"process {want} (worst rel {worst:.3e})")
+                if not got["replicated_same"]:
+                    fail(f"[tp] {mesh_name} fp32 step {i} rank {r}: replicated parameters "
+                         "differ from the row's rank 0")
+            print(f"  {mesh_name} fp32 step {i}: loss {want['loss']:.8f} (ranks "
+                  f"{[steps_of(rk)[i]['logs']['loss'] for rk in ranks]}), grad_norm "
+                  f"{want['grad_norm']:.8f} (ranks "
+                  f"{[steps_of(rk)[i]['logs']['grad_norm'] for rk in ranks]}), every log within "
+                  f"rel {TP_LOGS_RTOL}; replicated parameters bit for bit across the row ok",
+                  flush=True)
+    want_sd = {k: v.detach().cpu() for k, v in one.student.state_dict().items()}
+    want_shapes = {k: tuple(v.shape) for k, v in want_sd.items()}
+    for mesh_name, path in (("(a)", "tp_fp32_params.pt"), ("(c)", "tp4_fp32_params.pt")):
+        got_sd = torch.load(os.path.join(tmp, path), weights_only=True)
+        if {k: tuple(v.shape) for k, v in got_sd.items()} != want_shapes:
+            fail(f"[tp] {mesh_name}: the gathered state's keys and shapes are not one process's")
+        worst = max((got_sd[k] - v).abs().max().item() for k, v in want_sd.items())
+        if worst > TRAIN_PARAM_ATOL:
+            fail(f"[tp] {mesh_name}: gathered parameters differ from one process's by "
+                 f"{worst:.3e}")
+        print(f"  {mesh_name} the gathered state_dict: one process's {len(want_shapes)} keys and "
+              f"shapes; parameters after 2 steps vs one process max_abs_err={worst:.3e} "
+              f"tol={TRAIN_PARAM_ATOL} ok", flush=True)
+    if any(r["fp32_shapes"] != want_shapes for r in r2):
+        fail("[tp] (a): a rank's gathered state has other keys or shapes")
+    total = sum(p.numel() for p in one.params)
+    print(f"  (a) student parameters per model rank {[r['fp32_local'] for r in r2]} of "
+          f"{total} in one process", flush=True)
+    del one
+    torch.cuda.empty_cache()
+    for r, rank in enumerate(r4):
+        if rank["v_loss_restored"] != rank["v_loss"] or not math.isfinite(rank["v_loss"]):
+            fail(f"[tp] (c) rank {r}: v_loss {rank['v_loss']} after the restore "
+                 f"{rank['v_loss_restored']}")
+    if len({rank["v_loss"] for rank in r4}) != 1:
+        fail(f"[tp] (c): the ranks' v_loss differ: {[rank['v_loss'] for rank in r4]}")
+    print(f"  (c) dryrun tail: eval v_loss {r4[0]['v_loss']!r} on every rank; saved by rank 0, "
+          f"restored into a fresh tensor-parallel Distiller at step {r4[0]['step_restored']}: "
+          f"v_loss {r4[0]['v_loss_restored']!r}, equal bit for bit ok", flush=True)
+
+    # (b): bf16 with the release dropout
+    losses = []
+    for i in range(len(bf16_batches)):
+        steps = [rank["bf16"][i] for rank in r2]
+        for r, st in enumerate(steps):
+            if st["launches"] != per_step:
+                fail(f"[tp] (b) bf16 step {i} rank {r}: launches {st['launches']}, "
+                     f"want {per_step}")
+            if not st["replicated_same"] or st["logs"] != steps[0]["logs"]:
+                fail(f"[tp] (b) bf16 step {i} rank {r}: replicated parameters or logs differ "
+                     "from the row's rank 0")
+            if not all(math.isfinite(x) for x in st["logs"].values()):
+                fail(f"[tp] (b) bf16 step {i}: non-finite logs {st['logs']}")
+        if i:
+            losses.append(steps[0]["logs"]["loss"])
+        print(f"  (b) bf16 step {i} ({'ragged' if i == 0 else 'fixed batch'}): loss "
+              f"{steps[0]['logs']['loss']:.6f} grad_norm {steps[0]['logs']['grad_norm']:.6f} "
+              f"on both ranks; replicated parameters bit for bit; launches per rank the release "
+              f"step's ok; wall per rank (gloo through the host, two ranks on one card) "
+              f"{[round(st['ms'], 3) for st in steps]} ms", flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f"[tp] (b): the loss did not fall over {TP_BF16_STEPS} steps: {losses}")
+    k0, k1 = r2[0], r2[1]
+    if (k0["keep_sharded"] == k1["keep_sharded"]).all() or \
+            not (k0["keep_replicated"] == k1["keep_replicated"]).all():
+        fail("[tp] (b): the model ranks' keep masks agree on a sharded site or differ on a "
+             "replicated one")
+    agree = float((k0["keep_sharded"] == k1["keep_sharded"]).mean())
+    print(f"  (b) loss fell {losses[0]:.6f} -> {losses[-1]:.6f} over {TP_BF16_STEPS} steps; "
+          f"launches per rank {json.dumps(r2[0]['bf16'][-1]['launches'])}; keep masks of a "
+          f"sharded site agree on {agree:.3f} of 65536 positions between the model ranks "
+          f"(independent at p = {ATTN_P}: {1 - 2 * ATTN_P * (1 - ATTN_P):.3f}), a replicated "
+          f"site's everywhere ok; {smi}", flush=True)
+
+    # (d): the int8 teacher
+    for r, rank in enumerate(r2):
+        q8 = rank["int8"]
+        rtol, atol = TOL["bfloat16"]
+        for i, e in enumerate(q8["layers"]):
+            if e["max_abs"] > atol + rtol * e["scale"]:
+                fail(f"[tp] (d) rank {r} layer {i}: int8 teacher hidden max_abs_err "
+                     f"{e['max_abs']:.3e} against one process's (scale {e['scale']:.3e})")
+        equal = all(e["equal"] for e in q8["layers"])
+        print(f"  (d) rank {r}: {q8['payloads']} sharded int8 payloads and scales equal one "
+              f"process's slices bit for bit; the teacher's {len(q8['layers'])} layer hiddens "
+              f"(valid frames, {b} x 12 s bf16) against one process's int8 forward: "
+              f"{'bit for bit' if equal else 'max_abs_err ' + str(max(e['max_abs'] for e in q8['layers']))}"
+              f" ok", flush=True)
+    return r2[0]["bf16"][-1]["launches"]
+
+
 # [smoke-configs]: the head sizes of the attention checks beside the
 # compiled ones: the smoke configs' student (48 / 4) and teacher (64 / 4),
 # one compiled as it is (80) and the largest (128). Each pads to
@@ -2857,7 +3179,8 @@ CHAIN_K = 4
 CHAIN_ROUNDS = 2  # eager, then graphed, K steps a round: the wall medians
 # what a kernel row's launches count, where not one train step's
 LAUNCHES_OVER = {"serving": "over the 3 serving requests",
-                 "smoke": "over the whole smoke bf16 run, its steps and evals"}
+                 "smoke": "over the whole smoke bf16 run, its steps and evals",
+                 "tp": "per train step on each model rank"}
 CHAIN_LOSS_RTOL, CHAIN_PARAM_ATOL, CHAIN_PARAM_RTOL = 2e-5, 1e-5, 2e-4
 
 
@@ -3710,6 +4033,18 @@ def main() -> int:
     del c_state
     print(f"[chain] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- 8f. slice 13: tensor parallelism, the 'model' axis
+    lap("tensor parallelism")
+    t_phase = time.perf_counter()
+    print(f"[tp] the release config over a ('data', 'model') mesh of gloo ranks sharing the "
+          f"card, model axis {TP_MODEL}: student {cfg.encoder_embed_dim} / "
+          f"{cfg.encoder_attention_heads} heads / ffn {cfg.encoder_ffn_embed_dim}, HuBERT-Base "
+          f"teacher {geom.encoder_embed_dim} / {geom.encoder_attention_heads} / "
+          f"{geom.encoder_ffn_embed_dim}; {a} x {b} x 12 s bf16", flush=True)
+    path_launches["tp"] = tp_phase(exp, exp32, geom, t_state, s_state, rand_layers, gen,
+                                   per_step, work.name, smi, errs)
+    print(f"[tp] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- 9. timing
     lap("timing")
     print("[timing] B=32 x 16 s, bf16", flush=True)
@@ -3974,7 +4309,7 @@ def main() -> int:
               f"K4 {dkv_ms:.4f} ms", flush=True)
         return f_ms, f_lib, dq_ms, dkv_ms, lib_bwd, shape
 
-    suffix = {"train": "", "ex": "@ex", "conformer-abs": "@conformer-abs"}
+    suffix = {"train": "", "ex": "@ex", "conformer-abs": "@conformer-abs", "tp": "@tp"}
     # train: the student's attention, (12, 299, 12, 40), p = 0.1: K2, K3, K4
     t_att = cf.out_len(12 * SR, cfg.conv_feature_layers) // cfg.tr_reduce_factor
     f_ms, f_lib, dq_ms, dkv_ms, lib_bwd, shape = attention_train_rows(
@@ -3986,6 +4321,16 @@ def main() -> int:
     attention_train_rows(ex_attn, "ex", "ex student")
     # conformer-abs: the abs conformer's fairseq MHA, one microbatch (3, 299, 12, 40)
     attention_train_rows(conf_abs_attn, "conformer-abs", "abs conformer")
+    # tp: each model rank's heads of the release step, the student's (12, 299, 6, 40)
+    # at p = 0.1 and the teacher's (12, 599, 6, 64) at p = 0
+    attention_train_rows((a * b, t_att, h // TP_MODEL, d), "tp", "student, per model rank")
+    tp_teacher = teacher_attn[:2] + (teacher_attn[2] // TP_MODEL, teacher_attn[3])
+    q, k, v, mask = attention_qkv(*tp_teacher)
+    a_ms, a_plain, a_work, a_lib = attention_fwd_times(q, k, v, mask)
+    row(fa.KERNEL, "flash_attention.cu", "flash_attention.py:243", "tp",
+        f"teacher, per model rank {tuple(q.shape)}", errs["attn_tp"], a_ms, a_plain, a_work,
+        a_lib)
+    del q, k, v, mask
 
     # train-taps: K5 at the student's last-layer probabilities of one microbatch
     x = torch.rand((b, h, t_att, t_att), generator=gen).to(dev)

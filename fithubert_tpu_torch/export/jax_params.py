@@ -14,6 +14,8 @@ takes); nothing of JAX is imported. Conv kernels are (K, C_in, C_out) in JAX
 and (C_out, C_in, K) in torch; ConvTranspose kernels are (K, C_out, C_in) in
 JAX and (C_in, C_out, K) in torch; Dense kernels are the transposes of
 Linear weights; SplitLinear's (N, D_in, D_out) weight keeps its layout.
+``shard_state_dict`` cuts such a state dict to one model rank's shards
+(``parallel/mesh.py``), for a model that is already sharded.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from fithubert_tpu_torch.config import StudentConfig
 from fithubert_tpu_torch.models.teacher import TeacherGeometry
+from fithubert_tpu_torch.parallel.mesh import local_state, shard_dims
 
 
 def _t(a, perm=None) -> torch.Tensor:
@@ -180,3 +183,14 @@ def jax_teacher_params_to_state_dict(params: Mapping[str, Any],
     if "ctc_proj" in params:
         _dense(sd, "ctc_proj", params["ctc_proj"])
     return sd
+
+
+def shard_state_dict(state: Mapping[str, torch.Tensor], model: torch.nn.Module,
+                     tp) -> Dict[str, torch.Tensor]:
+    """This model rank's slices of a one-process state dict (one carried
+    from the JAX tree above) for ``model`` sharded over ``tp``
+    (``parallel/mesh.py shard_``), ready for its ``load_state_dict``: the
+    keys ``TP_RULES`` shard cut on their dim, the rest as they are. The
+    plan reads ``model``'s geometry (its Linears' features and heads),
+    which sharding leaves as it was."""
+    return dict(local_state(state, shard_dims(model, tp.size), tp))

@@ -13,7 +13,11 @@ Parameters are fp32 and named by the reference's state-dict keys; the
 forward computes in ``cfg.compute_dtype``. ``forward`` is the serving
 forward: deterministic and without autograd. ``forward_train`` is the
 training forward: autograd through the kernels, with every dropout drawn
-from a ``DropoutRNG`` (deterministic without one, as the eval step runs)."""
+from a ``DropoutRNG`` (deterministic without one, as the eval step runs).
+Under a model axis (``parallel/mesh.py shard_``) the encoder's attentions
+and FFNs are sharded, and ``proj_head.0``, column-parallel with no
+row-parallel partner, is gathered over the row before GELU, so the
+SplitLinear reads the whole ``inter * n_tasks`` width."""
 
 from __future__ import annotations
 
@@ -272,7 +276,11 @@ class StudentModel(nn.Module):
                 x = self.upsampler(x)
             if len(self.proj_head):
                 b, t, _ = x.shape
-                h = gelu_exact(linear(x, self.proj_head["0"]))
+                h = linear(x, self.proj_head["0"])
+                tp = getattr(self.proj_head["0"], "tp", None)
+                if tp is not None:  # column-parallel with no row partner: the whole width
+                    h = tp.gather(h, -1)
+                h = gelu_exact(h)
                 projections = self.proj_head["2"](h).reshape(
                     b, t, cfg.n_tasks, cfg.pred_head_final_dim).transpose(1, 2)  # (B, N, T, D)
         elif layer is None or layer + 1 >= n_slots:

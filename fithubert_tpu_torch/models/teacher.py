@@ -39,6 +39,7 @@ from fithubert_tpu_torch.ops.padding import (
 )
 from fithubert_tpu_torch.ops.quant import dense, prequantize_
 from fithubert_tpu_torch.ops.transformer import TransformerEncoder
+from fithubert_tpu_torch.parallel.mesh import shard_
 
 
 @dataclass(frozen=True)
@@ -156,13 +157,15 @@ class TeacherModel(nn.Module):
         return self
 
     @torch.no_grad()
-    def freeze(self) -> "TeacherModel":
+    def freeze(self, tp=None) -> "TeacherModel":
         """Stop gradients, and store the matmul weights (the extractor convs,
         post_extract_proj, q/k/v/out, fc1, fc2) in the compute dtype once;
         the norms, the weight-normed positional conv and ``ctc_proj`` stay
         fp32. With ``quantize_int8`` the int8 payloads are then taken once
         from the cast weights (``Distiller.prepare_teacher_params``'s order,
-        ``fithubert_tpu/train/step.py:138-162``)."""
+        ``fithubert_tpu/train/step.py:138-162``). With a model axis ``tp``
+        (``parallel/mesh.py``) this rank's shards are kept last, as
+        ``shard_teacher`` places the prepared weights (``:165-169``)."""
         self.requires_grad_(False)
         self.eval()
         for mod in self.modules():
@@ -171,6 +174,7 @@ class TeacherModel(nn.Module):
                     p.data = p.data.to(self.compute_dtype)
         if self.geometry.quantize_int8:
             prequantize_(self)
+        shard_(self, tp)
         return self
 
     def _frame_mask(self, padding_mask: torch.Tensor, t_frames: int) -> torch.Tensor:

@@ -17,6 +17,13 @@ mask. The products are plain matmuls, as they are XLA einsums outside any
 Pallas kernel there; they upcast bf16 operands to fp32, which gives the
 fp32 accumulation of ``preferred_element_type=f32`` as long as fp32
 matmuls stay out of TF32 (PyTorch's default).
+
+Under a model axis (``parallel/mesh.py``) a sharded attention computes its
+``num_heads / model`` local heads: ``linear`` runs q/k/v column-parallel
+and the output projection row-parallel, the kernels see (B, T, H_local,
+D), the dropout of its probabilities folds in the model rank
+(``DropoutRNG.seed_words(sharded=True)``), and its taps are gathered over
+the row into one process's (B*H, T, T) order (``gather_taps``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from fithubert_tpu_torch.ops.dropout import DropoutRNG
 from fithubert_tpu_torch.ops.kernels.dropout import seeded_dropout
 from fithubert_tpu_torch.ops.kernels.flash_attention import flash_attention
 from fithubert_tpu_torch.ops.quant import dense, quantized_linear
+from fithubert_tpu_torch.parallel.mesh import COLUMN, ROW
 
 
 class AttentionTaps(NamedTuple):
@@ -41,18 +49,38 @@ class AttentionTaps(NamedTuple):
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """``layer`` applied in x's dtype (fp32 parameters, compute-dtype matmul),
     through the int8 product where ``layer`` is marked ``quantize``
-    (``ops/quant.py``)."""
+    (``ops/quant.py``). A column-parallel layer (``tp_mode``, set by
+    ``parallel/mesh.py shard_``) reads ``copy_to_model(x)``; a row-parallel
+    one sums its partial products over the row, then adds its bias."""
+    tp, mode = getattr(layer, "tp", None), getattr(layer, "tp_mode", None)
+    if mode == COLUMN:
+        x = tp.copy(x)
     if getattr(layer, "quantize", False):
         return quantized_linear(x, layer)
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    if mode == ROW:
+        y = tp.reduce(F.linear(x, layer.weight.to(x.dtype)))
+        return y if bias is None else y + bias
     return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def gather_taps(taps: AttentionTaps, tp, b: int) -> AttentionTaps:
+    """Taps of (B*H_local, T, T), b-major, gathered over the model row on
+    the head axis into one process's (B*H, T, T); the backward slices."""
+    def gather(t):
+        return tp.gather(t.reshape(b, -1, *t.shape[1:]), 1).flatten(0, 1)
+
+    return AttentionTaps(gather(taps.attn_logits), gather(taps.v_rel))
 
 
 def attention_with_taps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_padding_mask: Optional[torch.Tensor], dropout_p: float,
-                        rng: Optional[DropoutRNG]) -> Tuple[torch.Tensor, AttentionTaps]:
+                        rng: Optional[DropoutRNG], sharded: bool = False
+                        ) -> Tuple[torch.Tensor, AttentionTaps]:
     """The materialised branch over pre-scaled q and k, v, all (B, T, H, D):
-    returns the attention output (B, T, H, D) in q's dtype and the taps."""
+    returns the attention output (B, T, H, D) in q's dtype and the taps.
+    ``sharded``: the heads are a model rank's (the dropout's words fold in
+    its rank)."""
     b, t, h, d = q.shape
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if key_padding_mask is not None:
@@ -62,7 +90,7 @@ def attention_with_taps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # finite (the losses scrub the -inf logits themselves)
     probs = torch.where(torch.isnan(probs), 0.0, probs)
     if rng is not None and dropout_p > 0.0:
-        probs = seeded_dropout(probs, rng.seed_words(), dropout_p)
+        probs = seeded_dropout(probs, rng.seed_words(sharded), dropout_p)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(), v.float()).to(q.dtype)
     v32 = v.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
     v_rel = torch.matmul(v32 * d ** -0.5, v32.transpose(1, 2))
@@ -80,6 +108,7 @@ class MultiHeadSelfAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
+        self.tp = None  # the model axis, when its projections are sharded
         for name in self.PROJ_NAMES:
             self.add_module(name, dense(embed_dim, embed_dim, quantize, device=device))
 
@@ -90,19 +119,23 @@ class MultiHeadSelfAttention(nn.Module):
         unless a ``rng`` is given."""
         q_proj, k_proj, v_proj, out_proj = (self._modules[n] for n in self.PROJ_NAMES)
         b, t, c = x.shape
-        h = self.num_heads
-        shape = (b, t, h, c // h)
-        q = (linear(x, q_proj) * (c // h) ** -0.5).view(shape)
+        d = c // self.num_heads
+        q = linear(x, q_proj) * d ** -0.5
+        shape = (b, t, q.shape[-1] // d, d)  # this rank's heads
+        q = q.view(shape)
         k = linear(x, k_proj).view(shape)
         v = linear(x, v_proj).view(shape)
         p = self.dropout if rng is not None else 0.0
+        sharded = self.tp is not None
         if need_taps:
-            out, taps = attention_with_taps(q, k, v, key_padding_mask, p, rng)
+            out, taps = attention_with_taps(q, k, v, key_padding_mask, p, rng, sharded)
+            if sharded:
+                taps = gather_taps(taps, self.tp, b)
         else:
             out = flash_attention(q, k, v, key_padding_mask, dropout_p=p,
-                                  seed=rng.seed_words() if p > 0.0 else None)
+                                  seed=rng.seed_words(sharded) if p > 0.0 else None)
             taps = None
-        return linear(out.reshape(b, t, c), out_proj), taps
+        return linear(out.reshape(b, t, -1), out_proj), taps
 
 
 class EspnetAttention(MultiHeadSelfAttention):

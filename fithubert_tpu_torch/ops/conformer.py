@@ -28,6 +28,14 @@ uniformly instead of turning NaN; with taps they get -inf and the NaN
 probabilities of such a row are zeroed, as the attention losses read true
 fairseq logits (``:90-97``).
 
+Under a model axis (``parallel/mesh.py``) ``w_1`` is column- and ``w_2``
+row-parallel, and an espnet attention whose heads divide the axis computes
+its local heads: ``linear_pos``, ``pos_bias_u`` and ``pos_bias_v`` stay
+replicated, as in JAX (``fithubert_tpu/ops/conformer.py:74-80``), and each
+rank takes its heads' slice of them after a ``copy_to_model``, so their
+gradients are summed over the row. The convolution module and its
+BatchNorm are replicated.
+
 ``RowMaskedBatchNorm`` keeps torch's buffer names (``running_mean``,
 ``running_var``) beside ``weight`` / ``bias``. A training forward (one
 given a ``DropoutRNG``) normalises with the batch's statistics, weighting
@@ -59,6 +67,7 @@ from fithubert_tpu_torch.ops.attention import (
     AttentionTaps,
     EspnetAttention,
     MultiHeadSelfAttention,
+    gather_taps,
     linear,
 )
 from fithubert_tpu_torch.ops.conv import SameConv1d
@@ -94,11 +103,13 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
 
 
 def _attend(logits: torch.Tensor, v: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
-            p: float, rng: Optional[DropoutRNG], neg_inf: bool, need_taps: bool
-            ) -> Tuple[torch.Tensor, Optional[AttentionTaps]]:
+            p: float, rng: Optional[DropoutRNG], neg_inf: bool, need_taps: bool,
+            tp=None) -> Tuple[torch.Tensor, Optional[AttentionTaps]]:
     """Softmax over fp32 ``logits`` (B, H, T, T), K5 dropout, then the
     probabilities in v's dtype times v (B, T, H, D) summed in fp32: the
-    output (B, T, H * D) in v's dtype, and the taps when asked."""
+    output (B, T, H * D) in v's dtype, and the taps when asked. ``tp``:
+    the heads are a model rank's (the dropout folds in its rank; the taps
+    are gathered over the row)."""
     b, t, h, d = v.shape
     if key_padding_mask is not None:
         logits = logits.masked_fill(key_padding_mask[:, None, None, :],
@@ -107,13 +118,15 @@ def _attend(logits: torch.Tensor, v: torch.Tensor, key_padding_mask: Optional[to
     if neg_inf:  # a row of padding only softmaxes -inf to NaN
         probs = torch.where(torch.isnan(probs), 0.0, probs)
     if rng is not None and p > 0.0:  # a training forward
-        probs = seeded_dropout(probs, rng.seed_words(), p)
+        probs = seeded_dropout(probs, rng.seed_words(tp is not None), p)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float()).to(v.dtype)
     taps = None
     if need_taps:
         v32 = v.float().permute(0, 2, 1, 3).reshape(b * h, t, d)
         taps = AttentionTaps(logits.reshape(b * h, t, t),
                              torch.matmul(v32 / math.sqrt(d), v32.transpose(1, 2)))
+        if tp is not None:
+            taps = gather_taps(taps, tp, b)
     return out.reshape(b, t, h * d), taps
 
 
@@ -122,6 +135,7 @@ class _EspnetProjections(nn.Module):
                  quantize: bool = False):
         super().__init__()
         self.num_heads, self.dropout = num_heads, dropout
+        self.tp = None  # the model axis, when its projections are sharded
         for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
             self.add_module(name, dense(embed_dim, embed_dim, quantize, device=device))
 
@@ -144,17 +158,23 @@ class RelPositionAttention(_EspnetProjections):
                 rng: Optional[DropoutRNG] = None, need_taps: bool = False,
                 neg_inf: Optional[bool] = None):
         b, t, c = x.shape
-        h = self.num_heads
-        dk = c // h
-        q = linear(x, self.linear_q).view(b, t, h, dk)
+        dk = c // self.num_heads
+        q = linear(x, self.linear_q)
+        h = q.shape[-1] // dk  # this rank's heads
+        q = q.view(b, t, h, dk)
         k = linear(x, self.linear_k).view(b, t, h, dk)
         v = linear(x, self.linear_v).view(b, t, h, dk)
-        p = linear(pos_emb, self.linear_pos).view(1, -1, h, dk)
-        ac = torch.einsum("bqhd,bkhd->bhqk", q.float() + self.pos_bias_u, k.float())
-        bd = torch.einsum("bqhd,zkhd->bhqk", q.float() + self.pos_bias_v, p.float())
+        p = linear(pos_emb, self.linear_pos)
+        u, vb = self.pos_bias_u, self.pos_bias_v
+        if self.tp is not None:  # the local heads' slices, gradients summed over the row
+            p, u, vb = (self.tp.local(self.tp.copy(w), d)
+                        for w, d in ((p, -1), (u, 0), (vb, 0)))
+        p = p.reshape(1, -1, h, dk)
+        ac = torch.einsum("bqhd,bkhd->bhqk", q.float() + u, k.float())
+        bd = torch.einsum("bqhd,zkhd->bhqk", q.float() + vb, p.float())
         logits = (ac + rel_shift(bd)) / math.sqrt(dk)
         out, taps = _attend(logits, v, key_padding_mask, self.dropout, rng,
-                            need_taps if neg_inf is None else neg_inf, need_taps)
+                            need_taps if neg_inf is None else neg_inf, need_taps, self.tp)
         return linear(out, self.linear_out), taps
 
 
@@ -181,15 +201,16 @@ class RotaryAttention(_EspnetProjections):
                 rng: Optional[DropoutRNG] = None, need_taps: bool = False,
                 neg_inf: Optional[bool] = None):
         b, t, c = x.shape
-        h = self.num_heads
-        dk = c // h
-        x_rot = apply_rotary(x.reshape(b, t, h, dk)).reshape(b, t, c)
-        q = linear(x_rot, self.linear_q).view(b, t, h, dk)
+        dk = c // self.num_heads
+        x_rot = apply_rotary(x.reshape(b, t, self.num_heads, dk)).reshape(b, t, c)
+        q = linear(x_rot, self.linear_q)
+        h = q.shape[-1] // dk  # this rank's heads
+        q = q.view(b, t, h, dk)
         k = linear(x_rot, self.linear_k).view(b, t, h, dk)
         v = linear(x, self.linear_v).view(b, t, h, dk)
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(dk)
         out, taps = _attend(logits, v, key_padding_mask, self.dropout, rng,
-                            need_taps if neg_inf is None else neg_inf, need_taps)
+                            need_taps if neg_inf is None else neg_inf, need_taps, self.tp)
         return linear(out, self.linear_out), taps
 
 
@@ -203,7 +224,8 @@ class FeedForwardModule(nn.Module):
         self.w_2 = dense(ffn_dim, embed_dim, quantize, device=device)
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
-        x = dropout(silu(linear(self.layer_norm(x), self.w_1)), self.dropout, rng)
+        sharded = getattr(self.w_1, "tp", None) is not None  # the hidden is a model rank's
+        x = dropout(silu(linear(self.layer_norm(x), self.w_1)), self.dropout, rng, sharded)
         return dropout(linear(x, self.w_2), self.dropout, rng)
 
 

@@ -24,6 +24,16 @@ graph's ``stage`` records each draw function and the static tensor it
 fills, and the host replays the functions on the next step's generators
 and writes their results there before each replay (``train/step.py``).
 
+Under a model axis (``parallel/mesh.py``) every rank of a mesh row draws
+the same table. A site on a replicated tensor (the encoder input, the
+dropout after a row-parallel layer, layerdrop, SpecAugment) takes its
+words as they are, so the row's ranks stay equal. A site on a sharded
+tensor (a sharded attention's probabilities, the hidden of a sharded FFN)
+asks for ``seed_words(sharded=True)``, which XORs a constant times the
+``model_rank`` into both words on the device, as JAX's shard_map folds the
+shard index into the kernel's seed (``flash_attention.py:465-470``): the
+ranks' heads draw apart, and model rank 0 keeps one process's words.
+
 The slots are laid out so that a layer's draws do not depend on what ran
 before it: the encoder's own draws (the front end, the encoder input,
 layerdrop) take slots ``[0, ENCODER_SLOTS)``, and encoder layer ``i`` takes
@@ -50,6 +60,8 @@ _SPECAUG_STREAM = 0x5DEECE66D
 TABLE_SLOTS = 1024  # seed-word pairs of one forward
 ENCODER_SLOTS = 64  # the slots drawn outside the encoder layers
 LAYER_SLOTS = 16  # the slots of one encoder layer: a conformer layer takes 7
+# folded into a sharded site's words per model rank (JAX's 2654435761 & 0x7FFFFFFF)
+_MODEL_FOLD = 2654435761 & 0x7FFFFFFF
 
 Draw = Callable[["DropoutRNG"], Tuple[torch.Tensor, ...]]
 Stage = Callable[["DropoutRNG", Draw], Tuple[torch.Tensor, ...]]
@@ -81,8 +93,10 @@ def to_device(rng: "DropoutRNG", draw: Draw) -> Tuple[torch.Tensor, ...]:
 
 class DropoutRNG:
     def __init__(self, seed: int, device: Union[str, torch.device],
-                 specaug_seed: Optional[int] = None, stage: Optional[Stage] = None):
+                 specaug_seed: Optional[int] = None, stage: Optional[Stage] = None,
+                 model_rank: int = 0):
         self.device = torch.device(device)
+        self.model_rank = model_rank
         streams = host_streams(seed, specaug_seed)
         self.host, self.specaug = streams.host, streams.specaug
         self._stage = stage or to_device
@@ -105,25 +119,29 @@ class DropoutRNG:
                              f"{(TABLE_SLOTS - ENCODER_SLOTS) // LAYER_SLOTS} layers")
         return child
 
-    def seed_words(self) -> torch.Tensor:
+    def seed_words(self, sharded: bool = False) -> torch.Tensor:
         """The next slot: (2,) int32 on the device, the two 32-bit words of
-        one kernel's keep mask."""
+        one kernel's keep mask; ``sharded``: with this model rank folded in."""
         if self._next >= self._end:
             raise RuntimeError("a block of the seed table is used up: a layer draws at most "
                                f"{LAYER_SLOTS} times, the encoder {ENCODER_SLOTS}")
         words = self.table[self._next]
         self._next += 1
+        if sharded and self.model_rank:
+            words = words ^ ((_MODEL_FOLD * self.model_rank) & 0x7FFFFFFF)
         return words
 
     def keep(self, p: float) -> torch.Tensor:
         """A 0-d bool on the device, True with probability 1 - p."""
         return keep_bits(self.seed_words()[0].long() & M32, p)
 
-    def dropout(self, x: torch.Tensor, p: float) -> torch.Tensor:
+    def dropout(self, x: torch.Tensor, p: float, sharded: bool = False) -> torch.Tensor:
         """Zero each element with probability p, scale the rest by 1/(1-p)."""
-        return seeded_dropout(x, self.seed_words(), p)
+        return seeded_dropout(x, self.seed_words(sharded), p)
 
 
-def dropout(x: torch.Tensor, p: float, rng: Optional[DropoutRNG]) -> torch.Tensor:
-    """``x`` unchanged when deterministic (no rng) or p = 0."""
-    return x if rng is None or p <= 0.0 else rng.dropout(x, p)
+def dropout(x: torch.Tensor, p: float, rng: Optional[DropoutRNG],
+            sharded: bool = False) -> torch.Tensor:
+    """``x`` unchanged when deterministic (no rng) or p = 0; ``sharded``: x
+    is a model rank's shard (``DropoutRNG.seed_words``)."""
+    return x if rng is None or p <= 0.0 else rng.dropout(x, p, sharded)

@@ -20,22 +20,34 @@ longer change (``TeacherModel.freeze``, ``UpstreamExpert``): the same
 payloads, without the per-call pass over the weights. The state dict keeps
 the float weights either way. Training through int8 matmuls is refused
 (``train/step.py``): round() has no gradient.
+
+Under a model axis (``parallel/mesh.py``) the payload is sliced after
+``prequantize_``, from the whole weight's quantization. A row-parallel
+layer holds part of each token's input: its per-token scale is the amax of
+the whole row (a MAX over the model row), and its int32 accumulators are
+summed over the row, which is exact, before the scales, so each rank
+computes one process's layer output.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+
+from fithubert_tpu_torch.parallel.mesh import ROW
 
 # amax is 0 for an all-zero row or channel (a row of padding only): the
 # floor keeps the scale finite and the quantized values 0
 SCALE_FLOOR = 1e-12
 
 
-def _quantize(x32: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(x32.abs().amax(dim=dim, keepdim=True) / 127.0, min=SCALE_FLOOR)
+def _quantize(x32: torch.Tensor, dim: int,
+              amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    if amax is None:
+        amax = x32.abs().amax(dim=dim, keepdim=True)
+    scale = torch.clamp(amax / 127.0, min=SCALE_FLOOR)
     return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
 
 
@@ -59,11 +71,18 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def int8_matmul_prequant(x: torch.Tensor, w_q: torch.Tensor,
-                         w_scale: torch.Tensor) -> torch.Tensor:
+                         w_scale: torch.Tensor, tp=None) -> torch.Tensor:
     """(..., K) @ the (N, K) int8 weight with its (N,) scale -> (..., N)
-    fp32; the activation is quantized per token here."""
-    x_q, x_scale = _quantize(x.float(), -1)
+    fp32; the activation is quantized per token here. ``tp``: the model
+    axis of a row-parallel layer, whose K is this rank's part of the row."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    if tp is not None:
+        amax = tp.max(amax)
+    x_q, x_scale = _quantize(x32, -1, amax)
     acc = int_mm(x_q.reshape(-1, x.shape[-1]), w_q.t())
+    if tp is not None:
+        acc = tp.sum(acc)
     return acc.float().reshape(*x.shape[:-1], -1) * x_scale * w_scale
 
 
@@ -78,7 +97,8 @@ def dense(in_features: int, out_features: int, quantize: bool = False, bias: boo
 def quantized_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """``layer`` on x through the int8 product, in x's dtype."""
     if getattr(layer, "weight_q", None) is not None:
-        y = int8_matmul_prequant(x, layer.weight_q, layer.weight_scale)
+        tp = getattr(layer, "tp", None) if getattr(layer, "tp_mode", None) == ROW else None
+        y = int8_matmul_prequant(x, layer.weight_q, layer.weight_scale, tp)
     else:
         y = int8_matmul_prequant(x, *quantize_weight(layer.weight))
     y = y.to(x.dtype)

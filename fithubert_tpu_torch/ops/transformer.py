@@ -86,7 +86,11 @@ class TransformerEncoderLayer(nn.Module):
         self.final_layer_norm = FP32LayerNorm(embed_dim, device=device)
 
     def _ffn(self, x, rng):
-        h = dropout(self.act(linear(x, self.fc1)), self.activation_dropout, rng)
+        """fc1 -> activation -> activation dropout -> fc2; under a model
+        axis fc1 is column- and fc2 row-parallel, and the dropout of the
+        sharded hidden folds in the model rank."""
+        sharded = getattr(self.fc1, "tp", None) is not None
+        h = dropout(self.act(linear(x, self.fc1)), self.activation_dropout, rng, sharded)
         return linear(h, self.fc2)
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,

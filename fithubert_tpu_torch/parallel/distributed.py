@@ -16,8 +16,10 @@ Without torchrun's environment ``maybe_initialize`` does nothing and
 returns ``(0, 1, device)``, as the JAX function does without a coordinator.
 The backend is ``nccl`` on the card and ``gloo`` on the CPU; a caller that
 wants another (two gloo ranks sharing one card) initialises the group
-itself. Tensor parallelism (the 'model' axis, ``mesh.py:47-58``) is not
-ported.
+itself. Under a ('data', 'model') mesh (``parallel/mesh.py``, the tensor
+parallelism of ``mesh.py:47-59``) a ``DataParallel`` runs over one column
+of the grid (its ``group``): ``rank`` and ``world`` are the data
+coordinates, and the sums count each stripe of the batch once.
 
 A conformer student's BatchNorm takes its statistics over the global
 microbatch, as the JAX mesh does: its sums go through
@@ -142,25 +144,27 @@ def launch(fn: Callable, n: int, *args: Any, timeout: Optional[float] = None) ->
 
 class _SumOverRanks(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.contiguous().clone()
-        dist.all_reduce(out)
-        return out
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
 @dataclass(frozen=True)
 class DataParallel:
-    """The collectives of a data-parallel step over the default process
-    group: ``rank`` of ``world`` ranks."""
+    """The collectives of a data-parallel step over ``group`` (None: the
+    default process group): ``rank`` of ``world`` ranks."""
 
     rank: int
     world: int
+    group: Any = None
 
     @classmethod
     def from_process_group(cls) -> Optional["DataParallel"]:
@@ -172,41 +176,43 @@ class DataParallel:
     @property
     def backend(self) -> str:
         """The process group's backend: ``nccl`` or ``gloo``."""
-        return str(dist.get_backend())
+        return str(dist.get_backend(self.group))
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the ranks (a copy; no gradient flows)."""
         out = x.detach().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.group)
         return out
 
     def sum_with_grad(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the ranks, inside autograd: every rank's output
         depends on every rank's ``x``, so the gradient into ``x`` is the
         output's gradient summed over the ranks."""
-        return _SumOverRanks.apply(x)
+        return _SumOverRanks.apply(x, self.group)
 
     def all_reduce_grads(self, grads: Sequence[torch.Tensor]) -> None:
         """Sum every gradient over the ranks in place, through one flat
         buffer and one all-reduce."""
         grads = list(grads)
         flat = torch._utils._flatten_dense_tensors(grads)
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.group)
         torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat, grads))
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Rank 0's values into ``tensors`` on every rank, in one broadcast."""
         tensors = list(tensors)
         flat = torch._utils._flatten_dense_tensors(tensors)
-        dist.broadcast(flat, src=0)
+        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
+        dist.broadcast(flat, src=src, group=self.group)
         torch._foreach_copy_(tensors, torch._utils._unflatten_dense_tensors(flat, tensors))
 
     def any(self, flag: bool, device: torch.device) -> bool:
         """True on every rank when ``flag`` is True on some rank (a MAX
         all-reduce; it waits for the device)."""
         t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return bool(t.item())
 
     def barrier(self) -> None:
+        """Every process of the run, this group's or not, waits here."""
         dist.barrier()

@@ -10,9 +10,11 @@ target, so a reader, or a run that is killed, finds a whole file or none.
 ``save_last`` (the preemption snapshot, which has no v_loss) never enters
 ``best/``. Under data parallelism (``dp``) every rank calls the saves at
 the same step, rank 0 alone writes, and the others wait for it at a
-barrier; every rank reads. ``export_student`` writes the pair that
-``UpstreamExpert`` serves:
-``<tag>.yaml`` and ``<tag>.pt``, the student's state dict.
+barrier; every rank reads. Under a mesh ``dp`` is ``Mesh.world``, and a
+tensor-parallel ``Distiller.state_dict`` is already gathered into one
+process's state, so rank 0's file is the whole of it. ``export_student``
+writes the pair that ``UpstreamExpert`` serves: ``<tag>.yaml`` and
+``<tag>.pt``, the student's state dict.
 """
 
 from __future__ import annotations

@@ -42,6 +42,23 @@ rows. A conformer student's BatchNorm then takes the global batch's
 statistics (``ops/conformer.py RowMaskedBatchNorm``), summed over the ranks
 inside autograd (``DataParallel.sum_with_grad``).
 
+With ``mesh`` (``parallel/mesh.py make_mesh``: a ('data', 'model') grid
+of the ranks) the data axis works as ``dp`` does over this rank's column
+(``Mesh.dp``: the batch is the column's stripe, every sum and the seeds'
+rank are the data axis's), and the model axis shards both models by
+``TP_RULES`` (JAX's ``shard_state`` / ``shard_teacher``,
+``fithubert_tpu/train/step.py:116-127, 165-169``): the teacher after its
+cast and int8 payloads (``TeacherModel.freeze``), the student after
+``load_state_dict`` and a broadcast of rank 0's weights to every rank. The
+ranks of a row compute the same loss and the same replicated parameters;
+``grad_norm`` is the logical parameters' (the sharded ones' squares summed
+over the row), as optax's ``global_norm``. ``state_dict`` gathers the
+student and AdamW's moments into one process's keys and shapes, and
+``load_state_dict`` cuts one process's state to this rank's shards, so
+checkpoints, resume and export keep one format. ``dp=`` alone is the mesh
+of model axis 1. Over gloo the chain is refused as for ``dp``; with a
+model axis above 1 it runs only over NCCL, which one card cannot show.
+
 ``train_step_chain(batches, rand_layers)`` takes K optimizer steps in one
 launch, the counterpart of the JAX package's ``make_train_step_chain``
 (``fithubert_tpu/train/step.py:242-262``, a ``lax.scan`` over K steps). On
@@ -89,6 +106,13 @@ from fithubert_tpu_torch.ops.dropout import DropoutRNG, host_streams, to_device
 from fithubert_tpu_torch.ops.specaug import BatchStripe
 from fithubert_tpu_torch.ops.conformer import RowMaskedBatchNorm
 from fithubert_tpu_torch.parallel.distributed import DataParallel
+from fithubert_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_state,
+    global_norm,
+    local_state,
+    shard_,
+)
 from fithubert_tpu_torch.train.losses import LossOutput, collapse_pseudo_labels, compute_losses
 from fithubert_tpu_torch.train.optim import (
     build_optimizer,
@@ -119,16 +143,24 @@ class Distiller:
                  device: Union[str, torch.device] = "cuda",
                  num_training_steps: int = 10000,
                  teacher_geometry: Optional[TeacherGeometry] = None,
-                 dp: Optional[DataParallel] = None):
+                 dp: Optional[DataParallel] = None, mesh: Optional[Mesh] = None):
         if cfg.distiller.quantize_matmuls:
             raise ValueError(
                 "distiller.quantize_matmuls is inference/serving-only: round() has zero "
                 "gradient almost everywhere, so training through int8 matmuls silently stops "
                 "learning. To quantize the FROZEN teacher (exact student gradients) set "
                 "teacher.quantize_int8 instead.")
+        if dp is not None:  # the mesh of model axis 1 over dp's ranks
+            if mesh is not None:
+                raise ValueError("give the Distiller a mesh or dp, not both")
+            mesh = Mesh(rank=dp.rank, data=dp.world, model=1, dp=dp, tp=None, world=dp)
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.dp = dp
+        self.mesh = mesh
+        self.dp = None if mesh is None else mesh.dp
+        self.tp = None if mesh is None else mesh.tp
+        # the step runs collectives: some axis of the mesh has a process group
+        self._grouped = mesh is not None and (mesh.dp is not None or mesh.world.world > 1)
         self.need_taps = cfg.loss.attn_loss_weight > 0 or cfg.loss.v_rel_loss_weight > 0
         geom = teacher_geometry or TeacherGeometry.from_teacher_config(cfg.teacher)
         if cfg.train.use_fp16:
@@ -137,20 +169,25 @@ class Distiller:
             geom = dataclasses.replace(geom, quantize_int8=True)
         self.teacher = TeacherModel(geom, device=self.device)
         self.teacher.load_state_dict(teacher_state)
-        self.teacher.freeze()
+        self.teacher.freeze(self.tp)
         self.student = StudentModel(cfg.distiller,
                                     disable_projections=cfg.train.delete_projections,
                                     device=self.device,
                                     specaug=cfg.specaug if cfg.train.specaug else None)
         self._has_batch_stats = cfg.distiller.layer_type == "conformer"
         self.student.load_state_dict(student_state)
-        self.params = list(self.student.parameters())
-        if dp is not None:
+        if self._grouped:
             with torch.no_grad():
-                dp.broadcast_(self.params + list(self.student.buffers()))
+                mesh.world.broadcast_(list(self.student.parameters())
+                                      + list(self.student.buffers()))
+        if self.dp is not None:
             for mod in self.student.modules():
                 if isinstance(mod, RowMaskedBatchNorm):
-                    mod.sum_over_ranks = dp.sum_with_grad
+                    mod.sum_over_ranks = self.dp.sum_with_grad
+        self._shards = shard_(self.student, self.tp)  # {state key: sharded dim}
+        names = [n for n, _ in self.student.named_parameters()]
+        self._param_dims = [self._shards.get(n) for n in names]
+        self.params = list(self.student.parameters())
         self.optimizer, self.schedule = build_optimizer(
             self.params, cfg.optimizer, num_training_steps, device=self.device)
         self.step = 0
@@ -166,7 +203,8 @@ class Distiller:
 
     def _rng(self, micro: int, step: Optional[int] = None, stage=None) -> DropoutRNG:
         return DropoutRNG(self._seed(micro, step=step), self.device,
-                          specaug_seed=self._seed(micro, rank_free=True, step=step), stage=stage)
+                          specaug_seed=self._seed(micro, rank_free=True, step=step), stage=stage,
+                          model_rank=0 if self.tp is None else self.tp.rank)
 
     def _stripe(self, a: int, b: int) -> Optional[BatchStripe]:
         """This rank's rows of the global batch of SpecAugment, for a batch
@@ -273,7 +311,7 @@ class Distiller:
             grads.append(p.grad)
         if self.dp is not None:
             self.dp.all_reduce_grads(grads)
-        grad_norm = torch.nn.utils.get_total_norm(grads)
+        grad_norm = global_norm(grads, [d is not None for d in self._param_dims], self.tp)
         self.optimizer.step()
         names = list(logs[0])
         means = torch.stack([torch.stack([lg[k].detach().float() for lg in logs]).mean()
@@ -290,7 +328,7 @@ class Distiller:
         warm-up), on the CPU K single steps. Returns each step's logs."""
         if self.device.type != "cuda" or len(batches) < 2:
             return [self.train_step_async(b, rand_layers) for b in batches]
-        check_graphable(self.device, None if self.dp is None else self.dp.backend)
+        check_graphable(self.device, self.mesh.backend if self._grouped else None)
         inputs = [self._inputs(b, rand_layers) for b in batches]
         key = tuple(tuple(None if t is None else (tuple(t.shape), t.dtype) for t in inp)
                     for inp in inputs)
@@ -365,15 +403,39 @@ class Distiller:
     def state_dict(self) -> Dict[str, Any]:
         """What a resume needs: the student's weights (and a conformer's
         BatchNorm running statistics), AdamW's moments and the step count,
-        which seeds dropout (``_seed``) and sets the lr."""
-        return {"student": self.student.state_dict(), "optimizer": self.optimizer.state_dict(),
+        which seeds dropout (``_seed``) and sets the lr; under a model axis
+        gathered into one process's keys and shapes (every rank of the row
+        calls it)."""
+        return {"student": gather_state(self.student.state_dict(), self._shards, self.tp),
+                "optimizer": self._optimizer_state(self.optimizer.state_dict(), gather=True),
                 "step": self.step}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        self.student.load_state_dict(state["student"])
-        load_optimizer_state(self.optimizer, state["optimizer"])
+        """One process's state (``state_dict``), cut to this rank's shards
+        under a model axis."""
+        self.student.load_state_dict(local_state(state["student"], self._shards, self.tp))
+        load_optimizer_state(self.optimizer,
+                             self._optimizer_state(state["optimizer"], gather=False))
         self.step = int(state["step"])
         self._chains.clear()  # they read the optimizer's former state tensors
+
+    def _optimizer_state(self, state: Mapping[str, Any], gather: bool) -> Mapping[str, Any]:
+        """AdamW's state with each sharded parameter's moments gathered over
+        the row (``gather``) or cut to this rank's slice; a new dict, the
+        optimizer's own tensors untouched."""
+        if self.tp is None:
+            return state
+        moments = {}
+        for i, per_param in state["state"].items():
+            dim, local = self._param_dims[int(i)], self.params[int(i)]
+            out = dict(per_param)
+            for key, v in per_param.items():
+                if dim is None or not isinstance(v, torch.Tensor) or v.dim() != local.dim():
+                    continue
+                out[key] = self.tp.all_gather(v, dim) if gather else \
+                    self.tp.local(v, dim).clone()
+            moments[i] = out
+        return {**state, "state": moments}
 
     @torch.no_grad()
     def eval_step(self, batch: Batch, rand_layers) -> Dict[str, float]:
