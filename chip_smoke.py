@@ -16,14 +16,16 @@ run with a non-zero exit and no final line:
      (K2) at the serving and the teacher's shapes and with dropout on the
      same keep mask, and at the wav2vec2-Large teacher's (12, 599, 16, 64),
      the attention
-     backward (K3 dQ, K4 dK/dV), the seeded dropout (K5), the conv-stack
+     backward (K3 + K4: the delta pre-pass, the fused wgmma pass and the dQ
+     sum, each against its plain version, the whole backward bit for bit
+     across two runs and a CUDA-graph replay), the seeded dropout (K5), the conv-stack
      backward (K6, and its dW bit for bit across two calls), and K6's up
      pass against K1's output bit for bit; then at the ex student's shapes
-     (configs/ex.yaml): K2 with dropout, K3 and K4 at (8, 600, 12, 64), and
+     (configs/ex.yaml): K2 with dropout and the backward at (8, 600, 12, 64), and
      K1, its prefix and K6 on its 512-wide stack at 8 x 12 s; then K5 at
      the rel_pos conformer's probabilities, (3, 12, 599, 599) and
      (32, 12, 799, 799) fp32, bit for bit forward and backward, and K2 with
-     dropout, K3 and K4 at the abs conformer's (3, 299, 12, 40);
+     dropout and the backward at the abs conformer's (3, 299, 12, 40);
   4. serving end to end: UpstreamExpert at FitHuBERT-960h width (seeded
      weights) serves three ragged requests in bf16, through K1 and K2
      (launch counters are zeroed just before and read just after); then the
@@ -32,7 +34,8 @@ run with a non-zero exit and no final line:
      Base teacher, FitHuBERT-960h student, seeded weights, bf16, dropout
      0.1), FITHUBERT_CONV_BWD unset, takes a ragged 3 x 4 step with a
      fabricated row, then 10 steps on one 3 x 4 x 12 s batch; every step
-     goes through K1, K2 (teacher p = 0, student p = 0.1), K3, K4 and the
+     goes through K1, K2 (teacher p = 0, student p = 0.1), the attention
+     backward (its pre-pass, fused pass and dQ sum) and the
      conv stack's backward K6 (32 launches), and the loss falls; then fp32
      steps without dropout on the card against the CPU's plain versions;
   6. train-library: the same step with FITHUBERT_CONV_BWD=xla, whose conv
@@ -108,13 +111,14 @@ run with a non-zero exit and no final line:
      kernel and path at that path's shapes, with the launches that path's
      run counted; on text lines K1's per-layer floor, each K1 layer's time
      beside its own floor, each K6 launch's time beside its own floor, and
-     the goals: K2's, K3's and K4's times as multiples of SDPA's, K1's (the
+     the goals: K2's and the whole attention backward's times as multiples
+     of SDPA's (each backward launch also has its row), K1's (the
      conv_stack call with its prefix) and K6's in ms; the ex train step
      and the ex serving forward (B = 32 x 16 s) with their profiles, and
-     the ex rows (path "ex") of K1, its prefix, K2 p = 0.1, K3, K4, K6;
+     the ex rows (path "ex") of K1, its prefix, K2 p = 0.1, the backward, K6;
      the rel_pos, abs and mel train steps and the rel_pos serving forward
      (B = 32 x 16 s) with their profiles, and the rows of K5 (path
-     "conformer") and K2 p = 0.1, K3, K4 (path "conformer-abs"); the large
+     "conformer") and K2 p = 0.1, the backward (path "conformer-abs"); the large
      train step with its profile and K2's row at (12, 599, 16, 64) (path
      "large");
   10. data parallelism: NCCL as one rank on the card, two release steps
@@ -157,8 +161,9 @@ SLEEP_CYCLES_PER_MS = 2e6
 # Tolerances. Elementwise, |kernel - plain| <= ATOL + RTOL * |plain|:
 #   fp32: only the summation order differs (kernel tiles vs cuDNN / einsum);
 #   bf16 attention: both sides sum in fp32 from the same bf16 inputs; the
-#   plain version rounds once, the kernels (K2, K4) also round P, and K4 dS,
-#   to bf16 before the second product, as the TPU kernels do. Those roundings
+#   plain version rounds once, the kernels (K2, the fused backward) also
+#   round P, and dS for dK, to bf16 before the second product, as the TPU
+#   kernels do. Those roundings
 #   (2^-9 relative each) average out over the key sum, so the two stay within
 #   about one bf16 step of the output (2^-8 relative): 1e-2 + 1e-2 holds
 #   with room (worst 7.8e-3 on gradients up to 1.8 on an H100).
@@ -184,11 +189,13 @@ E2E_ATOL = E2E_RTOL = 2e-3
 # bf16 card vs fp32 card, norm-wise per output: bf16 keeps 8 bits, so the
 # outputs differ by a few percent at most; a broken op differs by ~100%.
 BF16_VS_FP32_FRO = 0.1
-# The attention backward (K3, K4) against attention_bwd_plain: the same
+# The attention backward (K3 + K4) against attention_bwd_plain: the same
 # formulas from the same bf16 inputs (q, k, v, dO, lse, delta): TOL above.
-# K4 rounds dS to bf16 once, as the TPU kernel does; K3 feeds dS K with dS
-# in two bf16 parts (~16 bits), since one rounding times the unscaled K
-# moves dQ past TOL where a row has few valid keys. Against autograd of
+# The fused pass rounds dS to bf16 once for dK, as the TPU kernel does, and
+# feeds dS K with dS in two bf16 parts (~16 bits), since one rounding times
+# the unscaled K moves dQ past TOL where a row has few valid keys. Each
+# launch against its own plain version (the same roundings): TOL too; the
+# dQ sum adds the same fp32 partials in the same order: bit for bit. Against autograd of
 # attention_plain (p = 0), whose implicit delta uses the unrounded fp32
 # output where the kernels read O in bf16: that rounding (2^-9 of
 # |dO . O|) moves dS by a few bf16 steps, within TOL.
@@ -485,16 +492,46 @@ def attn_work(q, mask):
     return flops, bytes_
 
 
-def attn_bwd_work(q, mask, n_out):
-    """(flops, bytes) of one attention backward kernel over the valid keys:
-    K3 (n_out = 1) recomputes QK^T and dO V^T and forms dS K (6 D per query
-    and key); K4 (n_out = 2) also forms P^T dO and dS^T Q (8 D). Each reads
-    q, k, v, dO, lse, delta and the mask once and writes its outputs once."""
+def valid_keys(q, mask):
+    b, t = q.shape[:2]
+    return (~mask).sum().item() if mask is not None else b * t
+
+
+def attn_bwd_whole_work(q, mask):
+    """(flops, bytes) of the whole attention backward over the valid keys:
+    S, dP, dV, dK and dQ recomputed or formed (10 D per query and key); q,
+    k, v, O, dO, lse and the mask read once, dQ, dK and dV written once."""
     b, t, h, d = q.shape
-    valid = (~mask).sum().item() if mask is not None else b * t
-    flops = (4 + 2 * n_out) * h * d * t * valid
-    bytes_ = (4 + n_out) * q.numel() * q.element_size() + b * t + 2 * b * h * t * 4
+    flops = 10 * h * d * t * valid_keys(q, mask)
+    return flops, 8 * q.numel() * q.element_size() + b * t + b * h * t * 4
+
+
+def attn_prep_work(q):
+    """(flops, bytes) of the delta pre-pass: a multiply-add per element of
+    dO * O, both read once, delta (B, H, T) fp32 written once."""
+    b, t, h, _d = q.shape
+    return 2 * q.numel(), 2 * q.numel() * q.element_size() + b * h * t * 4
+
+
+def attn_fused_work(q, mask, key_tile):
+    """(flops, bytes) of the fused backward pass over the valid keys: S, dP,
+    dV, dK and dS K with dS in two parts (12 D per query and key); q, k, v,
+    dO, lse, delta and the mask read once, dK, dV and the fp32 dQ partials
+    of its key tiles written once. The partials and the lo part of dS are
+    the design's own work: attn_bwd_whole_work counts what the function
+    needs."""
+    b, t, h, d = q.shape
+    flops = 12 * h * d * t * valid_keys(q, mask)
+    n_kt = -(-t // key_tile)
+    bytes_ = 6 * q.numel() * q.element_size() + b * t + 2 * b * h * t * 4 + n_kt * q.numel() * 4
     return flops, bytes_
+
+
+def attn_dq_sum_work(q, key_tile):
+    """(flops, bytes) of the dQ sum: the partials of every key tile read
+    once and added in fp32, dQ written once."""
+    n_kt = -(-q.shape[1] // key_tile)
+    return (n_kt - 1) * q.numel(), n_kt * q.numel() * 4 + q.numel() * q.element_size()
 
 
 def bound(flops, bytes_, peak):
@@ -566,13 +603,76 @@ def seed_words(gen, dev):
     return seed_tensor(int(w[0]), int(w[1]), dev)
 
 
+def check_bwd_launches(fa, q, k, v, m, out, lse, dout, p, seed, tag):
+    """Each launch of the bf16 backward against its plain version at the
+    compiled head size the wrapper pads to: the
+    pre-pass (fp32 sums in another order), the fused pass (dQ partials, dK,
+    dV against attention_bwd_tiles_plain, the kernel's own roundings), the
+    dQ sum bit for bit. Returns their max abs errors."""
+    import torch
+    import torch.nn.functional as F
+
+    delta = fa.bwd_prep_cuda(out.contiguous(), dout.contiguous())
+    errs = {fa.KERNEL_BWD_PREP: compare(f"{fa.KERNEL_BWD_PREP} {tag}", delta,
+                                        fa.bwd_prep_plain(out, dout), "float32")}
+    d = q.shape[-1]
+    dp = fa.padded_head_dim(d)
+    qp, kp, vp = (fa.pad_heads(x, dp) for x in (q, k, v))
+    dop = F.pad(dout, (0, dp - d)).contiguous()
+    got = fa.bwd_fused_cuda(qp, kp, vp, m, lse, dop, delta, p, seed)
+    want = fa.attention_bwd_tiles_plain(qp, kp, vp, m, lse, dop, delta, p, seed)
+    torch.cuda.synchronize()
+    errs[fa.KERNEL_BWD] = max(
+        compare(f"{fa.KERNEL_BWD} {what} {tag} vs attention_bwd_tiles_plain", g, w,
+                "bfloat16")
+        for what, g, w in zip(("dq partials", "dk", "dv"), got, want))
+    if not torch.equal(fa.dq_sum_cuda(got[0]), fa.dq_sum_plain(got[0], torch.bfloat16)):
+        fail(f"{fa.KERNEL_DQ_SUM} {tag}: not bit-identical to dq_sum_plain")
+    print(f"  {fa.KERNEL_DQ_SUM} {tag}: bit-identical to dq_sum_plain ok", flush=True)
+    errs[fa.KERNEL_DQ_SUM] = 0.0
+    return errs
+
+
+def check_bwd_replays(fa, q, k, v, m, out, lse, dout, p, seed, tag):
+    """The bf16 backward twice, and captured in a CUDA graph and replayed
+    twice: all bit-identical to the first eager run."""
+    import torch
+
+    def bwd():
+        return fa._flash_bwd_cuda(q, k, v, m, out, lse, dout, p, seed)
+
+    eager = bwd()
+    runs = [bwd()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = bwd()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append(tuple(x.clone() for x in static))
+    if not all(torch.equal(a, b) for run in runs for a, b in zip(run, eager)):
+        fail(f"attention backward {tag}: a second run or a graph replay differs")
+    print(f"  attention backward {tag}: a second eager run and two CUDA-graph replays "
+          f"bit-identical ok", flush=True)
+    del graph, static
+
+
 def check_attention_training_kernels(fa, gen, dev, errs,
                                      cases=((12, 299, 12, 40, False), (4, 130, 2, 40, True)),
                                      path=""):
-    """K2 with dropout, K3 and K4 against their plain versions on the same
-    keep mask, and K3/K4 at p = 0 against autograd of attention_plain, at
-    each (B, T, H, D, a fully padded row) of ``cases``. The bf16 errors of
-    the cases without a padded row go to errs[kernel + path]."""
+    """K2 with dropout and the attention backward against their plain
+    versions on the same keep mask, and the backward at p = 0 against
+    autograd of attention_plain, at each (B, T, H, D, a fully padded row) of
+    ``cases``; in bf16 also each backward launch against its plain version
+    (check_bwd_launches) and, with dropout, the backward's determinism and
+    its CUDA-graph replay. The bf16 errors of the cases without a padded row
+    go to errs[kernel + path], the whole backward's to errs["attn_bwd" +
+    path]."""
     import torch
 
     for (b, t, h, d, pad_row) in cases:
@@ -609,12 +709,19 @@ def check_attention_training_kernels(fa, gen, dev, errs,
                 torch.cuda.synchronize()
                 for ref_name, ref in refs:
                     for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
-                        e = compare(f"K{3 if gname == 'dq' else 4} {gname} p={p} {tag} vs "
-                                    f"{ref_name}", g, r, dtype_name, rows)
+                        e = compare(f"attention backward {gname} p={p} {tag} vs {ref_name}",
+                                    g, r, dtype_name, rows)
                         if dtype_name == "bfloat16" and not pad_row and p and \
                                 ref_name == "attention_bwd_plain":
-                            key = (fa.KERNEL_DQ if gname == "dq" else fa.KERNEL_DKV) + path
-                            errs[key] = max(errs.get(key, 0.0), e)
+                            errs["attn_bwd" + path] = max(errs.get("attn_bwd" + path, 0.0), e)
+                if dtype_name == "bfloat16":
+                    launch_errs = check_bwd_launches(fa, q, k, v, m, o, l_, dout, p, s,
+                                                     f"p={p} {tag}")
+                    for name, e in launch_errs.items():
+                        if not pad_row and p:
+                            errs[name + path] = max(errs.get(name + path, 0.0), e)
+                    if p:
+                        check_bwd_replays(fa, q, k, v, m, o, l_, dout, p, s, tag)
                 if not rows.all():
                     if any(g[~rows].abs().max().item() != 0.0 for g in got):
                         fail("a fully padded row must get exactly zero gradients")
@@ -1615,6 +1722,14 @@ CTC_BLANK_SHARE = 0.75
 EX_GRAD_FRO, EX_FLIP_FRACTION = 1e-3, 1e-5
 
 
+def attn_bwd(n):
+    """The launches of n bf16 attention backwards: the pre-pass, the fused
+    pass and the dQ sum, n each."""
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+
+    return {name: n for name in fa.BWD_KERNELS}
+
+
 def ex_per_step(exp_ex, geom):
     """The launches of one ex train step: K1 and the prefix on the student's
     and the teacher's extractors, the teacher's attention at p = 0, the
@@ -1627,7 +1742,7 @@ def ex_per_step(exp_ex, geom):
     l_s = exp_ex.distiller.encoder_layers
     return plus_k5({cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1,
                     cf.KERNEL_PREFIX: 2, fa.KERNEL: geom.encoder_layers,
-                    fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s,
+                    fa.KERNEL_DROPOUT: l_s, **attn_bwd(l_s),
                     cf.KERNEL_BWD: 4 * n_stack}, exp_ex.distiller, 1)
 
 
@@ -1635,7 +1750,7 @@ def release_per_step(exp, geom):
     """The launches of one release train step (its microbatches folded
     into one forward): K1 on both extractors, one prefix each (block 0's
     GroupNorm), the teacher's K2 at p = 0, the student's K2 with dropout,
-    K3 and K4, K6's up, dW, ordered sum and da per layer, and K5 at every
+    the backward's three launches, K6's up, dW, ordered sum and da per layer, and K5 at every
     elementwise dropout forward and backward."""
     from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
     from fithubert_tpu_torch.ops.kernels import flash_attention as fa
@@ -1643,7 +1758,7 @@ def release_per_step(exp, geom):
     cfg, n_stack = exp.distiller, len(exp.distiller.conv_feature_layers) - 1
     return plus_k5({cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 2,
                     fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: cfg.encoder_layers,
-                    fa.KERNEL_DQ: cfg.encoder_layers, fa.KERNEL_DKV: cfg.encoder_layers,
+                    **attn_bwd(cfg.encoder_layers),
                     cf.KERNEL_BWD: 4 * n_stack}, cfg, 1)
 
 
@@ -1768,8 +1883,8 @@ def ex_phase(exp_ex, geom, t_state, gen, smi, tmp, pt, libri):
     print(f"  steps 1-{EX_STEPS} on one {b} x {a} x 12 s batch: loss "
           f"{[round(x, 6) for x in losses]} fell; every step launched prefix "
           f"{per_step[cf.KERNEL_PREFIX]}, K1 {per_step[cf.KERNEL]}, K2 teacher "
-          f"{per_step[fa.KERNEL]} / student {per_step[fa.KERNEL_DROPOUT]}, K3 "
-          f"{per_step[fa.KERNEL_DQ]}, K4 {per_step[fa.KERNEL_DKV]}, K6 {per_step[cf.KERNEL_BWD]} "
+          f"{per_step[fa.KERNEL]} / student {per_step[fa.KERNEL_DROPOUT]}, the backward's "
+          f"prep / fused / dQ sum {per_step[fa.KERNEL_BWD]} each, K6 {per_step[cf.KERNEL_BWD]} "
           f"ok", flush=True)
 
     print("[ex] fp32 steps without dropout, card vs CPU (plain versions), full width, "
@@ -2053,7 +2168,7 @@ def conformer_per_step(exp_c, geom):
     microbatch, the prefix and K1 on both extractors, the teacher's K2 at
     p = 0, K6 over the student's stack, and the student's attention: K5
     forward and backward in every layer (rel_pos, rope: the probabilities
-    are materialised), or K2 with dropout, K3 and K4 (abs: fairseq's MHA)."""
+    are materialised), or K2 with dropout and the backward (abs: fairseq's MHA)."""
     from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
     from fithubert_tpu_torch.ops.kernels import dropout as kd
     from fithubert_tpu_torch.ops.kernels import flash_attention as fa
@@ -2066,7 +2181,7 @@ def conformer_per_step(exp_c, geom):
     if cfg.dedicated_conformer:
         per[kd.KERNEL] = 2 * a * l_s
     else:
-        per.update({fa.KERNEL_DROPOUT: a * l_s, fa.KERNEL_DQ: a * l_s, fa.KERNEL_DKV: a * l_s})
+        per.update({fa.KERNEL_DROPOUT: a * l_s, **attn_bwd(a * l_s)})
     return plus_k5(per, cfg, a)
 
 
@@ -2373,7 +2488,7 @@ def mel_phase(geom, t_state, gen, smi, tmp):
     # K2 at p = 0, the student's attention with dropout and its backward
     per_step = plus_k5({cf.KERNEL_PREFIX: 1, cf.KERNEL: len(geom.conv_feature_layers) - 1,
                         fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s,
-                        fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s}, cfg, 1)
+                        **attn_bwd(l_s)}, cfg, 1)
     s_state = StudentModel(cfg, device="cpu").init_weights(gen).state_dict()
     d = Distiller(exp_m, t_state, s_state, device="cuda", num_training_steps=20)
     rand = torch.randperm(l_s - 1, generator=gen)
@@ -2534,7 +2649,7 @@ def large_phase(exp, gen, smi, tmp):
     cfg, a, b = exp_l.distiller, exp_l.train.accumulate_grad_batches, exp_l.train.batch_size
     n_stack, l_s = len(cfg.conv_feature_layers) - 1, cfg.encoder_layers
     per_step = plus_k5({cf.KERNEL: n_stack, cf.KERNEL_PREFIX: 1, fa.KERNEL: geom.encoder_layers,
-                        fa.KERNEL_DROPOUT: l_s, fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s,
+                        fa.KERNEL_DROPOUT: l_s, **attn_bwd(l_s),
                         cf.KERNEL_BWD: 4 * n_stack}, cfg, 1)
     rand = torch.randperm(cfg.encoder_layers - 1, generator=gen)
     d = Distiller(exp_l, t_state, s_state, device="cuda", num_training_steps=20,
@@ -2687,7 +2802,7 @@ def options_phase(exp, geom, t_state, rand_layers, gen, smi):
     l_s = cfg.encoder_layers
     per_step = plus_k5({cf.KERNEL: len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 1,
                         fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s,
-                        fa.KERNEL_DQ: l_s, fa.KERNEL_DKV: l_s}, cfg, 1)
+                        **attn_bwd(l_s)}, cfg, 1)
     d = Distiller(exp_o, t_state, s_state, device="cuda", num_training_steps=20)
     for what, batch in (("ragged", train_batch(gen, a, b, 12.0, ragged=True)),
                         ("fixed", train_batch(gen, a, b, 12.0, ragged=False))):
@@ -3004,7 +3119,7 @@ def tp_phase(exp, exp32, geom, t_state, s_state, rand_layers, gen, per_step, tmp
     against one process (logs, gathered parameters, replicated parameters
     bit for bit across the row, one process's keys and shapes); (b) the
     same mesh in bf16 with dropout (each rank's launches the release
-    step's, K2-K4 at 6 heads; a falling loss; replicated parameters bit
+    step's, K2 and the backward at 6 heads; a falling loss; replicated parameters bit
     for bit; keep masks apart on the sharded sites); (c) (data 2 x model 2)
     fp32 against one process, then an eval, a save, a restore and an equal
     v_loss; (d) the int8 teacher sharded: its payloads one process's
@@ -3025,7 +3140,7 @@ def tp_phase(exp, exp32, geom, t_state, s_state, rand_layers, gen, per_step, tmp
     student_rank = (a * b, t_att, h // TP_MODEL, d_head)
     teacher_rank = (a * b, t_teacher, geom.encoder_attention_heads // TP_MODEL,
                     geom.encoder_embed_dim // geom.encoder_attention_heads)
-    print(f"  K2 with dropout p={ATTN_P}, K3 and K4 at the student's per-rank "
+    print(f"  K2 with dropout p={ATTN_P} and the backward at the student's per-rank "
           f"{student_rank}, and K2 at the teacher's per-rank {teacher_rank}, vs the plain "
           f"versions", flush=True)
     check_attention_training_kernels(fa, gen, torch.device("cuda"), errs,
@@ -3187,7 +3302,7 @@ CHAIN_LOSS_RTOL, CHAIN_PARAM_ATOL, CHAIN_PARAM_RTOL = 2e-5, 1e-5, 2e-4
 def smoke_configs_phase(gen, smi, tmp, errs):
     """[smoke-configs] configs/smoke.yaml through train_torch.py in fp32
     and bf16 (``use_fp16``), and configs/smoke_ctc.yaml, each in this
-    process with a falling loss and the kernels it launched; then K2-K4 at
+    process with a falling loss and the kernels it launched; then K2 and the backward at
     SMOKE_HEAD_DIMS against their plain versions in both dtypes, and K1 and
     K6 at the smoke student's widths (32, 48: padded to 64) in bf16.
     Returns {run label: its launches}."""
@@ -3219,9 +3334,11 @@ def smoke_configs_phase(gen, smi, tmp, errs):
         first, last = statistics.mean(losses[:2]), statistics.mean(losses[-2:])
         if not last < first:
             fail(f"[smoke-configs] {label}: the loss did not fall: {losses}")
-        want = [cf.KERNEL, fa.KERNEL, fa.KERNEL_DQ, fa.KERNEL_DKV, cf.KERNEL_BWD]
+        want = [cf.KERNEL, fa.KERNEL, fa.KERNEL_BWD_PREP, cf.KERNEL_BWD]
         if "bf16" in label:
-            want.append(cf.KERNEL_PREFIX)
+            want += [cf.KERNEL_PREFIX, fa.KERNEL_BWD, fa.KERNEL_DQ_SUM]
+        else:
+            want += [fa.KERNEL_DQ_F32, fa.KERNEL_DKV_F32]
         if any(launches.get(n, 0) < 1 for n in want):
             fail(f"[smoke-configs] {label}: launches {launches}, want every one of {want}")
         runs[label] = launches
@@ -3230,7 +3347,7 @@ def smoke_configs_phase(gen, smi, tmp, errs):
               f"(means of the first and last two logged {first:.6f} -> {last:.6f}), "
               f"{len(val)} evals, launches {json.dumps(launches)} ok", flush=True)
 
-    print(f"[smoke-configs] K2 (p = 0 and p = {ATTN_P}), K3 and K4 at head sizes "
+    print(f"[smoke-configs] K2 (p = 0 and p = {ATTN_P}) and the backward at head sizes "
           f"{SMOKE_HEAD_DIMS} (compiled {fa.HEAD_DIMS}), ragged, vs the plain versions",
           flush=True)
     dev = torch.device("cuda")
@@ -3587,6 +3704,9 @@ def main() -> int:
         for kernel, regs, stores, loads in _build.ptxas_usage(name):
             print(f"[build] {name}.cu {kernel}: {regs} registers, spill stores {stores} B, "
                   f"spill loads {loads} B (nvcc -Xptxas -v)", flush=True)
+            if kernel.startswith("flash_bwd_fused") and regs != fa.BWD_FUSED_REGS:
+                fail(f"{kernel}: built with {regs} registers, not the {fa.BWD_FUSED_REGS} "
+                     f"its setmaxnreg plan hands out")
 
     cfg = fithubert_960h()
     exp = fithubert_960h_experiment()
@@ -3644,7 +3764,7 @@ def main() -> int:
             elif dtype_name == "bfloat16" and b != 2:
                 errs["attn"] = max(errs.get("attn", 0.0), e)
 
-    print(f"[kernels] K2 with dropout p={ATTN_P}, K3 and K4 vs the plain versions on the "
+    print(f"[kernels] K2 with dropout p={ATTN_P} and the backward vs the plain versions on the "
           f"same keep mask, ragged masks", flush=True)
     check_attention_training_kernels(fa, gen, dev, errs)
 
@@ -3677,7 +3797,7 @@ def main() -> int:
         * exp_ex.distiller.required_seq_len_multiple  # 599 frames pad to 600
     ex_h = exp_ex.distiller.encoder_attention_heads
     ex_attn = (a_ex * b_ex, ex_t, ex_h, exp_ex.distiller.encoder_embed_dim // ex_h)
-    print(f"[kernels] ex: K2 with dropout p={ATTN_P}, K3 and K4 at the ex student's "
+    print(f"[kernels] ex: K2 with dropout p={ATTN_P} and the backward at the ex student's "
           f"{ex_attn}, ragged, vs the plain versions", flush=True)
     check_attention_training_kernels(fa, gen, dev, errs, cases=(ex_attn + (False,),), path="@ex")
     print(f"[kernels] ex: K1 (conv_stack_cuda) and its prefix on the ex student's 512-wide "
@@ -3692,7 +3812,7 @@ def main() -> int:
 
     # the conformers (conformer_experiment): rel_pos and rope drop their
     # materialised probabilities through K5 in every layer, at 599 frames a
-    # 12 s row (no TR) and 799 a 16 s serving row; abs runs K2-K4 at the TR'd 299
+    # 12 s row (no TR) and 799 a 16 s serving row; abs runs K2 and the backward at the TR'd 299
     t_conf = cf.out_len(12 * SR, cfg.conv_feature_layers)
     k5_train = (exp.train.batch_size, cfg.encoder_attention_heads, t_conf, t_conf)
     t_serve = cf.out_len(16 * SR, cfg.conv_feature_layers)
@@ -3704,7 +3824,7 @@ def main() -> int:
     errs[kd.KERNEL + "@conformer"] = 0.0
     conf_abs_attn = (exp.train.batch_size, t_student, cfg.encoder_attention_heads,
                      cfg.encoder_embed_dim // cfg.encoder_attention_heads)
-    print(f"[kernels] conformer-abs: K2 with dropout p={ATTN_P}, K3 and K4 at the abs "
+    print(f"[kernels] conformer-abs: K2 with dropout p={ATTN_P} and the backward at the abs "
           f"conformer's {conf_abs_attn}, ragged, vs the plain versions", flush=True)
     check_attention_training_kernels(fa, gen, dev, errs, cases=(conf_abs_attn + (False,),),
                                      path="@conformer-abs")
@@ -3896,7 +4016,7 @@ def main() -> int:
     per_step_taps = plus_k5({cf.KERNEL: a * per_step[cf.KERNEL],
                              cf.KERNEL_PREFIX: a * per_step[cf.KERNEL_PREFIX],
                              fa.KERNEL: a * (l_t - 1), fa.KERNEL_DROPOUT: a * (l_s - 1),
-                             fa.KERNEL_DQ: a * (l_s - 1), fa.KERNEL_DKV: a * (l_s - 1),
+                             **attn_bwd(a * (l_s - 1)),
                              kd.KERNEL: 2 * a, cf.KERNEL_BWD: a * per_step[cf.KERNEL_BWD]},
                             exp.distiller, a)
     distiller_taps = Distiller(exp_taps, t_state, s_state, device="cuda", num_training_steps=20)
@@ -4194,9 +4314,9 @@ def main() -> int:
     k1_goals = []  # (what, conv_times-like dict, goal ms, acceptance ms)
 
     def row(name, src, replaces, path, shape, err, ms, plain_ms, work, library_ms,
-            peak=BF16_PEAK):
+            peak=BF16_PEAK, launches=None):
         b_ms, b_by = bound(*work, peak)
-        launches = launches_of[path].get(name, 0)
+        launches = launches_of[path].get(name, 0) if launches is None else launches
         kernels.append(dict(
             name=name, route="cuda", source=f"fithubert_tpu_torch/csrc/{src}",
             replaces=f"fithubert_tpu/ops/pallas/{replaces}", launches=launches,
@@ -4274,9 +4394,68 @@ def main() -> int:
     goals.append((f"K2 p=0 large teacher {tuple(q.shape)}", a_ms, a_lib, 1.5, None))
     del q, k, v, mask
 
+    def sdpa_bwd_ms(q, k, v, dout, mask, p, reps=50):
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = sdpa(qs, ks, vs, mask, p)
+        return cuda_ms(lambda: torch.autograd.grad(o_lib, (qs, ks, vs), dout.transpose(1, 2),
+                                                   retain_graph=True), reps=reps)
+
+    def bwd_rows(q, k, v, dout, mask, p, seed, path, shape, lib_bwd, reps=50):
+        """Rows of the backward's launches at the compiled head size the
+        wrapper pads to (the pre-pass at q's own D), and of the whole
+        backward beside SDPA's backward ``lib_bwd``. Returns the whole
+        backward's ms."""
+        sfx = "" if path == "train" else f"@{path}"
+        if path == "smoke":
+            sfx = f"@D={q.shape[-1]}"
+        d_ = q.shape[-1]
+        dp = fa.padded_head_dim(d_)
+        qp, kp, vp = (fa.pad_heads(x, dp) for x in (q, k, v))
+        dop = F.pad(dout, (0, dp - d_)).contiguous()
+        with torch.no_grad():
+            out, lse = fa.flash_attention(q, k, v, mask, dropout_p=p, seed=seed,
+                                          return_lse=True)
+            delta = fa.bwd_prep_cuda(out, dout)
+            parts = fa.bwd_fused_cuda(qp, kp, vp, mask, lse, dop, delta, p, seed)[0]
+            prep = (cuda_ms(lambda: fa.bwd_prep_cuda(out, dout), reps=reps),
+                    cuda_ms(lambda: fa.bwd_prep_plain(out, dout), reps=10), attn_prep_work(q),
+                    None)
+            fused = cuda_ms(lambda: fa.bwd_fused_cuda(qp, kp, vp, mask, lse, dop, delta, p,
+                                                      seed), reps=reps)
+            fused_plain = cuda_ms(lambda: fa.attention_bwd_tiles_plain(
+                qp, kp, vp, mask, lse, dop, delta, p, seed), reps=3)
+            # the library's call for the same sum: one reduction over the
+            # key tiles, then the cast
+            dq_sum = (cuda_ms(lambda: fa.dq_sum_cuda(parts), reps=reps),
+                      cuda_ms(lambda: fa.dq_sum_plain(parts, torch.bfloat16), reps=10),
+                      attn_dq_sum_work(qp, fa.BWD_KEY_TILE),
+                      cuda_ms(lambda: parts.sum(0).to(torch.bfloat16), reps=reps))
+            whole = cuda_ms(lambda: fa._flash_bwd_cuda(q, k, v, mask, out, lse, dout, p, seed),
+                            reps=reps)
+            whole_plain = cuda_ms(lambda: fa.attention_bwd_plain(q, k, v, mask, out, lse, dout,
+                                                                 p, seed), reps=5)
+        src, of = "flash_attention_bwd.cu", "flash_attention.py"
+        row(fa.KERNEL_BWD_PREP, src, f"{of}:302 (delta, which the TPU sums outside its "
+            f"kernels)", path, shape, errs[fa.KERNEL_BWD_PREP + sfx], *prep)
+        row(fa.KERNEL_BWD, src, f"{of}:304 (K3) and :323 (K4)", path, shape,
+            errs[fa.KERNEL_BWD + sfx], fused, fused_plain,
+            attn_fused_work(qp, mask, fa.BWD_KEY_TILE), lib_bwd)
+        row(fa.KERNEL_DQ_SUM, src, f"{of}:304 (K3's dQ, summed over the key tiles)", path,
+            shape, errs[fa.KERNEL_DQ_SUM + sfx], *dq_sum)
+        row("attention backward (prep + fused + dQ sum)", src, f"{of}:295-357 (_flash_core_bwd)",
+            path, shape, errs["attn_bwd" + sfx], whole, whole_plain,
+            attn_bwd_whole_work(q, mask), lib_bwd,
+            launches=launches_of[path].get(fa.KERNEL_BWD, 0))
+        print(f"  attention backward at {shape}: prep {prep[0]:.4f} + fused {fused:.4f} + dQ "
+              f"sum {dq_sum[0]:.4f} ms; whole {whole:.4f} ms (bound "
+              f"{bound(*attn_bwd_whole_work(q, mask), BF16_PEAK)[0]:.4f}) against SDPA's "
+              f"backward {lib_bwd:.4f} ms: {whole / lib_bwd:.2f}x", flush=True)
+        return whole
+
     def attention_train_rows(shape4, path, who):
-        """K2 at p = 0.1, K3 and K4 rows at ``shape4``; returns (K3 ms, K4 ms,
-        SDPA's backward ms, the shape's label)."""
+        """K2 at p = 0.1 and the backward's rows at ``shape4``; returns (K2
+        ms, SDPA's forward ms, the whole backward's ms, SDPA's backward ms,
+        the shape's label)."""
         q, k, v, dout, mask = attention_qkv(*shape4, n=4)
         seed = seed_words(gen, dev)
         shape = f"{who} {tuple(q.shape)}, p={ATTN_P}"
@@ -4284,46 +4463,29 @@ def main() -> int:
         row(fa.KERNEL_DROPOUT, "flash_attention.cu", "flash_attention.py:243 (dropout branch "
             ":100-106)", path, shape, errs[fa.KERNEL_DROPOUT + suffix[path]], f_ms, f_plain,
             f_work, f_lib)
-        with torch.no_grad():
-            out, lse = fa.flash_attention(q, k, v, mask, dropout_p=ATTN_P, seed=seed,
-                                          return_lse=True)
-            delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-            dq_ms = cuda_ms(lambda: fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
-                                                   seed), reps=50)
-            dkv_ms = cuda_ms(lambda: fa.bwd_dkv_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
-                                                     seed), reps=50)
-            bwd_plain = cuda_ms(lambda: fa.attention_bwd_plain(
-                q, k, v, mask, out, lse, dout, ATTN_P, seed), reps=10)
-        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-        o_lib = sdpa(qs, ks, vs, mask, ATTN_P)
-        do_lib = dout.transpose(1, 2)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do_lib,
-                                                      retain_graph=True), reps=50)
-        row(fa.KERNEL_DQ, "flash_attention_bwd.cu", "flash_attention.py:304", path, shape,
-            errs[fa.KERNEL_DQ + suffix[path]], dq_ms, bwd_plain, attn_bwd_work(q, mask, 1),
-            lib_bwd)
-        row(fa.KERNEL_DKV, "flash_attention_bwd.cu", "flash_attention.py:323", path, shape,
-            errs[fa.KERNEL_DKV + suffix[path]], dkv_ms, bwd_plain, attn_bwd_work(q, mask, 2),
-            lib_bwd)
-        print(f"  SDPA backward (dQ, dK, dV) at {shape}: {lib_bwd:.4f} ms; K3 {dq_ms:.4f}, "
-              f"K4 {dkv_ms:.4f} ms", flush=True)
-        return f_ms, f_lib, dq_ms, dkv_ms, lib_bwd, shape
+        lib_bwd = sdpa_bwd_ms(q, k, v, dout, mask, ATTN_P)
+        whole = bwd_rows(q, k, v, dout, mask, ATTN_P, seed, path, shape, lib_bwd)
+        return f_ms, f_lib, whole, lib_bwd, shape
 
     suffix = {"train": "", "ex": "@ex", "conformer-abs": "@conformer-abs", "tp": "@tp"}
-    # train: the student's attention, (12, 299, 12, 40), p = 0.1: K2, K3, K4
+    # train: the student's attention, (12, 299, 12, 40), p = 0.1: K2 and the backward
     t_att = cf.out_len(12 * SR, cfg.conv_feature_layers) // cfg.tr_reduce_factor
-    f_ms, f_lib, dq_ms, dkv_ms, lib_bwd, shape = attention_train_rows(
+    f_ms, f_lib, whole, lib_bwd, shape = attention_train_rows(
         (a * b, t_att, h, d), "train", "student")
     goals.append((f"K2 {shape}", f_ms, f_lib, 1.0, None))
-    goals.append((f"K3 {shape}, against SDPA's whole backward", dq_ms, lib_bwd, 0.75, 1.0))
-    goals.append((f"K4 {shape}, against SDPA's whole backward", dkv_ms, lib_bwd, 1.0, None))
-    # ex: the ex student's attention, (8, 600, 12, 64), p = 0.1
-    attention_train_rows(ex_attn, "ex", "ex student")
-    # conformer-abs: the abs conformer's fairseq MHA, one microbatch (3, 299, 12, 40)
-    attention_train_rows(conf_abs_attn, "conformer-abs", "abs conformer")
-    # tp: each model rank's heads of the release step, the student's (12, 299, 6, 40)
-    # at p = 0.1 and the teacher's (12, 599, 6, 64) at p = 0
-    attention_train_rows((a * b, t_att, h // TP_MODEL, d), "tp", "student, per model rank")
+    goals.append((f"attention backward {shape}, against SDPA's whole backward", whole, lib_bwd,
+                  1.0, None))
+    # ex: the ex student's attention, (8, 600, 12, 64), p = 0.1; conformer-abs:
+    # the abs conformer's fairseq MHA, one microbatch (3, 299, 12, 40); tp: each
+    # model rank's heads of the release step, the student's (12, 299, 6, 40) at
+    # p = 0.1 (and the teacher's (12, 599, 6, 64) at p = 0 below)
+    for shape4, path, who in ((ex_attn, "ex", "ex student"),
+                              (conf_abs_attn, "conformer-abs", "abs conformer"),
+                              ((a * b, t_att, h // TP_MODEL, d), "tp",
+                               "student, per model rank")):
+        _f, _fl, whole, lib_bwd, shape = attention_train_rows(shape4, path, who)
+        goals.append((f"attention backward {shape}, against SDPA's whole backward", whole,
+                      lib_bwd, 1.0, None))
     tp_teacher = teacher_attn[:2] + (teacher_attn[2] // TP_MODEL, teacher_attn[3])
     q, k, v, mask = attention_qkv(*tp_teacher)
     a_ms, a_plain, a_work, a_lib = attention_fwd_times(q, k, v, mask)
@@ -4391,24 +4553,8 @@ def main() -> int:
             f"{who} {tuple(q.shape)}", errs[fa.KERNEL_DROPOUT + f"@D={shape4[3]}"], a_ms,
             a_plain, a_work, a_lib)
         if who == "student":
-            with torch.no_grad():
-                out, lse = fa.flash_attention(q, k, v, mask, return_lse=True)
-                delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-                dq_ms = cuda_ms(lambda: fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta),
-                                reps=50)
-                dkv_ms = cuda_ms(lambda: fa.bwd_dkv_cuda(q, k, v, mask, lse, dout, delta),
-                                 reps=50)
-                bwd_plain = cuda_ms(lambda: fa.attention_bwd_plain(q, k, v, mask, out, lse,
-                                                                   dout), reps=10)
-            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-            o_lib = sdpa(qs, ks, vs, mask)
-            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-                o_lib, (qs, ks, vs), dout.transpose(1, 2), retain_graph=True), reps=50)
-            for name, ms, n_out in ((fa.KERNEL_DQ, dq_ms, 1), (fa.KERNEL_DKV, dkv_ms, 2)):
-                row(name, "flash_attention_bwd.cu", "flash_attention.py:304" if n_out == 1
-                    else "flash_attention.py:323", "smoke", f"student {tuple(q.shape)}, p=0",
-                    errs[name + f"@D={shape4[3]}"], ms, bwd_plain,
-                    attn_bwd_work(q, mask, n_out), lib_bwd)
+            bwd_rows(q, k, v, dout, mask, 0.0, None, "smoke", f"student {tuple(q.shape)}, p=0",
+                     sdpa_bwd_ms(q, k, v, dout, mask, 0.0))
         del q, k, v, dout, mask
     smoke_wavs = [torch.randn(smoke_wav, generator=gen) * 0.1 for _ in range(smoke_rows)]
     sm = conv_times(smoke_student, smoke_wavs, dev, "smoke student")
@@ -4440,24 +4586,24 @@ def main() -> int:
         q, k, v, dout, mask = attention_qkv(*shape4, n=4)
         seed = seed_words(gen, dev)
         f_ms, _f_plain, f_work, f_lib = attention_fwd_times(q, k, v, mask, ATTN_P, seed)
+        lib_bwd = sdpa_bwd_ms(q, k, v, dout, mask, ATTN_P, reps=30)
         with torch.no_grad():
             out, lse = fa.flash_attention(q, k, v, mask, dropout_p=ATTN_P, seed=seed,
                                           return_lse=True)
-            delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-            dq_ms = cuda_ms(lambda: fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
-                                                   seed), reps=30)
-            dkv_ms = cuda_ms(lambda: fa.bwd_dkv_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
-                                                     seed), reps=30)
-        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-        o_lib = sdpa(qs, ks, vs, mask, ATTN_P)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (qs, ks, vs), dout.transpose(1, 2),
-                                                      retain_graph=True), reps=30)
+            delta = fa.bwd_prep_cuda(out, dout)
+            fused = cuda_ms(lambda: fa.bwd_fused_cuda(q, k, v, mask, lse, dout, delta, ATTN_P,
+                                                      seed), reps=30)
+            whole = cuda_ms(lambda: fa._flash_bwd_cuda(q, k, v, mask, out, lse, dout, ATTN_P,
+                                                       seed), reps=30)
         print(f"  D = {d_} ({tuple(q.shape)} bf16, p={ATTN_P}, no config's path): K2 "
               f"{f_ms:.4f} ms (bound {bound(*f_work, BF16_PEAK)[0]:.4f}, SDPA {f_lib:.4f}); "
-              f"K3 {dq_ms:.4f} ms (bound {bound(*attn_bwd_work(q, mask, 1), BF16_PEAK)[0]:.4f}), "
-              f"K4 {dkv_ms:.4f} ms (bound {bound(*attn_bwd_work(q, mask, 2), BF16_PEAK)[0]:.4f}), "
-              f"SDPA backward {lib_bwd:.4f} ms", flush=True)
-        del q, k, v, dout, mask, qs, ks, vs, o_lib
+              f"the fused backward pass {fused:.4f} ms (bound "
+              f"{bound(*attn_fused_work(q, mask, fa.BWD_KEY_TILE), BF16_PEAK)[0]:.4f}), the "
+              f"whole "
+              f"backward {whole:.4f} ms (bound "
+              f"{bound(*attn_bwd_whole_work(q, mask), BF16_PEAK)[0]:.4f}), SDPA backward "
+              f"{lib_bwd:.4f} ms", flush=True)
+        del q, k, v, dout, mask
 
     def k6_row(model, wavs, path, err):
         """K6's row over ``model``'s stack of one step, from a0 = the prefix's

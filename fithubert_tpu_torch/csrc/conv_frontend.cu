@@ -116,7 +116,7 @@ extern "C" int gn_prefix(const void* x, const void* scale, const void* shift, vo
 // bf16 with a scale returns cudaErrorInvalidValue. bf16 only:
 // (off1, row_stride, batch_stride, cols0, cols1) is the A operand's view
 // (AView). Returns cudaGetLastError() after the launch, or a tensor-map
-// error code (conv_gemm.cuh TMA_ERROR).
+// error code (hopper.cuh TMA_ERROR).
 extern "C" int conv_layer(int dtype, const void* x, const void* wt, const void* scale,
                           const void* shift, void* y, int B, int T_in, int C_in, int T_out,
                           int C_out, int k, int s, long long off1, long long row_stride,

@@ -86,17 +86,6 @@ constexpr int DW_A_BYTES = 2 * BOX, DW_STAGE_BYTES = DW_A_BYTES + 4 * BOX;  // 1
 constexpr int DW_SMEM = DW_STAGES * DW_STAGE_BYTES + 1024;  // + room to align the ring
 constexpr int DW_THREADS = 32 * (CONSUMER_WARPS + 1);
 
-// wgmma descriptor of an M- / N-major operand as TMA writes [frame][64
-// columns] boxes under the 128-byte swizzle: a frame's 64 columns are one
-// 128-byte row, 8-frame core groups lie 1024 bytes apart (SBO), the next 64
-// columns are the next box, BOX bytes on (LBO). A k16 step is 16 frames:
-// 2048 bytes, 128 in the descriptor.
-__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(BOX >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
 // Block x = chunk * tiles + tile sums the frames of steps [chunk *
 // chunk_steps, ...) of part[chunk, kk, n] = sum_m A[m, kk] dz[m, n] for its
 // 128 x 256 tile, where step st is batch row st / frame_tiles, frames
@@ -159,8 +148,10 @@ conv_dw_wgmma(const __grid_constant__ CUtensorMap amap0, const __grid_constant__
     const int s = it % DW_STAGES;
     mbar_wait(smem_u32(&full[s]), (it / DW_STAGES) & 1);
     const uint32_t sa = ring + s * DW_STAGE_BYTES;
-    const uint64_t da = sw128_mn_desc(sa + wg * BOX);
-    const uint64_t db0 = sw128_mn_desc(sa + DW_A_BYTES), db1 = sw128_mn_desc(sa + DW_A_BYTES + 2 * BOX);
+    // [frame][64 columns] boxes, the next 64 columns BOX bytes on
+    const uint64_t da = sw128_mn_desc(sa + wg * BOX, BOX);
+    const uint64_t db0 = sw128_mn_desc(sa + DW_A_BYTES, BOX);
+    const uint64_t db1 = sw128_mn_desc(sa + DW_A_BYTES + 2 * BOX, BOX);
     fence_acc(d0);
     fence_acc(d1);
     wgmma_fence();
@@ -575,7 +566,7 @@ int allow_smem(Kernel kernel, int bytes, bool* done) {
 // dtype unless marked fp32; layer (d = C_out, k, s) maps a (B, T_in, C_in) to
 // (B, T_out, C_out); every bf16 width a multiple of 64 (the wrapper checks).
 // Each returns cudaGetLastError() after its launch, or a tensor-map error
-// code (conv_gemm.cuh TMA_ERROR).
+// code (hopper.cuh TMA_ERROR).
 
 // Up pass: z (pre-GELU, rounded to dtype) and a_next = gelu(z) from a; or,
 // with g (B, T_out, C_out) fp32, a_next = dz = g * gelu'(z) and no z. wt is

@@ -5,11 +5,10 @@
 // whose last layer writes dz = g * gelu'(z) in place of z and a): in bf16
 // conv_layer_bf16 (wgmma fed by TMA), in fp32 conv_layer_f32 (FMA). The
 // design notes are in conv_frontend.cu. The mbarrier, TMA and wgmma helpers
-// here also serve K6's own dW and da GEMMs.
+// are hopper.cuh's.
 
 #pragma once
-#include <cuda.h>  // CUtensorMap and its enums; the CUDA driver's entry is fetched at run time
-
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -89,122 +88,6 @@ constexpr int WG_SMEM = STAGES * STAGE_BYTES + 2 * ZBUF + 1024;
 constexpr int CONSUMER_WARPS = 8, EPI_WARPS = 8;
 constexpr int WG_THREADS = 32 * (CONSUMER_WARPS + 1 + EPI_WARPS);
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Spin until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void st_shared_b32(uint32_t addr, __nv_bfloat162 v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(*reinterpret_cast<uint32_t*>(&v))
-               : "memory");
-}
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 128-byte rows under the 128-byte
-// swizzle, as TMA writes it: 8-row core groups 1024 bytes apart (SBO), the
-// leading offset unused, the tile based on 1024 bytes. Adding 2 moves the
-// start 32 bytes (one k16 step) along K.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, fp32) += A (64 x 16) B^T (16 x 128), both bf16 in shared
-// memory, K-major (TRANS = 0) or M- / N-major (TRANS = 1, the descriptor's
-// transpose bit). Thread (warp w of the warpgroup, lane l) holds, for each
-// n8 block j, d[4j], d[4j+1] at row 16w + l/4, columns 8j + 2(l%4) + {0, 1},
-// and d[4j+2], d[4j+3] 8 rows below.
-template <int TRANS_A = 0, int TRANS_B = 0>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
-}
-
 // A consumer warpgroup's 64 x 128 sums into shared memory, rounded to bf16
 // before the GELU as the XLA oracle's conv output is (conv_frontend.py
 // :254-258): two 64 x 64 boxes in the 128-byte swizzle (16-byte chunk c of row
@@ -220,7 +103,7 @@ __device__ __forceinline__ void stage_z(const float (&d)[64], uint32_t buf, int 
       __nv_bfloat162 v;
       v.x = __float2bfloat16(d[4 * j + 2 * half]);
       v.y = __float2bfloat16(d[4 * j + 2 * half + 1]);
-      st_shared_b32(buf + off, v);
+      st_shared_u32(buf + off, *reinterpret_cast<uint32_t*>(&v));
     }
   }
 }
@@ -346,7 +229,7 @@ conv_layer_wgmma(const __grid_constant__ CUtensorMap amap0,
           asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(buf + 16 * i), "r"(v.x),
                        "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
         }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+        fence_proxy_async();  // visible to TMA
         asm volatile("bar.sync 1, %0;\n" ::"n"(32 * EPI_WARPS) : "memory");
         store(&ymap);
         if (et == 0) mbar_arrive(smem_u32(&zempty[w]));
@@ -388,7 +271,7 @@ conv_layer_wgmma(const __grid_constant__ CUtensorMap amap0,
     // hand the sums over once the epilogue warps are done with the last ones
     if (ti > 0) mbar_wait(smem_u32(&zempty[wg]), (ti - 1) & 1);
     stage_z(d, zb, warp, lane);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // z's TMA store reads it
+    fence_proxy_async();  // z's TMA store reads it
     mbar_arrive(smem_u32(&zfull[wg]));
   }
 }
@@ -403,52 +286,6 @@ struct AView {
   long long off1, row_stride, batch_stride;
   int cols0, cols1;
 };
-
-// Non-zero codes the launch returns besides cudaError_t: a tensor map that
-// cuTensorMapEncodeTiled refused (TMA_ERROR + its CUresult), or a CUDA driver
-// without it.
-constexpr int TMA_ERROR = 100000, TMA_MISSING = 200000;
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// A bf16 tensor map of rank 2 or 3 with 128-byte swizzled boxes: loads fill
-// zeros outside dims, stores skip what lies outside. strides in bytes, for
-// dims 1.. only.
-int encode_map(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
-               const cuuint64_t* strides, const cuuint32_t* box) {
-  static EncodeTiledFn encode = nullptr;  // cuTensorMapEncodeTiled, from the CUDA driver: no -lcuda
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return TMA_MISSING;
-    encode = reinterpret_cast<EncodeTiledFn>(fn);
-  }
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : TMA_ERROR + static_cast<int>(res);
-}
-
-// The card's SM count, asked once per process.
-int sm_count(int* sms) {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  *sms = count;
-  return 0;
-}
 
 // K1's bf16 layer GEMM, shared with K6's up pass so that both launch one
 // kernel on one tile geometry: y = gelu(z) (B, T_out, N) and, if z is not

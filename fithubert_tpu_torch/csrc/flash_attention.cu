@@ -48,8 +48,7 @@
 //     unnormalised P is dropped and scaled by 1/(1-p) on its way into P V;
 //     the normaliser l and the returned lse stay undropped (:100-106).
 //   - Epilogue: out = acc / l in fp32, stored in bf16; lse (B, H, T) fp32.
-//   The tile steps (row copies, the two products) are flash_tile.cuh's,
-//   shared with K4.
+//   The tile steps (row copies, the two products) are flash_tile.cuh's.
 //   - Head sizes: the kernels are compiled for FA_HEAD_DIMS (16 to 128;
 //     the wrapper zero-pads any other D to the next one). The tiles live in
 //     dynamic shared memory (5 tiles of 64 rows: 46 KB at D = 64, 86 KB at

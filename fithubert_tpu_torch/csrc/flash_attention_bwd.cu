@@ -1,112 +1,145 @@
-// FlashAttention backward: dQ (one kernel) and dK, dV (a second kernel),
-// with the key-padding mask and the forward's dropout mask regenerated.
+// FlashAttention backward with the key-padding mask and the forward's
+// dropout mask regenerated: in bf16 one fused pass for dK, dV and per-key-
+// tile dQ partials, a pre-pass for delta and a pass that sums the partials;
+// in fp32 a dQ body and a dK/dV body on FMA.
 //
 // Replaces: fithubert_tpu/ops/pallas/flash_attention.py, the backward Pallas
 //   kernels _make_bwd_dq_kernel (:127, run at :304) and _make_bwd_dkv_kernel
-//   (:173, run at :323).
+//   (:173, run at :323), and the sum delta = rowsum(dO * O) that the TPU
+//   computes outside them (:302).
 //
-// Bound on the H100: memory, for both. At the student's training shape
-//   (B=12, T=299, H=12, D=40, bf16, p = 0.1) dK/dV reads q, k, v, dO, lse and delta and
-//   writes dK and dV (~21 MB with the mask: 0.0063 ms at 3.35 TB/s) against
-//   ~4.1 GFLOP of recomputed logits and products (0.0042 ms at the bf16
-//   tensor-core peak). The T x T matrices P and dS never reach device
-//   memory: they are recomputed from lse.
+// Per (query i, key j), as the TPU kernels compute it:
+//   P  = exp(s - lse), zeroed explicitly at masked keys (:148-150), so a
+//        fully padded row (lse = -1e30) gives exactly zero gradients;
+//   dP = dO . v_j, dropped and scaled like P in the forward;
+//   dS = P * (dP - delta_i);
+//   dV += P_dropped dO,  dK += dS q_i,  dQ += dS k_j.
+// The keep mask is philox.cuh's pure function of (seed, z = b * H + h, i,
+// j): counter (j >> 2, i, z, 0), word j & 3, so it equals the forward's
+// whatever the tiling; the seed is read from device memory (seed_ptr) as a
+// block starts, so a CUDA graph replays with whatever words it holds. q, k,
+// v are read through their (B, T, H, D) strides; dO, lse, delta and the
+// outputs are contiguous. D is one of FA_HEAD_DIMS (the wrapper zero-pads
+// others), T any length.
 //
-// Design: the split is FlashAttention-2's, without atomics: dQ and dK/dV
-//   are two kernels, each output element summed by one warp (by one thread
-//   in the fp32 bodies) in a fixed order, so the gradients are deterministic run
-//   to run. Per element:
-//     P  = exp(s - lse), zeroed explicitly at masked keys (:148-150), so a
-//          fully padded row (lse = -1e30) gives exactly zero gradients;
-//     dP = dO . v_j, dropped and scaled like P in the forward;
-//     dS = P * (dP - delta),  delta = rowsum(dO * O) (computed by the
-//          caller, as XLA does at :302);
-//     dV += P_dropped dO,  dK += dS q_i,  dQ += dS k_j.
-//   The keep mask is philox.cuh's pure function of (seed, z = b * H + h, i,
-//   j): counter (j >> 2, i, z, 0), word j & 3, so it equals the forward's
-//   whatever the tiling. fp32 accumulation, written in q's dtype
-//   (:351-353). D one of FA_HEAD_DIMS (the wrapper zero-pads others), any
-//   T (ragged tails masked here), q, k, v read through their (B, T, H, D)
-//   strides; dO, lse, delta and the outputs are contiguous. Tiles live in
-//   dynamic shared memory (opted in above 48 KB); the seed is read from
-//   device memory (seed_ptr), as in the forward.
+// Bound on the H100: bytes, for every pass. At the student's training shape
+//   (bf16, B = 12, T = 299, H = 12, D = 40, p = 0.1) the fused pass reads q,
+//   k, v, dO (13.8 MB), lse, delta and the mask (0.35 MB) and writes dK, dV
+//   (6.9 MB) and the fp32 dQ partials of its 5 key tiles of 64 (34.4 MB):
+//   55.4 MB, 0.0166 ms at 3.35 TB/s, against 12 D flops per (i, valid j)
+//   (S, dP, dV, dK, and dS K twice, below): at most 6.2 GFLOP, 0.0063 ms at
+//   the bf16 tensor-core peak. The pre-pass moves 7.1 MB (0.0021 ms), the dQ
+//   sum 37.8 MB (0.0113 ms). The partials are the design's own bytes: the
+//   whole backward must move only q, k, v, O, dO, lse and the mask in and
+//   dQ, dK, dV out (27.9 MB, 0.0083 ms). The T x T matrices P and dS never
+//   reach device memory: they are recomputed from lse.
 //
-// dK/dV (K4), bf16: mma.sync m16n8k16 bf16 -> fp32, the TPU kernel's own
-//   arithmetic (bf16 operands, fp32 sums, P_dropped and dS rounded to bf16
-//   before their products, :212-220).
-//   - Block and loop: 4 warps (128 threads) per (b, h, 64-key tile), 16
-//     keys per warp. K and V are copied once (cp.async, through the ring's
-//     second stage) and held as A fragments (ldmatrix). The block walks
-//     every 64-row query tile with Q and dO in a two-stage cp.async ring,
-//     lse (times log2 e) and delta staged beside them in shared memory.
-//     Rows are padded by 16 bytes; D = 40 pads the k extent of S^T and
-//     dP^T to 48 with columns zeroed in shared memory once.
-//   - The four products, keys as rows (m) throughout:
-//       S^T  = K Q^T   (B = Q, ldmatrix), P^T = exp2(S^T log2 e - lse_i log2 e);
-//       dP^T = V dO^T  (B = dO, ldmatrix);
-//       dV  += P_dropped^T dO   (A = P^T from registers, B = dO, ldmatrix.trans);
-//       dK  += dS^T Q           (A = dS^T from registers, B = Q, ldmatrix.trans).
-//     Computing S^T and dP^T key-major, rather than FA2's query-major S,
-//     puts P^T and dS^T in C fragments whose layout is already the A
-//     fragment of the dV and dK products (two n8 tiles = one k16 step), so
-//     nothing is staged back through shared memory.
-//   - Dropout: in a C tile lanes 16a + 4u + t4 (u = 0..3) hold keys
-//     4a + u and 4a + u + 8, two j >> 2 groups, at queries 8n + 2t4, +1.
-//     Lane u draws the call (group + 2 (u >> 1), query + (u & 1)); the four
-//     lanes trade words with three __shfl_xor_sync (masks 4, 8, 12), each
-//     sender choosing the word its partner needs: one Philox call per four
-//     (i, j), as in the forward.
-//   The tile steps (row copies, the two kinds of product) are
-//   flash_tile.cuh's, shared with K2 and K3.
-// dQ (K3), bf16: K2's forward loop without the online softmax, on the same
-//   mma.sync m16n8k16 bf16 -> fp32 tile steps. Bound, at the student's
-//   shape: bytes, ~17 MB read and written (0.0052 ms at 3.35 TB/s) against
-//   ~3.1 GFLOP of recomputed logits and products (0.0031 ms at the bf16
-//   tensor-core peak; 0.0041 with dS K done twice, below).
-//   - Block and loop: 4 warps (128 threads) per (b, h, 64-row query tile),
-//     16 query rows per warp (720 blocks at (12, 299, 12, 40)). Q and dO are
-//     copied once through the ring's second stage and held as A fragments
-//     (ldmatrix); lse (times log2 e) and delta of the lane's two rows sit in
-//     registers. K and V walk a two-stage cp.async ring of 64-key tiles.
-//   - The three products, query-major:
-//       S  = Q K^T   (B = K, ldmatrix), P = exp2(S log2 e - lse log2 e);
-//       dP = dO V^T  (B = V, ldmatrix);
-//       dQ += dS K   (A = dS from registers; B = K, ldmatrix.trans),
-//     as K2 feeds P into P V. Masked keys and keys past T get an explicit
-//     P = 0, so a fully padded row (lse = -1e30) gives dQ = 0.
-//   - dS in two bf16 parts. The TPU kernel rounds dS to bf16 before dS K
-//     (:161-163). K is not pre-scaled as q is, and where a row has few
-//     valid keys its dS terms are large, so that one rounding moved single
-//     dQ elements from attention_bwd_plain by 0.0625 (at (2, 63, 3, 40), on
-//     the card) and 0.125 (at (3, 65, 2, 64), emulated on the CPU), more than
-//     the 1e-2 + 1e-2 |dQ| limit allows there. So dS K is two products, bf16(dS) K + bf16(dS -
-//     bf16(dS)) K: dS carries ~16 bits, one more k-pass of tensor-core work
-//     on a kernel bound by bytes.
-//   - Dropout: K2's exchange on the query-major C tile (one __shfl_xor_sync
-//     mask 1 per word pair): one Philox call per four (i, j).
-//   - Each dQ element is summed by one warp in a fixed key order: no
-//     atomics, deterministic.
-// fp32 (dQ and dK/dV): FMA bodies. dQ: one 64-thread block per (b, h,
-//   64-row query tile), one thread per query row i holding q_i, dO_i and
-//   the dQ accumulator in fp32 registers; the block walks the key axis in
-//   64-key tiles of K and V staged in shared memory as fp32 (broadcast
-//   reads). dK/dV: one 64-thread block per (b, h, 64-key tile), one thread
-//   per key column j, the block walking every query tile. fp32 inputs only
-//   serve the card-vs-CPU checks (2e-3 end to end); the tensor cores would
-//   take them only as TF32, whose 10-bit mantissa breaks that.
+// Design: in bf16, three launches.
+//   1. flash_bwd_prep: delta (B, H, T) fp32 = rowsum(dO * O), one thread per
+//      (b, t, h) row, reading dO and O in q's dtype once.
+//   2. flash_bwd_fused, on Hopper's wgmma fed by TMA. A block takes one
+//      (64-key tile, b, h): a producer warpgroup and one consumer warpgroup
+//      (64 keys, the wgmma's M), at every head size. (Two consumer
+//      warpgroups on 128 keys ran the pass slower at D = 40 and 64 on the
+//      card; no config trains at a larger D.)
+//      - Registers: a block (8 warps) launches at 128 registers a thread,
+//        the cap of __launch_bounds__(256, 2), which ptxas gives a kernel
+//        that uses setmaxnreg; setmaxnreg then moves them within the block,
+//        the producers down to 24 and the consumers up to 232 (a
+//        static_assert holds the balance). Shared memory lets two blocks
+//        share an SM at D <= 64, one above. The launch checks the kernel's
+//        register count first: at another count the consumers would wait
+//        for registers the block does not hold (REG_ERROR).
+//      - The producer's first warp loads the block's K and V once (TMA),
+//        then keeps a ring of 3 stages full: each stage a 64-query tile of
+//        Q and of dO (TMA, [64 rows][64 columns] boxes under the 128-byte
+//        swizzle; D > 64 takes two boxes, D = 40 one box whose columns past
+//        D TMA fills with zeros, rows past T too) and the tile's lse (times
+//        log2 e, +1e30 past T, so exp2 gives 0 there) and delta, which its
+//        32 lanes load and store themselves. Each stage has a full mbarrier
+//        (the 32 lanes' arrivals and the TMA bytes) and an empty one (one
+//        arrival per consumer warp).
+//      - Each consumer warpgroup walks every query tile, key-major: S^T =
+//        K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands K-major in
+//        shared memory, K-dim D padded to a multiple of 16 by the zero
+//        columns), then P^T = exp2(S^T log2 e - lse log2 e) (exp2_ftz),
+//        the keep mask and dS^T in registers; dV += P_dropped^T dO and dK +=
+//        dS^T Q
+//        (wgmma m64nDk16 with A from registers: the accumulator layout of
+//        S^T is, per warp, the A fragment of the next product; B read
+//        N-major through the descriptor's transpose bit), bf16 operands and
+//        fp32 sums, P_dropped and dS rounded to bf16 as the TPU kernel
+//        does (:212-220).
+//      - The elementwise work, not the products or the bytes, bounds the
+//        pass (on the card, drawing the keep mask took 40% of a first
+//        version's time, and without dropout it ran at about 3x its
+//        bound). So it is laid out to overlap them: a tile's keep mask is drawn while its S^T and
+//        dP^T products run, and its dV, dK and dQ products run on while the
+//        next tile's products are issued and its mask drawn (the dQ
+//        partial, the A fragments and the stage are retired a tile late).
+//      - Dropout: a warp's 16 x 8 slice of an accumulator has the lane
+//        layout of an mma.sync m16n8 C tile: lanes 16a + 4u + t4 (u = 0..3)
+//        hold keys 4a + u and 4a + u + 8, two j >> 2 groups, at queries 8n +
+//        2t4, +1. Lane u draws the call (group + 2 (u >> 1), query + (u &
+//        1)): one Philox call per four (i, j), as in the forward. Each lane
+//        tests its call's four words, and two __shfl_xor_sync (masks 4, 8)
+//        gather the four lanes' 4-bit results. A lane's counters keep their
+//        key group and (b, h) at every query, so philox.cuh's PhiloxRow
+//        takes what the first three rounds compute without the query, and
+//        the key schedule, out of the loop (the same function, checked).
+//      - dQ, deterministic, no atomics: the consumers stage dS^T in shared
+//        memory as two bf16 parts, hi = bf16(dS) and lo = bf16(dS - hi)
+//        ([key][64 queries], the 128-byte swizzle, double-buffered), and
+//        after a barrier of the warpgroup compute the tile's dQ partial
+//        over the block's keys: hi K + lo K (wgmma with A = dS read M-major
+//        and B = K N-major from shared memory). With dS
+//        in two parts it carries ~16 bits: K is not pre-scaled as q is, and
+//        where a row has few valid keys its dS terms are large, so one
+//        rounding moved single dQ elements past the 1e-2 + 1e-2 limit
+//        (0.0625 at (2, 63, 3, 40) on the card). The partial goes to the
+//        block's own slice of an fp32 scratch (key tiles, B, T, H, D).
+//   3. flash_bwd_dq_sum: dQ = the slices summed in key-tile order, written in
+//      q's dtype, as K6's dW sums its chunks (conv_frontend_bwd.cu). An
+//      ordered sum in one buffer (a turn counter per query tile) was not
+//      taken: it needs counters reset inside a captured graph and blocks
+//      that wait on blocks the card may not have scheduled.
+//   The three launch in order on one stream; every sum has a fixed order,
+//   so the gradients are bit-identical run to run and in a graph replay.
+//   Registers and spills (_build.ptxas_usage, on the card; the launch
+//   count, before setmaxnreg): 128 at every D; no spills at D = 16-80, 128-
+//   304 bytes a thread at 96 and 384-476 at 128, where dK, dV and the dQ
+//   partial hold 3 D / 2 fp32 accumulators a thread (PERF.md).
+// fp32 (only the card-vs-CPU checks): FMA bodies after the pre-pass. dQ:
+//   one 64-thread block per (b, h, 64-row query tile), one thread per query
+//   row i holding q_i, dO_i and the dQ accumulator in fp32 registers; the
+//   block walks the key axis in 64-key tiles of K and V staged in shared
+//   memory as fp32 (broadcast reads). dK/dV: one 64-thread block per (b, h,
+//   64-key tile), one thread per key column j, the block walking every
+//   query tile. The tensor cores would take fp32 only as TF32, whose 10-bit
+//   mantissa breaks the 2e-3 end-to-end checks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_tile.cuh"
-#include "mma.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64;
+constexpr int BQ = 64, BKV = 64;  // the fp32 bodies' tiles
 constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit, subnormal results flushed to zero (a
+// probability below 2^-126 adds nothing a bf16 operand could hold):
+// exp2f's handling of them made the fused pass measurably slower on the
+// card.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Strides {
@@ -120,6 +153,445 @@ struct Dropout {
   uint32_t seed0, seed1;  // read from ptr as each block starts
 };
 
+// ------------------------------------------------------------ delta pre-pass
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); }
+
+// delta[b, h, t] = sum_d dO[b, t, h, d] O[b, t, h, d] in fp32, one thread
+// per (b, t, h) row (h fastest, so a warp reads consecutive rows); VEC: rows
+// read in 16-byte chunks.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const T* __restrict__ dout, const T* __restrict__ out, float* __restrict__ delta,
+               long long rows, int T_len, int H, int D) {
+  const long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const T* a = dout + r * D;
+  const T* o = out + r * D;
+  float s = 0.f;
+  if constexpr (VEC) {
+    constexpr int E = 16 / sizeof(T);
+    for (int c = 0; c < D; c += E) {
+      const uint4 x = *reinterpret_cast<const uint4*>(a + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(o + c);
+      const T* xe = reinterpret_cast<const T*>(&x);
+      const T* ye = reinterpret_cast<const T*>(&y);
+#pragma unroll
+      for (int e = 0; e < E; ++e) s = fmaf(as_float(xe[e]), as_float(ye[e]), s);
+    }
+  } else {
+    for (int c = 0; c < D; ++c) s = fmaf(as_float(a[c]), as_float(o[c]), s);
+  }
+  const int h = static_cast<int>(r % H);
+  const long long bt = r / H;
+  const long long b = bt / T_len;
+  delta[(b * H + h) * T_len + (bt - b * T_len)] = s;
+}
+
+// ------------------------------------------------------- fused bf16 backward
+constexpr int FT = 64;            // queries of a ring stage; keys of a consumer warpgroup
+constexpr int ROWB = 128;         // bytes of a staged row: 64 bf16 columns, one swizzle row
+constexpr int BOXB = FT * ROWB;   // one [64 rows][64 columns] TMA box, 8 KB
+
+template <int D>
+struct Fused {
+  static constexpr int CB = (D + 63) / 64;    // 64-column boxes of a row
+  static constexpr int KS = (D + 15) / 16;    // k16 steps of a product over D
+  static constexpr int STAGES = 3;
+  static constexpr int TILE = CB * BOXB;      // a Q or dO tile: [box][64 rows][128 bytes]
+  static constexpr int STAGE = 2 * TILE;      // Q, then dO
+  static constexpr int KV = CB * BOXB;        // K or V: [box][64 keys][128 bytes]
+  static constexpr int DS = 2 * BOXB;         // dS^T hi, then lo: [key][64 queries]
+  static constexpr int K_OFF = STAGES * STAGE, V_OFF = K_OFF + KV, DS_OFF = V_OFF + KV;
+  static constexpr int LD_OFF = DS_OFF + 2 * DS;  // lse and delta: [stage][2][64] fp32
+  static constexpr int SMEM = LD_OFF + STAGES * 2 * FT * 4 + 1024;  // + room to align
+  // the consumer warpgroup, then the producer's; at launch 128 registers a
+  // thread (the cap of two blocks an SM), then setmaxnreg moves them from
+  // the producer (24) to the consumers (232) within the block
+  static constexpr int THREADS = 256;
+  static constexpr int BLOCKS_PER_SM = 2;
+  static constexpr int LAUNCH_REGS = 65536 / (THREADS * BLOCKS_PER_SM);
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 232;
+  static_assert((PRODUCER_REGS + CONSUMER_REGS) * 128 == LAUNCH_REGS * THREADS,
+                "setmaxnreg hands the producer's registers to the consumers, no more");
+  static_assert(D % 8 == 0, "wgmma N is a multiple of 8");
+};
+
+// A barrier of the consumer warpgroup's 128 threads alone.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// The tile's dQ partial (64 queries x D) = dS (hi, then lo, each [key][64
+// queries] at dsb) times K (at kb): issued and committed, not waited for.
+template <int D>
+__device__ __forceinline__ void dq_issue(float (&acc)[D / 2], uint32_t dsb, uint32_t kb) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < FT / 16; ++ks) {
+    const uint64_t db = sw128_mn_desc(kb + ks * 2048, FT * ROWB);
+    wgmma_ss<D, 1, 1>(acc, sw128_mn_desc(dsb + ks * 2048, BOXB), db);
+    wgmma_ss<D, 1, 1>(acc, sw128_mn_desc(dsb + FT * ROWB + ks * 2048, BOXB), db);
+  }
+  wgmma_commit();
+}
+
+// Rows q and q + 8 of a warp's 16 of a dQ partial to dst (row q's column 0
+// for this thread), rows at or past T_len skipped.
+template <int D>
+__device__ __forceinline__ void dq_store(const float* acc, float* dst, long long row_stride,
+                                         bool ok0, bool ok1) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!(r == 0 ? ok0 : ok1)) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + r * 8 * row_stride + 8 * j) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// Block (key tile kt, b * H + h). qmap, kmap, vmap, omap: 4-D maps (D, T,
+// H, B) of q, k, v and dO with [64 rows][64 columns] boxes.
+template <int D, bool DROPOUT>
+__global__ void __launch_bounds__(Fused<D>::THREADS, Fused<D>::BLOCKS_PER_SM)
+flash_bwd_fused(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+                const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dq_part,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int T_len, int H, int B,
+                Dropout dr) {
+  using F = Fused<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[F::STAGES], empty[F::STAGES], kv_full;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* const ld = reinterpret_cast<float*>(smem_raw + (base - raw) + F::LD_OFF);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kt = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int key0 = kt * FT;
+  const int n_qt = (T_len + FT - 1) / FT;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 32);  // the producer's 32 lanes (lane 0 with the bytes)
+      mbar_init(smem_u32(&empty[s]), 4);  // one arrival per consumer warp
+    }
+    mbar_init(smem_u32(&kv_full), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4) {  // the producer warpgroup: its first warp loads, the rest leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F::PRODUCER_REGS) : "memory");
+    if (warp > 4) return;
+    if (lane == 0) {
+      const uint32_t kvb = smem_u32(&kv_full);
+      mbar_expect_tx(kvb, 2 * F::KV);
+#pragma unroll
+      for (int c = 0; c < F::CB; ++c) {
+        tma_load_4d(base + F::K_OFF + c * BOXB, &kmap, kvb, 64 * c, key0, h, b);
+        tma_load_4d(base + F::V_OFF + c * BOXB, &vmap, kvb, 64 * c, key0, h, b);
+      }
+    }
+    for (int it = 0; it < n_qt; ++it) {
+      const int s = it % F::STAGES, q0 = it * FT;
+      if (it >= F::STAGES) mbar_wait(smem_u32(&empty[s]), ((it / F::STAGES) - 1) & 1);
+      float* lds = ld + s * 2 * FT;
+#pragma unroll
+      for (int e = lane; e < FT; e += 32) {
+        const int t = q0 + e;
+        const long long row = static_cast<long long>(bh) * T_len + t;
+        // rows past T: exp2(s - 1e30) = 0, so they add nothing
+        lds[e] = t < T_len ? lse[row] * LOG2E : 1e30f;
+        lds[FT + e] = t < T_len ? delta[row] : 0.f;
+      }
+      const uint32_t fb = smem_u32(&full[s]);
+      if (lane == 0) {
+        mbar_expect_tx(fb, F::STAGE);
+        const uint32_t st = base + s * F::STAGE;
+#pragma unroll
+        for (int c = 0; c < F::CB; ++c) {
+          tma_load_4d(st + c * BOXB, &qmap, fb, 64 * c, q0, h, b);
+          tma_load_4d(st + F::TILE + c * BOXB, &omap, fb, 64 * c, q0, h, b);
+        }
+      } else {
+        mbar_arrive(fb);
+      }
+    }
+    return;
+  }
+
+  // the consumers: keys key0 .. key0 + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F::CONSUMER_REGS) : "memory");
+  const int wq = warp, g = lane >> 2, t4 = lane & 3;
+  if (DROPOUT) {  // the words a graph replay finds there
+    dr.seed0 = dr.ptr[0];
+    dr.seed1 = dr.ptr[1];
+  }
+  // this thread's keys: rows krow and krow + 8 of the block's 64
+  const int krow = 16 * wq + g;
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key0 + krow + 8 * r;
+    key_ok[r] = j < T_len && !(mask != nullptr && mask[static_cast<long long>(b) * T_len + j]);
+  }
+  const int u = g & 3;  // this lane's place among the 4 lanes of one key group
+  const uint32_t jg = static_cast<uint32_t>((key0 + 16 * wq + (g & ~3)) / 4 + 2 * (u >> 1));
+  // this lane's Philox calls: counter (jg, i, bh, 0) at each query row i it draws
+  const PhiloxRow rng(jg, static_cast<uint32_t>(bh), dr.seed0, dr.seed1);
+  const uint32_t thr8 = dr.thr << 8;  // (word >> 8) >= thr  <=>  word >= thr << 8
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  const uint32_t kb = base + F::K_OFF, vb = base + F::V_OFF;
+  const long long dq_row = static_cast<long long>(H) * D;  // (t, h, d) stride of t
+  float* const part = dq_part + (static_cast<long long>(kt) * B + b) * T_len * dq_row +
+                      static_cast<long long>(h) * D + 2 * t4;
+  // carried from tile it to it + 1: the dQ partial and the A fragments of
+  // the tile's dV and dK products, which run on while the next tile starts
+  float dqa[D / 2];
+  uint32_t pf[4][4], hf[4][4];
+  // the partial of tile it - 1 to its rows, and its stage back to the producer
+  auto retire = [&](int it) {
+    fence_acc(dqa);
+    fence_regs(pf);
+    fence_regs(hf);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[it % F::STAGES]));
+    const int q = it * FT + 16 * wq + g;  // rows q and q + 8 of this warp's 16
+    dq_store<D>(dqa, part + static_cast<long long>(q) * dq_row, dq_row, q < T_len,
+                q + 8 < T_len);
+  };
+  mbar_wait(smem_u32(&kv_full), 0);
+
+#pragma unroll 1
+  for (int it = 0; it < n_qt; ++it) {
+    const int s = it % F::STAGES, q0 = it * FT;
+    mbar_wait(smem_u32(&full[s]), (it / F::STAGES) & 1);
+    const uint32_t qs = base + s * F::STAGE, os = qs + F::TILE;
+    const float* lds = ld + s * 2 * FT;
+
+    // S^T = K Q^T and dP^T = V dO^T; element (j, e): key row krow + 8 (e >>
+    // 1), query q0 + 8j + 2t4 + (e & 1)
+    float sacc[32], pacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+    fence_acc(sacc);
+    fence_acc(pacc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < F::KS; ++ks) {  // k16 step ks: box ks / 4, 32 bytes a step in it
+      const uint32_t o = (ks >> 2) * BOXB;
+      wgmma_ss<64, 0, 0>(sacc, sw128_desc(kb + o) + 2 * (ks & 3),
+                         sw128_desc(qs + o) + 2 * (ks & 3));
+    }
+#pragma unroll
+    for (int ks = 0; ks < F::KS; ++ks) {
+      const uint32_t o = (ks >> 2) * BOXB;
+      wgmma_ss<64, 0, 0>(pacc, sw128_desc(vb + o) + 2 * (ks & 3),
+                         sw128_desc(os + o) + 2 * (ks & 3));
+    }
+    wgmma_commit();
+
+    // the keep mask of the tile while the products run: bit 4e of keep[j],
+    // element e of n8 tile j. The 4 lanes of a key group (lane bits 2-3 =
+    // u) draw the calls of their 4 elements, call e = (group + 2 (e >> 1),
+    // query + (e & 1)), lane u call u; element e of lane u is word u of
+    // call e. Each lane tests its call's 4 words, and two shuffles gather
+    // the group's 4-bit results, call e at bits 4e..4e + 3
+    uint32_t keep[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      keep[j] = 0x1111u;
+      if (DROPOUT) {
+        const uint4 w = rng.draw(static_cast<uint32_t>(q0 + 8 * j + 2 * t4 + (u & 1)));
+        const uint32_t m = (w.x >= thr8 ? 1u : 0u) | (w.y >= thr8 ? 2u : 0u) |
+                           (w.z >= thr8 ? 4u : 0u) | (w.w >= thr8 ? 8u : 0u);
+        const uint32_t m2 =
+            (m << (4 * (u & 1))) | (__shfl_xor_sync(FULL, m, 4) << (4 * ((u & 1) ^ 1)));
+        const uint32_t m4 =
+            (m2 << (8 * (u >> 1))) | (__shfl_xor_sync(FULL, m2, 8) << (8 * ((u >> 1) ^ 1)));
+        keep[j] = m4 >> u;
+      }
+    }
+    wgmma_wait<0>();  // S^T, dP^T, and the previous tile's dV, dK and dQ
+    fence_acc(sacc);
+    fence_acc(pacc);
+    fence_acc(dva);
+    fence_acc(dka);
+    if (it > 0) retire(it - 1);
+
+    // P^T and dS^T; then P_dropped^T and dS^T (hi, lo) as the bf16 A
+    // fragments of k16 step kk = n8 tiles 2kk and 2kk + 1
+    uint32_t lf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lds + 8 * j + 2 * t4);
+      const float2 d2 = *reinterpret_cast<const float2*>(lds + FT + 8 * j + 2 * t4);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // masked keys and keys past T get an explicit 0, not exp2 of a huge number
+        const float pe = key_ok[e >> 1]
+                             ? exp2_ftz(fmaf(sacc[4 * j + e], LOG2E, -((e & 1) ? l2.y : l2.x)))
+                             : 0.f;
+        const float scale = DROPOUT ? ((keep[j] >> (4 * e)) & 1u ? dr.inv_keep : 0.f) : 1.f;
+        ds[e] = pe * (pacc[4 * j + e] * scale - ((e & 1) ? d2.y : d2.x));
+        p[e] = pe * scale;  // P_dropped, the operand of dV
+      }
+      const int kk = j >> 1, x = 2 * (j & 1);
+      pf[kk][x] = pack_bf16(p[0], p[1]);
+      pf[kk][x + 1] = pack_bf16(p[2], p[3]);
+      const __nv_bfloat162 h0 = __floats2bfloat162_rn(ds[0], ds[1]);
+      const __nv_bfloat162 h1 = __floats2bfloat162_rn(ds[2], ds[3]);
+      hf[kk][x] = *reinterpret_cast<const uint32_t*>(&h0);
+      hf[kk][x + 1] = *reinterpret_cast<const uint32_t*>(&h1);
+      lf[kk][x] = pack_bf16(ds[0] - __low2float(h0), ds[1] - __high2float(h0));
+      lf[kk][x + 1] = pack_bf16(ds[2] - __low2float(h1), ds[3] - __high2float(h1));
+    }
+
+    // dV += P_dropped^T dO, dK += bf16(dS)^T Q; B N-major: [query][D]
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(dva, pf[kk], sw128_mn_desc(os + kk * 2048, BOXB));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(dka, hf[kk], sw128_mn_desc(qs + kk * 2048, BOXB));
+    wgmma_commit();
+
+    // dS^T hi and lo into this tile's buffer ([key][query], 16-byte chunk c
+    // of row r at c ^ (r % 8): the 8 rows of a warp's store hit distinct
+    // banks; the other buffer is the previous tile's, whose dQ product may
+    // still run), then the warpgroup's rows are in place
+    const uint32_t dsb = base + F::DS_OFF + (it & 1) * F::DS;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int j = 2 * kk + (x >> 1), r = krow + 8 * (x & 1);  // r % 8 == g
+        const uint32_t off = r * ROWB + ((j ^ g) << 4) + 4 * t4;
+        st_shared_u32(dsb + off, hf[kk][x]);
+        st_shared_u32(dsb + FT * ROWB + off, lf[kk][x]);
+      }
+    fence_proxy_async();
+    consumers_sync();
+    dq_issue<D>(dqa, dsb, kb);
+  }
+  wgmma_wait<0>();
+  fence_acc(dva);
+  fence_acc(dka);
+  if (n_qt > 0) retire(n_qt - 1);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key0 + krow + 8 * r;
+    if (j >= T_len) continue;
+    const long long o = ((static_cast<long long>(b) * T_len + j) * H + h) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * n) =
+          __floats2bfloat162_rn(dka[4 * n + 2 * r], dka[4 * n + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * n) =
+          __floats2bfloat162_rn(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+// dq[e] = the n_kt slices of part summed in order, rounded to bf16; n a
+// multiple of 4.
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_sum(const float* __restrict__ part, bf16* __restrict__ dq, long long n, int n_kt) {
+  const long long n4 = n / 4, stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    float4 acc = __ldcs(reinterpret_cast<const float4*>(part) + i);
+    for (int c0 = 1; c0 < n_kt; c0 += 4) {  // four loads in flight, then the adds in order
+      float4 x[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c0 + c < n_kt) x[c] = __ldcs(reinterpret_cast<const float4*>(part + (c0 + c) * n) + i);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c0 + c < n_kt) {
+          acc.x += x[c].x;
+          acc.y += x[c].y;
+          acc.z += x[c].z;
+          acc.w += x[c].w;
+        }
+    }
+    reinterpret_cast<__nv_bfloat162*>(dq)[2 * i] = __floats2bfloat162_rn(acc.x, acc.y);
+    reinterpret_cast<__nv_bfloat162*>(dq)[2 * i + 1] = __floats2bfloat162_rn(acc.z, acc.w);
+  }
+}
+
+// A fused kernel built with another register count than its setmaxnreg
+// plan (REG_ERROR + the count): launched, its consumers could wait forever
+// for registers.
+constexpr int REG_ERROR = 300000;
+
+// Set a kernel's dynamic shared memory above 48 KB, once per process.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool* done) {
+  if (!*done) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    *done = true;
+  }
+  return 0;
+}
+
+// A 4-D map (D, T, H, B) of a bf16 (B, T, H, D) tensor with the given (b,
+// t, h) element strides, [64 rows][64 columns] boxes; a dimension of length
+// 1 is never stepped, so any valid stride stands in for its own.
+template <int D>
+int map_rows(CUtensorMap* map, const bf16* x, int B, int T_len, int H, long long sb,
+             long long st_, long long sh) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T_len),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  auto bytes = [](long long s, int n) { return static_cast<cuuint64_t>(n > 1 ? 2 * s : 16); };
+  const cuuint64_t strides[3] = {bytes(st_, T_len), bytes(sh, H), bytes(sb, B)};
+  const cuuint32_t box[4] = {64, FT, 1, 1};
+  return encode_map(map, x, 4, dims, strides, box);
+}
+
+template <int D>
+int launch_fused(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask,
+                 const bf16* dout, const float* lse, const float* delta, float* dq_part, bf16* dk,
+                 bf16* dv, int B, int T_len, int H, Strides st, Dropout dr,
+                 cudaStream_t stream) {
+  using F = Fused<D>;
+  CUtensorMap qmap, kmap, vmap, omap;
+  const long long so = static_cast<long long>(H) * D;
+  int err = map_rows<D>(&qmap, q, B, T_len, H, st.qb, st.qt, st.qh);
+  if (err == 0) err = map_rows<D>(&kmap, k, B, T_len, H, st.kb, st.kt, st.kh);
+  if (err == 0) err = map_rows<D>(&vmap, v, B, T_len, H, st.vb, st.vt, st.vh);
+  if (err == 0) err = map_rows<D>(&omap, dout, B, T_len, H, T_len * so, so, D);
+  if (err != 0) return err;
+  const bool drop = dr.thr > 0;
+  auto kernel = drop ? flash_bwd_fused<D, true> : flash_bwd_fused<D, false>;
+  static bool smem_set[2] = {false, false};
+  if (!smem_set[drop]) {
+    // setmaxnreg's budget holds only at the launch count it was planned on
+    cudaFuncAttributes attr;
+    const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (attr.numRegs != F::LAUNCH_REGS) return REG_ERROR + attr.numRegs;
+  }
+  if ((err = allow_smem(kernel, F::SMEM, &smem_set[drop])) != 0) return err;
+  const dim3 grid((T_len + FT - 1) / FT, B * H);
+  kernel<<<grid, F::THREADS, F::SMEM, stream>>>(qmap, kmap, vmap, omap, mask, lse, delta,
+                                                dq_part, dk, dv, T_len, H, B, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 __device__ __forceinline__ float dot(const float* a, const float* b) {
   float s = 0.f;
@@ -128,7 +600,7 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
-// ------------------------------------------------------------ dQ (K3), fp32
+// ------------------------------------------------------------ dQ, fp32
 template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(BQ)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
@@ -211,7 +683,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------ dK, dV (K4), fp32
+// ------------------------------------------------------ dK, dV, fp32
 template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(BKV)
 flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
@@ -278,7 +750,7 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
       // One Philox call gives the words of 4 keys (j >> 2) of one row. The
       // 4 lanes that own those keys (lane & 3 = j & 3) each draw the call
       // of one of the next 4 rows, then fetch their word of each row from
-      // its lane: one call per 4 (i, j), as in the forward and K3.
+      // its lane: one call per 4 (i, j), as in the forward and the dQ body.
       uint4 w = make_uint4(0u, 0u, 0u, 0u);
       if (DROPOUT)
         w = philox4x32(make_uint4(j >> 2, q0 + r4 + lane4, bh, 0u), dr.seed0, dr.seed1);
@@ -320,377 +792,155 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ----------------------------------------------------- dK, dV (K4), bf16
-template <int D, bool DROPOUT>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                  const bf16* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int T_len, int H, Strides st, Dropout dr) {
-  constexpr int LD = Rows<D>::LD, KS = Rows<D>::KS, N8 = Rows<D>::N8;
-  extern __shared__ __align__(16) unsigned char smem[];  // mma_smem<D>() bytes
-  auto Qs = reinterpret_cast<bf16 (*)[TILE][LD]>(smem);
-  auto dOs = reinterpret_cast<bf16 (*)[TILE][LD]>(smem + 2 * Rows<D>::BYTES);
-  auto lse_s = reinterpret_cast<float (*)[TILE]>(smem + 4 * Rows<D>::BYTES);
-  auto delta_s = lse_s + 2;
-  if (DROPOUT) {  // the words a graph replay finds there
-    dr.seed0 = dr.ptr[0];
-    dr.seed1 = dr.ptr[1];
-  }
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int key0 = blockIdx.x * TILE;
-
-  zero_pad<D>(Qs[0], 2 * TILE);
-  zero_pad<D>(dOs[0], 2 * TILE);
-  // K and V pass through stage 1 on their way into registers
-  load_rows<D>(Qs[1], k + b * st.kb + h * st.kh, st.kt, key0, T_len);
-  load_rows<D>(dOs[1], v + b * st.vb + h * st.vh, st.vt, key0, T_len);
-  const bf16* qb = q + b * st.qb + h * st.qh;
-  const bf16* ob = dout + static_cast<long long>(b) * T_len * H * D + static_cast<long long>(h) * D;
-  auto load_q = [&](int s, int q0) {
-    load_rows<D>(Qs[s], qb, st.qt, q0, T_len);
-    load_rows<D>(dOs[s], ob, static_cast<long long>(H) * D, q0, T_len);
-    if (threadIdx.x < TILE) {
-      const int t = q0 + threadIdx.x;
-      const long long lrow = static_cast<long long>(bh) * T_len + t;
-      // rows past T: exp2(s - 1e30) = 0, so they add nothing
-      lse_s[s][threadIdx.x] = t < T_len ? lse[lrow] * LOG2E : 1e30f;
-      delta_s[s][threadIdx.x] = t < T_len ? delta[lrow] : 0.f;
-    }
-  };
-  load_q(0, 0);
-  cp_async_commit();
-  cp_async_wait0();
-  __syncthreads();
-  uint32_t kf[KS][4], vf[KS][4];
-  load_a<D>(kf, Qs[1], warp * 16, lane);
-  load_a<D>(vf, dOs[1], warp * 16, lane);
-  __syncthreads();  // stage 1 is free for the ring
-
-  // this lane's keys: rows g and g + 8 of the warp's 16
-  bool key_ok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = key0 + warp * 16 + g + 8 * r;
-    key_ok[r] = j < T_len && !(mask != nullptr && mask[static_cast<long long>(b) * T_len + j]);
-  }
-  const int u = g & 3;  // this lane's place among the 4 lanes of one key group
-  const uint32_t jg = static_cast<uint32_t>((key0 + warp * 16 + (g & ~3)) / 4 + 2 * (u >> 1));
-
-  float dka[N8][4], dva[N8][4];
-#pragma unroll
-  for (int n = 0; n < N8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  const int n_qt = (T_len + TILE - 1) / TILE;
-#pragma unroll 1
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int s = qt & 1, q0 = qt * TILE;
-    if (qt + 1 < n_qt) load_q(s ^ 1, q0 + TILE);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-
-    // element e of tile n: key row g + 8 (e >> 1), query 8n + 2t4 + (e & 1)
-    float p[8][4], ds[8][4];
-    mma_a_bt<D>(p, kf, Qs[s], lane);  // S^T = K Q^T, then P^T in place
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[n][e] = key_ok[e >> 1]
-                      ? exp2f(fmaf(p[n][e], LOG2E, -lse_s[s][n * 8 + 2 * t4 + (e & 1)]))
-                      : 0.f;
-    mma_a_bt<D>(ds, vf, dOs[s], lane);  // dP^T = V dO^T, then dS^T in place
-
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      uint32_t keep = 0xfu;
-      if (DROPOUT) {
-        const uint32_t i = static_cast<uint32_t>(q0 + n * 8 + 2 * t4 + (u & 1));
-        const uint4 w = philox4x32(make_uint4(jg, i, static_cast<uint32_t>(bh), 0u),
-                                   dr.seed0, dr.seed1);
-        // element e of this lane is word u of lane e's call (e = u ^ r)
-        keep = ((philox_word(w, u) >> 8) >= dr.thr ? 1u : 0u) << u;
-#pragma unroll
-        for (int r = 1; r < 4; ++r) {
-          const uint32_t got = __shfl_xor_sync(FULL, philox_word(w, u ^ r), 4 * r);
-          keep |= ((got >> 8) >= dr.thr ? 1u : 0u) << (u ^ r);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float scale = DROPOUT ? ((keep >> e) & 1u ? dr.inv_keep : 0.f) : 1.f;
-        ds[n][e] = p[n][e] * (ds[n][e] * scale - delta_s[s][n * 8 + 2 * t4 + (e & 1)]);
-        p[n][e] *= scale;  // P_dropped, the operand of dV
-      }
-    }
-
-    mma_c_b<D>(dva, p, dOs[s], lane);  // dV += P_dropped^T dO
-    mma_c_b<D>(dka, ds, Qs[s], lane);  // dK += dS^T Q
-    __syncthreads();  // every warp is done with stage s before it is refilled
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = key0 + warp * 16 + g + 8 * r;
-    if (j >= T_len) continue;
-    const long long o = ((static_cast<long long>(b) * T_len + j) * H + h) * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * n) =
-          __floats2bfloat162_rn(dka[n][2 * r], dka[n][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * n) =
-          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
-    }
-  }
-}
-
-// --------------------------------------------------------------- dQ (K3), bf16
-template <int D, bool DROPOUT>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                 const bf16* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dq, int T_len, int H,
-                 Strides st, Dropout dr) {
-  constexpr int LD = Rows<D>::LD, KS = Rows<D>::KS, N8 = Rows<D>::N8;
-  extern __shared__ __align__(16) unsigned char smem[];  // mma_smem<D>() bytes
-  auto Ks = reinterpret_cast<bf16 (*)[TILE][LD]>(smem);
-  auto Vs = reinterpret_cast<bf16 (*)[TILE][LD]>(smem + 2 * Rows<D>::BYTES);
-  auto valid = reinterpret_cast<float (*)[TILE]>(smem + 4 * Rows<D>::BYTES);
-  if (DROPOUT) {  // the words a graph replay finds there
-    dr.seed0 = dr.ptr[0];
-    dr.seed1 = dr.ptr[1];
-  }
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * TILE;
-
-  zero_pad<D>(Ks[0], 2 * TILE);
-  zero_pad<D>(Vs[0], 2 * TILE);  // dO's columns D..DP-1 and V's: both are read over DP
-  const bf16* kb = k + b * st.kb + h * st.kh;
-  const bf16* vb = v + b * st.vb + h * st.vh;
-  auto load_kv = [&](int s, int k0) {
-    load_rows<D>(Ks[s], kb, st.kt, k0, T_len);
-    load_rows<D>(Vs[s], vb, st.vt, k0, T_len);
-    if (threadIdx.x < TILE) {
-      const int t = k0 + threadIdx.x;
-      valid[s][threadIdx.x] =
-          (t < T_len && !(mask != nullptr && mask[static_cast<long long>(b) * T_len + t]))
-              ? 1.f : 0.f;
-    }
-  };
-  // Q and dO pass through stage 1 on their way into registers
-  load_rows<D>(Ks[1], q + b * st.qb + h * st.qh, st.qt, q0, T_len);
-  load_rows<D>(Vs[1],
-               dout + static_cast<long long>(b) * T_len * H * D + static_cast<long long>(h) * D,
-               static_cast<long long>(H) * D, q0, T_len);
-  load_kv(0, 0);
-  cp_async_commit();
-  cp_async_wait0();
-  __syncthreads();
-  uint32_t qf[KS][4], dof[KS][4];
-  load_a<D>(qf, Ks[1], warp * 16, lane);
-  load_a<D>(dof, Vs[1], warp * 16, lane);
-  __syncthreads();  // stage 1 is free for the ring
-
-  // this lane's query rows: g and g + 8 of the warp's 16
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = q0 + warp * 16 + g + 8 * r;
-    const long long lrow = static_cast<long long>(bh) * T_len + t;
-    // rows past T: exp2(s - 1e30) = 0, and they are not stored
-    lse_r[r] = t < T_len ? lse[lrow] * LOG2E : 1e30f;
-    delta_r[r] = t < T_len ? delta[lrow] : 0.f;
-  }
-  const bool odd = t4 & 1;
-  const uint32_t drow = static_cast<uint32_t>(q0 + warp * 16 + g + (odd ? 8 : 0));
-
-  float acc[N8][4];
-#pragma unroll
-  for (int n = 0; n < N8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int n_kt = (T_len + TILE - 1) / TILE;
-#pragma unroll 1
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int s = kt & 1, k0 = kt * TILE;
-    if (kt + 1 < n_kt) load_kv(s ^ 1, k0 + TILE);
-    cp_async_commit();  // possibly empty: one group per iteration
-    cp_async_wait1();   // tile kt has landed
-    __syncthreads();
-
-    // element e of tile n: query row g + 8 (e >> 1), key 8n + 2t4 + (e & 1)
-    float p[8][4], ds[8][4];
-    mma_a_bt<D>(p, qf, Ks[s], lane);  // S = Q K^T, then P in place
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        // masked keys and keys past T get an explicit 0, not exp2 of a huge number
-        p[n][e] = valid[s][n * 8 + 2 * t4 + (e & 1)] != 0.f
-                      ? exp2f(fmaf(p[n][e], LOG2E, -lse_r[e >> 1]))
-                      : 0.f;
-    mma_a_bt<D>(ds, dof, Vs[s], lane);  // dP = dO V^T, then dS in place
-
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float scale[4] = {1.f, 1.f, 1.f, 1.f};
-      if (DROPOUT) {
-        // K2's exchange: the even lane draws row g's call, the odd lane row
-        // g + 8's, and they swap the two words the other needs
-        const uint32_t jg = static_cast<uint32_t>((k0 + n * 8) / 4 + (t4 >> 1));
-        const uint4 w = philox4x32(make_uint4(jg, drow, static_cast<uint32_t>(bh), 0u),
-                                   dr.seed0, dr.seed1);
-        const uint32_t own0 = odd ? w.z : w.x, own1 = odd ? w.w : w.y;
-        const uint32_t got0 = __shfl_xor_sync(FULL, odd ? w.x : w.z, 1);
-        const uint32_t got1 = __shfl_xor_sync(FULL, odd ? w.y : w.w, 1);
-        const uint32_t wd[4] = {odd ? got0 : own0, odd ? got1 : own1,
-                                odd ? own0 : got0, odd ? own1 : got1};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) scale[e] = (wd[e] >> 8) >= dr.thr ? dr.inv_keep : 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ds[n][e] = p[n][e] * (ds[n][e] * scale[e] - delta_r[e >> 1]);
-        p[n][e] = ds[n][e] - __bfloat162float(__float2bfloat16(ds[n][e]));  // dS - bf16(dS)
-      }
-    }
-
-    mma_c_b<D>(acc, ds, Ks[s], lane);  // dQ += bf16(dS) K
-    mma_c_b<D>(acc, p, Ks[s], lane);   // dQ += bf16(dS - bf16(dS)) K
-    __syncthreads();  // every warp is done with stage s before it is refilled
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = q0 + warp * 16 + g + 8 * r;
-    if (t >= T_len) continue;
-    bf16* op = dq + ((static_cast<long long>(b) * T_len + t) * H + h) * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
-}
-
-template <int D>
-constexpr int mma_smem() { return 4 * Rows<D>::BYTES + 4 * TILE * sizeof(float); }
 template <int D>
 constexpr int fp32_smem() { return 2 * BQ * D * sizeof(float) + 2 * BQ * sizeof(float); }
 
-template <typename T, int D>
-void launch_dq(const void* q, const void* k, const void* v, const uint8_t* mask,
-               const void* dout, const float* lse, const float* delta, void* dq, int B,
-               int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
+template <int D>
+void launch_dq_f32(const float* q, const float* k, const float* v, const uint8_t* mask,
+                   const float* dout, const float* lse, const float* delta, float* dq, int B,
+                   int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
   static bool opted[2] = {false, false};
-  dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  if constexpr (sizeof(T) == 2) {
-    auto kernel = dr.thr > 0 ? &flash_bwd_dq_mma<D, true> : &flash_bwd_dq_mma<D, false>;
-    opt_in_smem(kernel, mma_smem<D>(), opted[dr.thr > 0]);
-    kernel<<<grid, 128, mma_smem<D>(), stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), T_len, H, st,
-        dr);
-  } else {
-    auto kernel = dr.thr > 0 ? &flash_bwd_dq<D, true> : &flash_bwd_dq<D, false>;
-    opt_in_smem(kernel, fp32_smem<D>(), opted[dr.thr > 0]);
-    kernel<<<grid, BQ, fp32_smem<D>(), stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), mask, static_cast<const float*>(dout), lse, delta,
-        static_cast<float*>(dq), T_len, H, st, dr);
-  }
+  auto kernel = dr.thr > 0 ? &flash_bwd_dq<D, true> : &flash_bwd_dq<D, false>;
+  opt_in_smem(kernel, fp32_smem<D>(), opted[dr.thr > 0]);
+  kernel<<<dim3((T_len + BQ - 1) / BQ, B * H), BQ, fp32_smem<D>(), stream>>>(
+      q, k, v, mask, dout, lse, delta, dq, T_len, H, st, dr);
 }
 
-template <typename T, int D>
-void launch_dkv(const void* q, const void* k, const void* v, const uint8_t* mask,
-                const void* dout, const float* lse, const float* delta, void* dk, void* dv,
-                int B, int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
+template <int D>
+void launch_dkv_f32(const float* q, const float* k, const float* v, const uint8_t* mask,
+                    const float* dout, const float* lse, const float* delta, float* dk, float* dv,
+                    int B, int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
   static bool opted[2] = {false, false};
-  dim3 grid((T_len + BKV - 1) / BKV, B * H);
-  if constexpr (sizeof(T) == 2) {
-    auto kernel = dr.thr > 0 ? &flash_bwd_dkv_mma<D, true> : &flash_bwd_dkv_mma<D, false>;
-    opt_in_smem(kernel, mma_smem<D>(), opted[dr.thr > 0]);
-    kernel<<<grid, 128, mma_smem<D>(), stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), T_len, H, st, dr);
-  } else {
-    auto kernel = dr.thr > 0 ? &flash_bwd_dkv<D, true> : &flash_bwd_dkv<D, false>;
-    opt_in_smem(kernel, fp32_smem<D>(), opted[dr.thr > 0]);
-    kernel<<<grid, BKV, fp32_smem<D>(), stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), mask, static_cast<const float*>(dout), lse, delta,
-        static_cast<float*>(dk), static_cast<float*>(dv), T_len, H, st, dr);
-  }
+  auto kernel = dr.thr > 0 ? &flash_bwd_dkv<D, true> : &flash_bwd_dkv<D, false>;
+  opt_in_smem(kernel, fp32_smem<D>(), opted[dr.thr > 0]);
+  kernel<<<dim3((T_len + BKV - 1) / BKV, B * H), BKV, fp32_smem<D>(), stream>>>(
+      q, k, v, mask, dout, lse, delta, dk, dv, T_len, H, st, dr);
 }
 
 }  // namespace
 
-// Shared arguments: dtype 0 = float32, 1 = bfloat16; head_dim one of
-// FA_HEAD_DIMS; q, k, v (B, T, H, D) with the given (b, t, h) element
-// strides and unit stride along D; mask (B, T) bool, True = padding, or
-// null; dout (B, T, H, D) contiguous in q's dtype; lse and delta (B, H, T)
-// fp32; the outputs (B, T, H, D) contiguous in q's dtype; thr = floor(p *
-// 2^24) (0: no dropout), inv_keep = 1/(1-p), seed_ptr the forward's two
-// seed words in device memory (null without dropout). Each returns
-// cudaGetLastError() after its launch.
-#define FA_BWD_CASE(CALL, DD)                                             \
-  if (head_dim == DD) {                                                   \
-    if (dtype == 1) CALL(bf16, DD);                                       \
-    else if (dtype == 0) CALL(float, DD);                                 \
-    else return static_cast<int>(cudaErrorInvalidValue);                  \
-    return static_cast<int>(cudaGetLastError());                          \
-  }
+// Shared arguments: head_dim one of FA_HEAD_DIMS; q, k, v (B, T, H, D) with
+// the given (b, t, h) element strides and unit stride along D; mask (B, T)
+// bool, True = padding, or null; dout (B, T, H, D) contiguous in q's dtype;
+// lse and delta (B, H, T) fp32; the outputs (B, T, H, D) contiguous;
+// thr = floor(p * 2^24) (0: no dropout), inv_keep = 1/(1-p), seed_ptr the
+// forward's two seed words in device memory (null without dropout). Each
+// returns cudaGetLastError() after its launch, or a tensor-map error code
+// (hopper.cuh TMA_ERROR).
 
-extern "C" int flash_attention_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
-                                      const void* v, const void* mask, const void* dout,
-                                      const void* lse, const void* delta, void* dq, int B,
-                                      int T_len, int H, long long sqb, long long sqt,
-                                      long long sqh, long long skb, long long skt,
-                                      long long skh, long long svb, long long svt,
-                                      long long svh, unsigned thr, float inv_keep,
-                                      const void* seed_ptr, void* stream) {
+// delta (B, H, T) fp32 = rowsum(dout * out), both (B, T, H, D) contiguous in
+// dtype (0 = float32, 1 = bfloat16), D any.
+extern "C" int flash_attention_bwd_prep(int dtype, const void* dout, const void* out,
+                                        void* delta, int B, int T_len, int H, int D,
+                                        void* stream) {
+  const long long rows = static_cast<long long>(B) * T_len * H;
+  const unsigned blocks = static_cast<unsigned>((rows + 255) / 256);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t el = dtype == 1 ? 2 : 4;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(out);
+  const bool vec = (D * el) % 16 == 0 && (ptrs & 15) == 0;
+#define FA_PREP(TT)                                                                        \
+  if (vec)                                                                                 \
+    flash_bwd_prep<TT, true><<<blocks, 256, 0, st>>>(                                      \
+        static_cast<const TT*>(dout), static_cast<const TT*>(out),                         \
+        static_cast<float*>(delta), rows, T_len, H, D);                                    \
+  else                                                                                     \
+    flash_bwd_prep<TT, false><<<blocks, 256, 0, st>>>(                                     \
+        static_cast<const TT*>(dout), static_cast<const TT*>(out),                         \
+        static_cast<float*>(delta), rows, T_len, H, D)
+  if (rows == 0) return 0;
+  if (dtype == 1) FA_PREP(bf16);
+  else if (dtype == 0) FA_PREP(float);
+  else return static_cast<int>(cudaErrorInvalidValue);
+#undef FA_PREP
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused bf16 pass: dk, dv and dq_part (ceil(T / 64), B, T, H, D) fp32,
+// the dQ partial of each key tile of 64 keys.
+extern "C" int flash_attention_bwd_fused(int head_dim, const void* q, const void* k,
+                                         const void* v, const void* mask, const void* dout,
+                                         const void* lse, const void* delta, void* dq_part,
+                                         void* dk, void* dv, int B, int T_len, int H,
+                                         long long sqb, long long sqt, long long sqh,
+                                         long long skb, long long skt, long long skh,
+                                         long long svb, long long svt, long long svh,
+                                         unsigned thr, float inv_keep, const void* seed_ptr,
+                                         void* stream) {
   const Strides st{sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
   const Dropout dr{thr, inv_keep, static_cast<const uint32_t*>(seed_ptr), 0u, 0u};
-#define FA_DQ(TT, DD)                                                                    \
-  launch_dq<TT, DD>(q, k, v, static_cast<const uint8_t*>(mask), dout,                    \
-                    static_cast<const float*>(lse), static_cast<const float*>(delta), dq, \
-                    B, T_len, H, st, dr, static_cast<cudaStream_t>(stream))
-#define FA_DQ_CASE(DD) FA_BWD_CASE(FA_DQ, DD)
-  FA_HEAD_DIMS(FA_DQ_CASE)
-#undef FA_DQ_CASE
-#undef FA_DQ
+#define FA_FUSED_CASE(DD)                                                                    \
+  if (head_dim == DD)                                                                        \
+    return launch_fused<DD>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),        \
+                            static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask),  \
+                            static_cast<const bf16*>(dout), static_cast<const float*>(lse),  \
+                            static_cast<const float*>(delta), static_cast<float*>(dq_part),  \
+                            static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, T_len, H, st, \
+                            dr, static_cast<cudaStream_t>(stream));
+  FA_HEAD_DIMS(FA_FUSED_CASE)
+#undef FA_FUSED_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int flash_attention_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
-                                       const void* v, const void* mask, const void* dout,
-                                       const void* lse, const void* delta, void* dk, void* dv,
-                                       int B, int T_len, int H, long long sqb, long long sqt,
-                                       long long sqh, long long skb, long long skt,
-                                       long long skh, long long svb, long long svt,
-                                       long long svh, unsigned thr, float inv_keep,
-                                       const void* seed_ptr, void* stream) {
+// dq (n elements, bf16) = the n_kt slices of part (n_kt, n) fp32 summed in
+// order; n a multiple of 4.
+extern "C" int flash_attention_bwd_dq_sum(const void* part, void* dq, long long n, int n_kt,
+                                          void* stream) {
+  const long long blocks = (n / 4 + 255) / 256;
+  flash_bwd_dq_sum<<<static_cast<unsigned>(blocks < 8192 ? (blocks > 0 ? blocks : 1) : 8192), 256,
+                     0, static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(part),
+                                                             static_cast<bf16*>(dq), n, n_kt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32 dQ (FMA body).
+extern "C" int flash_attention_bwd_dq_f32(int head_dim, const void* q, const void* k,
+                                          const void* v, const void* mask, const void* dout,
+                                          const void* lse, const void* delta, void* dq, int B,
+                                          int T_len, int H, long long sqb, long long sqt,
+                                          long long sqh, long long skb, long long skt,
+                                          long long skh, long long svb, long long svt,
+                                          long long svh, unsigned thr, float inv_keep,
+                                          const void* seed_ptr, void* stream) {
   const Strides st{sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
   const Dropout dr{thr, inv_keep, static_cast<const uint32_t*>(seed_ptr), 0u, 0u};
-#define FA_DKV(TT, DD)                                                                   \
-  launch_dkv<TT, DD>(q, k, v, static_cast<const uint8_t*>(mask), dout,                   \
-                     static_cast<const float*>(lse), static_cast<const float*>(delta),    \
-                     dk, dv, B, T_len, H, st, dr, static_cast<cudaStream_t>(stream))
-#define FA_DKV_CASE(DD) FA_BWD_CASE(FA_DKV, DD)
+#define FA_DQ_CASE(DD)                                                                          \
+  if (head_dim == DD) {                                                                         \
+    launch_dq_f32<DD>(static_cast<const float*>(q), static_cast<const float*>(k),               \
+                      static_cast<const float*>(v), static_cast<const uint8_t*>(mask),          \
+                      static_cast<const float*>(dout), static_cast<const float*>(lse),          \
+                      static_cast<const float*>(delta), static_cast<float*>(dq), B, T_len, H,   \
+                      st, dr, static_cast<cudaStream_t>(stream));                               \
+    return static_cast<int>(cudaGetLastError());                                                \
+  }
+  FA_HEAD_DIMS(FA_DQ_CASE)
+#undef FA_DQ_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// fp32 dK, dV (FMA body).
+extern "C" int flash_attention_bwd_dkv_f32(int head_dim, const void* q, const void* k,
+                                           const void* v, const void* mask, const void* dout,
+                                           const void* lse, const void* delta, void* dk,
+                                           void* dv, int B, int T_len, int H, long long sqb,
+                                           long long sqt, long long sqh, long long skb,
+                                           long long skt, long long skh, long long svb,
+                                           long long svt, long long svh, unsigned thr,
+                                           float inv_keep, const void* seed_ptr, void* stream) {
+  const Strides st{sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
+  const Dropout dr{thr, inv_keep, static_cast<const uint32_t*>(seed_ptr), 0u, 0u};
+#define FA_DKV_CASE(DD)                                                                          \
+  if (head_dim == DD) {                                                                          \
+    launch_dkv_f32<DD>(static_cast<const float*>(q), static_cast<const float*>(k),               \
+                       static_cast<const float*>(v), static_cast<const uint8_t*>(mask),          \
+                       static_cast<const float*>(dout), static_cast<const float*>(lse),          \
+                       static_cast<const float*>(delta), static_cast<float*>(dk),                \
+                       static_cast<float*>(dv), B, T_len, H, st, dr,                             \
+                       static_cast<cudaStream_t>(stream));                                       \
+    return static_cast<int>(cudaGetLastError());                                                 \
+  }
   FA_HEAD_DIMS(FA_DKV_CASE)
 #undef FA_DKV_CASE
-#undef FA_DKV
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,9 +1,9 @@
-// The tile steps shared by the bf16 attention kernels on the tensor cores:
-// the forward K2 (flash_attention.cu) and the dQ and dK/dV backwards K3 and
-// K4 (flash_attention_bwd.cu). A block of 4 warps holds 64-row tiles of
-// (T, D) bf16 operands in shared memory; each warp owns 16 rows of the
-// other operand as mma.sync fragments in registers. The design notes are in
-// the two .cu files.
+// The tile steps of the bf16 attention forward K2 (flash_attention.cu) on
+// mma.sync: a block of 4 warps holds 64-row tiles of (T, D) bf16 operands
+// in shared memory; each warp owns 16 rows of the other operand as mma.sync
+// fragments in registers. The design notes are in flash_attention.cu. The
+// head sizes and the shared-memory opt-in also serve the backward
+// (flash_attention_bwd.cu).
 
 #pragma once
 #include <cuda_runtime.h>

@@ -1,7 +1,7 @@
-// The tensor-core and async-copy building blocks shared by the bf16 kernels
-// K2 (flash_attention.cu), K3 and K4 (flash_attention_bwd.cu), and by the
-// fp32 FMA bodies of K1 and K6 (cp.async); K1 and K6 run bf16 on wgmma and
-// TMA (conv_gemm.cuh).
+// The tensor-core and async-copy building blocks of the bf16 attention
+// forward K2 (flash_attention.cu) and of the fp32 FMA bodies of K1 and K6
+// (cp.async); K1, K6 and the attention backward run bf16 on wgmma and TMA
+// (hopper.cuh).
 // All of them are sm_80+ instructions that Hopper keeps: cp.async for
 // global -> shared copies, ldmatrix to load mma.sync fragments from shared
 // memory, and mma.sync m16n8k16 bf16 -> fp32.

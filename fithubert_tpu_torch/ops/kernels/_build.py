@@ -156,10 +156,12 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(_lib_path(name))
 
 
-# Codes a launch returns besides cudaError_t (csrc/conv_gemm.cuh): a TMA
+# Codes a launch returns besides cudaError_t (csrc/hopper.cuh): a TMA
 # tensor map that cuTensorMapEncodeTiled refused (TMA_ERROR + its CUresult),
-# or a CUDA driver without that entry point.
-TMA_ERROR, TMA_MISSING = 100000, 200000
+# or a CUDA driver without that entry point; a kernel whose setmaxnreg plan
+# does not match the register count ptxas gave it (REG_ERROR + the count,
+# csrc/flash_attention_bwd.cu).
+TMA_ERROR, TMA_MISSING, REG_ERROR = 100000, 200000, 300000
 
 
 def check(err: int, what: str) -> None:
@@ -169,5 +171,8 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: the CUDA driver has no cuTensorMapEncodeTiled")
     if TMA_ERROR <= err < TMA_MISSING:
         raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed, CUresult {err - TMA_ERROR}")
+    if REG_ERROR <= err < REG_ERROR + 256:
+        raise RuntimeError(f"{what}: built with {err - REG_ERROR} registers a thread, not the "
+                           "count its setmaxnreg plan assumes; not launched")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

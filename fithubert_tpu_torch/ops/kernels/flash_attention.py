@@ -11,21 +11,27 @@ custom VJP (``:271-357``). q is pre-scaled by the caller;
 
 On a CUDA tensor the forward launches ``csrc/flash_attention.cu`` (an fp32
 online softmax that also returns the per-row logsumexp (B, H, T)) and the
-backward launches ``csrc/flash_attention_bwd.cu``: one kernel for dQ and one
-for dK and dV. In bf16 the forward and the dK/dV kernel multiply on the
-tensor cores as the TPU kernels do (bf16 operands, fp32 sums, P and dS
-rounded to bf16 before their second product). On a CPU tensor both run
-their plain versions, which mirror ``_attention_reference`` (``:35-46``)
-with an fp32 softmax and the backward formulas of ``:295-357``.
+backward ``csrc/flash_attention_bwd.cu``. In bf16 the backward is three
+launches: a pre-pass for delta = rowsum(dO * O), one fused pass on Hopper's
+wgmma and TMA that writes dK, dV and an fp32 dQ partial per key tile, and a
+pass that sums the partials in key-tile order (``BWD_KEY_TILE``,
+``dq_scratch_shape``); ``attention_bwd_tiles_plain`` and ``dq_sum_plain``
+are the plain versions of the last two. In fp32 the pre-pass is followed by
+an FMA body for dQ and one for dK and dV. In bf16 the kernels multiply on
+the tensor cores as the TPU kernels do (bf16 operands, fp32 sums, P and dS
+rounded to bf16 before their second product; dS enters dQ in two bf16
+parts). On a CPU tensor both directions run their plain versions, which
+mirror ``_attention_reference`` (``:35-46``) with an fp32 softmax and the
+backward formulas of ``:295-357``.
 
 The kernels are compiled for the head sizes ``HEAD_DIMS``; any other D up
 to 128 is zero-padded to the next of them and the results cropped
 (``padded_attention``, ``padded_attention_bwd``), as XLA pads the TPU
 kernel's lane dimension (``:14-17``). That is exact: q is pre-scaled by the
 caller, zero columns add nothing to Q K^T, and zero columns of V give zero
-output columns, which are dropped. The bf16 kernels copy each (b, t, h)
-row in 16-byte chunks (``rows_aligned``); operands whose rows are not so
-aligned are copied too.
+output columns, which are dropped. The bf16 kernels read each (b, t, h) row
+in 16-byte chunks (``rows_aligned``); operands whose rows are not so
+aligned are copied.
 
 The dropout seed is a (2,) int32 tensor on the data's device, which the
 kernels read from device memory when they start: a CUDA graph
@@ -38,8 +44,8 @@ the undropped sum (``:100-106``). The keep mask is a pure function of
 Philox-4x32-10 (``philox.py``) on the counter (j >> 2, i, z, 0) under the
 key (seed 0, seed 1), word j & 3, kept when its top 24 bits reach floor(p * 2^24) as in
 ``_keep_mask`` (``:49-60``). Unlike the TPU's per-block streams, this does
-not depend on how a kernel tiles, so the forward, the dQ and the dK/dV
-kernels and the plain versions all draw the same mask.
+not depend on how a kernel tiles, so the forward, the backward kernels and
+the plain versions all draw the same mask.
 
 Rows whose keys are all padding differ, as in the JAX package: the kernel
 gives out = 0 and lse = -1e30, the plain forward a uniform softmax over the
@@ -72,8 +78,21 @@ from fithubert_tpu_torch.ops.kernels.philox import (
 
 KERNEL = "flash_attention_fwd_cuda"
 KERNEL_DROPOUT = "flash_attention_fwd_dropout_cuda"
-KERNEL_DQ = "flash_attention_bwd_dq_cuda"
-KERNEL_DKV = "flash_attention_bwd_dkv_cuda"
+# the backward: in bf16 one launch of each of BWD_KERNELS, in fp32 the
+# pre-pass and the two FMA bodies
+KERNEL_BWD_PREP = "flash_attention_bwd_prep_cuda"
+KERNEL_BWD = "flash_attention_bwd_cuda"
+KERNEL_DQ_SUM = "flash_attention_bwd_dq_sum_cuda"
+KERNEL_DQ_F32 = "flash_attention_bwd_dq_f32_cuda"
+KERNEL_DKV_F32 = "flash_attention_bwd_dkv_f32_cuda"
+BWD_KERNELS = (KERNEL_BWD_PREP, KERNEL_BWD, KERNEL_DQ_SUM)
+# keys per block of the fused backward (one consumer warpgroup) and so per
+# dQ partial
+BWD_KEY_TILE = 64
+# registers a thread that every instantiation of the fused backward must be
+# built with, the count its setmaxnreg plan hands out (Fused::LAUNCH_REGS);
+# at another the launch is refused (_build.REG_ERROR)
+BWD_FUSED_REGS = 128
 NEG_INF = -1e30
 # head sizes the kernels are compiled for (csrc/flash_attention*.cu
 # FA_HEAD_DIMS); others pad to the next one
@@ -135,29 +154,77 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def attention_bwd_plain(q, k, v, key_padding_mask, out, lse, dout,
-                        dropout_p: float = 0.0, seed: Optional[Seed] = None):
-    """(dq, dk, dv) in q's dtype by the formulas of the backward kernels:
-    P = exp(s - lse) with masked keys zeroed explicitly, dV = P_dropped^T dO,
-    dS = P * (dP_dropped - rowsum(dO * O)), dQ = dS K, dK = dS^T Q."""
+def bwd_prep_plain(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (B, H, T)."""
+    return (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def _probs_and_ds(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
+    """P with masked keys zeroed explicitly, P_dropped and dS, each (B, H,
+    T, T) fp32, by the formulas of the backward kernels."""
     logits = _logits(q, k, key_padding_mask)
     p = torch.exp(logits - lse[..., None])
     if key_padding_mask is not None:
         p = p.masked_fill(key_padding_mask[:, None, None, :], 0.0)
-    do32 = dout.float()
-    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
     pv = p
     if dropout_p > 0.0:
         b, t, h, _d = q.shape
         scale = torch.where(keep_mask(b, h, t, dropout_p, seed, q.device),
                             1.0 / (1.0 - dropout_p), 0.0)
         pv, dp = p * scale, dp * scale
-    delta = (do32 * out.float()).sum(-1).permute(0, 2, 1)  # (B, H, T)
-    ds = p * (dp - delta[..., None])
+    return pv, p * (dp - delta[..., None])
+
+
+def attention_bwd_plain(q, k, v, key_padding_mask, out, lse, dout,
+                        dropout_p: float = 0.0, seed: Optional[Seed] = None):
+    """(dq, dk, dv) in q's dtype by the formulas of the backward kernels:
+    P = exp(s - lse) with masked keys zeroed explicitly, dV = P_dropped^T dO,
+    dS = P * (dP_dropped - rowsum(dO * O)), dQ = dS K, dK = dS^T Q."""
+    pv, ds = _probs_and_ds(q, k, v, key_padding_mask, lse, dout, bwd_prep_plain(out, dout),
+                           dropout_p, seed)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", pv, do32)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pv, dout.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def dq_scratch_shape(b: int, t: int, h: int, d: int) -> Tuple[int, ...]:
+    """The fp32 dQ partials of the fused backward: one (B, T, H, D) slice per
+    tile of ``BWD_KEY_TILE`` keys."""
+    return (-(-t // BWD_KEY_TILE), b, t, h, d)
+
+
+def attention_bwd_tiles_plain(q, k, v, key_padding_mask, lse, dout, delta,
+                              dropout_p: float = 0.0, seed: Optional[Seed] = None):
+    """The fused backward's arithmetic: (dQ partials ``dq_scratch_shape`` in
+    fp32, dK, dV in q's dtype). P_dropped and dS are rounded to q's dtype
+    before dV and dK; dS enters dQ as hi + lo, hi = dS and lo = dS - hi each
+    rounded to q's dtype; partial i sums keys [i * BWD_KEY_TILE, (i + 1) *
+    BWD_KEY_TILE) in fp32."""
+    b, t, h, d = q.shape
+    pv, ds = _probs_and_ds(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed)
+
+    def rnd(x):  # an operand as the kernel rounds it
+        return x.to(q.dtype).float()
+
+    hi = rnd(ds)
+    ds2 = hi + rnd(ds - hi)
+    dk = torch.einsum("bhqk,bqhd->bkhd", hi, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", rnd(pv), dout.float())
+    k32, n = k.float(), BWD_KEY_TILE
+    parts = torch.stack([torch.einsum("bhqk,bkhd->bqhd", ds2[..., j:j + n], k32[:, j:j + n])
+                         for j in range(0, t, n)])
+    assert parts.shape == dq_scratch_shape(b, t, h, d)
+    return parts, dk.to(q.dtype), dv.to(q.dtype)
+
+
+def dq_sum_plain(parts: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """dQ = the partials summed in key-tile order in fp32, then rounded."""
+    acc = parts[0]
+    for x in parts[1:]:
+        acc = acc + x
+    return acc.to(dtype)
 
 
 def padded_head_dim(d: int) -> int:
@@ -180,7 +247,8 @@ def rows_aligned(shape, strides, storage_offset: int, itemsize: int, align: int 
 
 def _readable(x: torch.Tensor) -> bool:
     """Whether the kernels can read x in place: unit stride along D and, in
-    bf16, every row on a 16-byte boundary (cp.async copies 16 bytes)."""
+    bf16, every row on a 16-byte boundary (cp.async and TMA copy 16-byte
+    chunks)."""
     return x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or (
         rows_aligned(x.shape, x.stride(), x.storage_offset(), x.element_size())
         and x.untyped_storage().data_ptr() % 16 == 0))
@@ -232,12 +300,30 @@ def _fwd_fn():
 @functools.lru_cache(maxsize=None)
 def _bwd_fns():
     lib = _build.load("flash_attention_bwd")
-    fns = (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv)
-    for fn, n_out in zip(fns, (1, 2)):
+    strided = [ctypes.c_int] * 3 + [ctypes.c_longlong] * 9 + _SEED_TAIL  # B, T, H, strides
+    fns = {"prep": lib.flash_attention_bwd_prep, "fused": lib.flash_attention_bwd_fused,
+           "dq_sum": lib.flash_attention_bwd_dq_sum, "dq_f32": lib.flash_attention_bwd_dq_f32,
+           "dkv_f32": lib.flash_attention_bwd_dkv_f32}
+    fns["prep"].argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fns["fused"].argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + strided
+    fns["dq_sum"].argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
+                                                      ctypes.c_void_p]
+    fns["dq_f32"].argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + strided
+    fns["dkv_f32"].argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + strided
+    for fn in fns.values():
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * (7 + n_out) \
-            + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 9 + _SEED_TAIL
     return fns
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _on_cuda(what: str, *xs: torch.Tensor) -> None:
+    if any(x.device.type != "cuda" for x in xs):
+        raise ValueError(f"{what} launches a CUDA kernel: it takes CUDA tensors only "
+                         "(the plain versions run on the CPU)")
 
 
 def _cuda_args(q, k, v, key_padding_mask):
@@ -250,7 +336,7 @@ def _cuda_args(q, k, v, key_padding_mask):
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("q, k and v need unit stride along D")
     if not all(_readable(x) for x in (q, k, v)):
-        # the bf16 kernels copy rows of q, k and v in 16-byte chunks (cp.async)
+        # the bf16 kernels read rows of q, k and v in 16-byte chunks (cp.async, TMA)
         raise ValueError("bf16 q, k and v need every (b, t, h) row on a 16-byte boundary "
                          "(pad_heads copies them)")
     if b * h > 65535:
@@ -275,7 +361,7 @@ def _fwd_kernel(q, k, v, key_padding_mask, dropout_p, seed):
     err = _fwd_fn()(_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     None if mask is None else mask.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), b, t, h, *strides, *_dropout_args(dropout_p, seed),
-                    torch.cuda.current_stream(q.device).cuda_stream)
+                    _stream(q))
     name = KERNEL_DROPOUT if dropout_p > 0.0 else KERNEL
     _build.check(err, name)
     _build.count_launch(name)
@@ -286,13 +372,39 @@ def _flash_cuda(q, k, v, key_padding_mask, dropout_p, seed):
     return padded_attention(_fwd_kernel, q, k, v, key_padding_mask, dropout_p, seed)
 
 
-def _bwd_args(q, k, v, key_padding_mask, lse, dout, delta):
-    """The leading arguments both backward kernels share."""
-    mask, strides = _cuda_args(q, k, v, key_padding_mask)
-    head = [_DTYPE_CODE[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr()]
-    return head, [q.shape[0], q.shape[1], q.shape[2], *strides], mask
+def bwd_prep_cuda(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The pre-pass: delta = rowsum(dO * O), (B, H, T) fp32, from out and
+    dout (B, T, H, D), both contiguous in one dtype, at any D."""
+    if out.dim() != 4 or dout.shape != out.shape or dout.dtype != out.dtype \
+            or out.dtype not in _DTYPE_CODE:
+        raise ValueError("out and dout must be (B, T, H, D) tensors of one float32 or "
+                         "bfloat16 dtype")
+    if not (out.is_contiguous() and dout.is_contiguous()):
+        raise ValueError("out and dout must be contiguous")
+    _on_cuda("bwd_prep_cuda", out, dout)
+    b, t, h, d = out.shape
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
+    err = _bwd_fns()["prep"](_DTYPE_CODE[out.dtype], dout.data_ptr(), out.data_ptr(),
+                             delta.data_ptr(), b, t, h, d, _stream(out))
+    _build.check(err, KERNEL_BWD_PREP)
+    _build.count_launch(KERNEL_BWD_PREP)
+    return delta
+
+
+def dq_sum_cuda(parts: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """dQ (B, T, H, D) in bf16 from the fp32 partials of the fused backward,
+    summed in key-tile order (``dq_sum_plain``)."""
+    if parts.dim() != 5 or parts.dtype != torch.float32 or not parts.is_contiguous():
+        raise ValueError("parts must be a contiguous (key tiles, B, T, H, D) float32 tensor")
+    if dtype != torch.bfloat16 or parts.shape[-1] % 8:
+        raise ValueError("the dQ sum writes bf16 rows of a multiple of 8 elements")
+    _on_cuda("dq_sum_cuda", parts)
+    dq = torch.empty(parts.shape[1:], dtype=dtype, device=parts.device)
+    err = _bwd_fns()["dq_sum"](parts.data_ptr(), dq.data_ptr(), dq.numel(), parts.shape[0],
+                               _stream(parts))
+    _build.check(err, KERNEL_DQ_SUM)
+    _build.count_launch(KERNEL_DQ_SUM)
+    return dq
 
 
 def _check_bwd(q, dout, lse, delta) -> None:
@@ -306,51 +418,62 @@ def _check_bwd(q, dout, lse, delta) -> None:
             raise ValueError(f"{name} must be a contiguous (B, H, T) float32 tensor")
 
 
-def _dq_kernel(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
+def _bwd_head(q, k, v, key_padding_mask, lse, dout, delta):
+    """The pointers every backward kernel of q, k, v takes first, and its
+    trailing (B, T, H, strides) arguments."""
     _check_bwd(q, dout, lse, delta)
-    head, tail, _mask = _bwd_args(q, k, v, key_padding_mask, lse, dout, delta)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _bwd_fns()[0](*head, dq.data_ptr(), *tail, *_dropout_args(dropout_p, seed),
-                        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, KERNEL_DQ)
-    _build.count_launch(KERNEL_DQ)
-    return (dq,)
+    mask, strides = _cuda_args(q, k, v, key_padding_mask)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr()]
+    return ptrs, [q.shape[0], q.shape[1], q.shape[2], *strides]
 
 
-def _dkv_kernel(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
-    _check_bwd(q, dout, lse, delta)
-    head, tail, _mask = _bwd_args(q, k, v, key_padding_mask, lse, dout, delta)
+def bwd_fused_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, seed=None):
+    """The fused bf16 pass at a compiled head size: (dQ partials
+    ``dq_scratch_shape`` fp32, dK, dV)."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the fused backward runs in bfloat16, not {q.dtype}")
+    _on_cuda("bwd_fused_cuda", q, k, v, dout, lse, delta)
+    ptrs, tail = _bwd_head(q, k, v, key_padding_mask, lse, dout, delta)
+    parts = torch.empty(dq_scratch_shape(*q.shape), dtype=torch.float32, device=q.device)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-    err = _bwd_fns()[1](*head, dk.data_ptr(), dv.data_ptr(), *tail,
-                        *_dropout_args(dropout_p, seed),
-                        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, KERNEL_DKV)
-    _build.count_launch(KERNEL_DKV)
-    return dk, dv
+    err = _bwd_fns()["fused"](q.shape[3], *ptrs, parts.data_ptr(), dk.data_ptr(),
+                              dv.data_ptr(), *tail, *_dropout_args(dropout_p, seed), _stream(q))
+    _build.check(err, KERNEL_BWD)
+    _build.count_launch(KERNEL_BWD)
+    return parts, dk, dv
 
 
-def _dqkv_kernels(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
-    args = (q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed)
-    return _dq_kernel(*args) + _dkv_kernel(*args)
+def _bwd_bf16(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
+    parts, dk, dv = bwd_fused_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p,
+                                   seed)
+    return dq_sum_cuda(parts, q.dtype), dk, dv
 
 
-def bwd_dq_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, seed=None):
-    """K3: dQ (B, T, H, D) in q's dtype. ``delta`` is rowsum(dO * O), (B, H, T)."""
-    return padded_attention_bwd(_dq_kernel, q, k, v, key_padding_mask, lse, dout, delta,
-                                dropout_p, seed)[0]
-
-
-def bwd_dkv_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, seed=None):
-    """K4: (dK, dV), each (B, T, H, D) in q's dtype."""
-    return padded_attention_bwd(_dkv_kernel, q, k, v, key_padding_mask, lse, dout, delta,
-                                dropout_p, seed)
+def _bwd_f32(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
+    """The fp32 FMA bodies: dQ, then dK and dV."""
+    ptrs, tail = _bwd_head(q, k, v, key_padding_mask, lse, dout, delta)
+    grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
+    d, seed_args, stream = q.shape[3], _dropout_args(dropout_p, seed), _stream(q)
+    for name, fn, outs in ((KERNEL_DQ_F32, "dq_f32", grads[:1]),
+                           (KERNEL_DKV_F32, "dkv_f32", grads[1:])):
+        err = _bwd_fns()[fn](d, *ptrs, *(x.data_ptr() for x in outs), *tail, *seed_args,
+                             stream)
+        _build.check(err, name)
+        _build.count_launch(name)
+    return tuple(grads)
 
 
 def _flash_bwd_cuda(q, k, v, key_padding_mask, out, lse, dout, dropout_p, seed):
+    """(dq, dk, dv) on the card: the pre-pass, then in bf16 the fused pass
+    and the dQ sum, in fp32 the two FMA bodies."""
+    _on_cuda("the attention backward", q, k, v, out, lse, dout)
     dout = dout.contiguous()
-    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()  # (B, H, T)
-    return padded_attention_bwd(_dqkv_kernels, q, k, v, key_padding_mask, lse, dout, delta,
-                                dropout_p, seed)
+    delta = bwd_prep_cuda(out.contiguous(), dout)
+    bwd = _bwd_bf16 if q.dtype == torch.bfloat16 else _bwd_f32
+    return padded_attention_bwd(bwd, q, k, v, key_padding_mask, lse, dout, delta, dropout_p,
+                                seed)
 
 
 def _on_device(fn_cuda, fn_plain, x, *args):
@@ -363,8 +486,8 @@ def _on_device(fn_cuda, fn_plain, x, *args):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K2 forward, K3 + K4 backward; saves q, k, v, the mask, O, lse and the
-    seed, and regenerates the dropout mask in the backward."""
+    """K2 forward, the fused backward (K3 + K4); saves q, k, v, the mask, O,
+    lse and the seed, and regenerates the dropout mask in the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_padding_mask, dropout_p, seed):

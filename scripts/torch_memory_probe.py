@@ -77,7 +77,7 @@ def main():
     per_step_taps = cs.plus_k5({cf.KERNEL: a * per_step[cf.KERNEL],
                                 cf.KERNEL_PREFIX: a * per_step[cf.KERNEL_PREFIX],
                                 fa.KERNEL: a * (l_t - 1), fa.KERNEL_DROPOUT: a * (l_s - 1),
-                                fa.KERNEL_DQ: a * (l_s - 1), fa.KERNEL_DKV: a * (l_s - 1),
+                                **cs.attn_bwd(a * (l_s - 1)),
                                 kd.KERNEL: 2 * a, cf.KERNEL_BWD: a * per_step[cf.KERNEL_BWD]},
                                exp.distiller, a)
     work = tempfile.TemporaryDirectory(prefix="memory_probe_")

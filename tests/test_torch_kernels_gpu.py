@@ -5,8 +5,10 @@ narrow widths), the teacher's widths, the bf16 GroupNorm prefix kernel,
 widths the bf16 conv GEMM does not take (rejected), K6's
 up pass against K1's output bit for bit, short and odd T at the attention tiles'
 edges, strided q/k/v views, misaligned views (rejected), fully padded
-rows, the attention backward (K3, K4) with and without dropout, and its
-determinism; the seeded dropout (K5) bit for bit, forward and backward;
+rows, the attention backward (the delta pre-pass, the fused wgmma pass at
+D = 16-128 against its plain version, its register count, the dQ sum bit for bit,
+the whole backward against the plain formulas) with and without dropout,
+its determinism and its replay in a CUDA graph; the seeded dropout (K5) bit for bit, forward and backward;
 the conv-stack backward (K6) on ragged T with k < s, k = s and k > s layers
 and on the whole student stack at odd T_in with B > 1, its determinism, and
 its selection as the card's default backward, down to a train step.
@@ -126,13 +128,15 @@ def test_gn_prefix_matches_plain(dev, shape):
 @pytest.mark.parametrize("c0, d", [(12, 64), (96, 64), (64, 96)], ids=["c0_12", "c0_96", "d_96"])
 def test_conv_stack_rejects_widths_the_kernel_does_not_take(dev, c0, d):
     """The bf16 GEMM reads 64-element K chunks (128-byte swizzled TMA rows)
-    that must lie in one tap group: every width a multiple of 64."""
+    that must lie in one tap group: every width a multiple of 64. The
+    kernels' launchers refuse other widths (``conv_stack`` and
+    ``conv_stack_bwd_cuda`` pad them first)."""
     x = torch.randn(2, 50, c0, device=dev, dtype=torch.bfloat16)
     w = torch.randn(1, c0, d, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 64"):
-        cf.conv_stack(x, [w], ((d, 1, 1),))
+        cf._conv_stack_kernels(x, [w], ((d, 1, 1),), None, None)
     with pytest.raises(ValueError, match="multiple of 64"):
-        cf.conv_stack_bwd_cuda(x, [w], torch.randn(2, 50, d, device=dev), ((d, 1, 1),))
+        cf._conv_stack_bwd_kernels(x, [w], torch.randn(2, 50, d, device=dev), ((d, 1, 1),))
 
 
 @pytest.mark.parametrize("case", [c for _n, c in CONV_CASES[1:]], ids=["student", "teacher"])
@@ -181,8 +185,8 @@ def test_flash_attention_matches_plain_on_strided_views(dev, case, dtype):
     assert (out[~rows] == 0).all() and (lse[~rows] == fa.NEG_INF).all()
 
 
-def _head_size_32(dev):
-    q = torch.randn(1, 8, 2, 32, device=dev)
+def _head_size_36(dev):
+    q = torch.randn(1, 8, 2, 36, device=dev)
     return q, q, q
 
 
@@ -192,12 +196,20 @@ def _misaligned_rows(dev):
     return q, q, q
 
 
-@pytest.mark.parametrize("inputs, match", [(_head_size_32, "head sizes"),
+@pytest.mark.parametrize("inputs, match", [(_head_size_36, "head sizes"),
                                            (_misaligned_rows, "16-byte")],
-                         ids=["head_size_32", "misaligned_bf16_rows"])
+                         ids=["head_size_36", "misaligned_bf16_rows"])
 def test_flash_attention_rejects_what_the_kernels_do_not_take(dev, inputs, match):
+    """The launchers refuse what the kernels do not read (flash_attention
+    pads the head size and copies misaligned rows first)."""
+    q, k, v = inputs(dev)
     with pytest.raises(ValueError, match=match):
-        fa.flash_attention(*inputs(dev))
+        fa._fwd_kernel(q, k, v, None, 0.0, None)
+    if q.dtype == torch.bfloat16:
+        lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device=dev)
+        dout = torch.zeros(q.shape, dtype=q.dtype, device=dev)
+        with pytest.raises(ValueError, match=match):
+            fa.bwd_fused_cuda(q, k, v, None, lse, dout, lse)
 
 
 BWD_CASES = [(2, 1, 2, 40), (2, 63, 3, 40), (3, 65, 2, 64), (2, 130, 12, 40),
@@ -241,19 +253,87 @@ def test_attention_backward_matches_plain(dev, case, dtype, dropout_p):
         _close(got[rows], ref[rows], dtype)
         assert (got[~rows] == 0).all()
     fwd = fa.KERNEL_DROPOUT if dropout_p else fa.KERNEL
-    assert _build.LAUNCHES == {fwd: 1, fa.KERNEL_DQ: 1, fa.KERNEL_DKV: 1}
+    bwd = fa.BWD_KERNELS if dtype == torch.bfloat16 else (
+        fa.KERNEL_BWD_PREP, fa.KERNEL_DQ_F32, fa.KERNEL_DKV_F32)
+    assert _build.LAUNCHES == {fwd: 1, **{name: 1 for name in bwd}}
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("case", [(2, 63, 3, 40), (3, 130, 2, 64), (2, 65, 2, 16),
+                                  (2, 200, 2, 80), (1, 129, 2, 128)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_fused_backward_matches_its_plain_version(dev, case, dropout_p):
+    """Each bf16 launch against its plain version on the same inputs: the
+    pre-pass (fp32 sums in another order), the fused pass's dQ partials, dK
+    and dV (attention_bwd_tiles_plain, the kernel's roundings), and the dQ
+    sum bit for bit."""
+    q, k, v, mask, dout = _attention_inputs(case, torch.bfloat16, dev, seed=7 * sum(case))
+    seed = seed_tensor(5, 6, dev) if dropout_p else None
+    out, lse = fa.flash_attention(q, k, v, mask, dropout_p=dropout_p, seed=seed,
+                                  return_lse=True)
+    delta = fa.bwd_prep_cuda(out, dout)
+    _close(delta, fa.bwd_prep_plain(out, dout), torch.float32)
+    got = fa.bwd_fused_cuda(q, k, v, mask, lse, dout, delta, dropout_p, seed)
+    want = fa.attention_bwd_tiles_plain(q, k, v, mask, lse, dout, delta, dropout_p, seed)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close(g, w, torch.bfloat16)
+    assert torch.equal(fa.dq_sum_cuda(got[0]), fa.dq_sum_plain(got[0], torch.bfloat16))
+
+
+def test_fused_backward_is_built_at_the_register_count_of_its_plan(dev):
+    """Every instantiation of the fused pass, at every compiled head size,
+    with the registers its setmaxnreg plan moves between the warpgroups
+    (ptxas's report of this build), and none spills at D <= 64."""
+    _build.load("flash_attention_bwd")
+    fused = [r for r in _build.ptxas_usage("flash_attention_bwd")
+             if r[0].startswith("flash_bwd_fused")]
+    assert len(fused) == 2 * len(fa.HEAD_DIMS)
+    for name, regs, stores, loads in fused:
+        assert regs == fa.BWD_FUSED_REGS, (name, regs)
+        if int(name.split("<")[1].split(",")[0]) <= 64:
+            assert stores == loads == 0, (name, stores, loads)
 
 
 @pytest.mark.parametrize("case", [(12, 299, 12, 40), (2, 599, 4, 64)], ids=["d40", "d64"])
 def test_dq_kernel_is_deterministic(dev, case):
-    """K3 in bf16 on the tensor cores: each dQ element is summed by one warp
-    in a fixed key order, no atomics; two launches are bit-identical."""
+    """The fused backward in bf16: each dQ partial is summed by one
+    warpgroup in a fixed key order and the partials in key-tile order, no
+    atomics; two backwards are bit-identical."""
     q, k, v, mask, dout = _attention_inputs(case, torch.bfloat16, dev, seed=3)
     seed = seed_tensor(11, 12, dev)
     out, lse = fa.flash_attention(q, k, v, mask, dropout_p=0.1, seed=seed, return_lse=True)
-    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-    runs = [fa.bwd_dq_cuda(q, k, v, mask, lse, dout, delta, 0.1, seed) for _ in range(2)]
-    assert torch.equal(runs[0], runs[1])
+    runs = [fa._flash_bwd_cuda(q, k, v, mask, out, lse, dout, 0.1, seed) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [(3, 299, 12, 40), (2, 130, 4, 64)], ids=["d40", "d64"])
+def test_attention_backward_replays_in_a_cuda_graph(dev, case):
+    """The bf16 backward (pre-pass, fused pass, dQ sum) captured in a CUDA
+    graph and replayed twice equals the eager backward bit for bit; a new
+    seed written into the captured seed tensor changes the replay's mask."""
+    q, k, v, mask, dout = _attention_inputs(case, torch.bfloat16, dev, seed=4)
+    seed = seed_tensor(21, 22, dev)
+    out, lse = fa.flash_attention(q, k, v, mask, dropout_p=0.1, seed=seed, return_lse=True)
+    eager = fa._flash_bwd_cuda(q, k, v, mask, out, lse, dout, 0.1, seed)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa._flash_bwd_cuda(q, k, v, mask, out, lse, dout, 0.1, seed)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = fa._flash_bwd_cuda(q, k, v, mask, out, lse, dout, 0.1, seed)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(static, eager):
+            assert torch.equal(a, b)
+    seed.copy_(seed_tensor(23, 24, dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(static[2], eager[2])
 
 
 @pytest.mark.parametrize("case", [(3, 299, 12, 40), (2, 599, 4, 64)], ids=["d40", "d64"])
