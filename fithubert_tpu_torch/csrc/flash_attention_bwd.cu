@@ -131,27 +131,7 @@ namespace {
 constexpr int BQ = 64, BKV = 64;  // the fp32 bodies' tiles
 constexpr float LOG2E = 1.4426950408889634f;
 
-// 2^x on the special-function unit, subnormal results flushed to zero (a
-// probability below 2^-126 adds nothing a bf16 operand could hold):
-// exp2f's handling of them made the fused pass measurably slower on the
-// card.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 constexpr unsigned FULL = 0xffffffffu;
-
-struct Strides {
-  long long qb, qt, qh, kb, kt, kh, vb, vt, vh;
-};
-
-struct Dropout {
-  uint32_t thr;  // floor(p * 2^24); 0 = no dropout
-  float inv_keep;
-  const uint32_t* ptr;  // the seed's two words in device memory (null: no dropout)
-  uint32_t seed0, seed1;  // read from ptr as each block starts
-};
 
 // ------------------------------------------------------------ delta pre-pass
 __device__ __forceinline__ float as_float(float v) { return v; }
@@ -531,37 +511,6 @@ flash_bwd_dq_sum(const float* __restrict__ part, bf16* __restrict__ dq, long lon
   }
 }
 
-// A fused kernel built with another register count than its setmaxnreg
-// plan (REG_ERROR + the count): launched, its consumers could wait forever
-// for registers.
-constexpr int REG_ERROR = 300000;
-
-// Set a kernel's dynamic shared memory above 48 KB, once per process.
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, bool* done) {
-  if (!*done) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    *done = true;
-  }
-  return 0;
-}
-
-// A 4-D map (D, T, H, B) of a bf16 (B, T, H, D) tensor with the given (b,
-// t, h) element strides, [64 rows][64 columns] boxes; a dimension of length
-// 1 is never stepped, so any valid stride stands in for its own.
-template <int D>
-int map_rows(CUtensorMap* map, const bf16* x, int B, int T_len, int H, long long sb,
-             long long st_, long long sh) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T_len),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  auto bytes = [](long long s, int n) { return static_cast<cuuint64_t>(n > 1 ? 2 * s : 16); };
-  const cuuint64_t strides[3] = {bytes(st_, T_len), bytes(sh, H), bytes(sb, B)};
-  const cuuint32_t box[4] = {64, FT, 1, 1};
-  return encode_map(map, x, 4, dims, strides, box);
-}
-
 template <int D>
 int launch_fused(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask,
                  const bf16* dout, const float* lse, const float* delta, float* dq_part, bf16* dk,
@@ -570,21 +519,16 @@ int launch_fused(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mas
   using F = Fused<D>;
   CUtensorMap qmap, kmap, vmap, omap;
   const long long so = static_cast<long long>(H) * D;
-  int err = map_rows<D>(&qmap, q, B, T_len, H, st.qb, st.qt, st.qh);
-  if (err == 0) err = map_rows<D>(&kmap, k, B, T_len, H, st.kb, st.kt, st.kh);
-  if (err == 0) err = map_rows<D>(&vmap, v, B, T_len, H, st.vb, st.vt, st.vh);
-  if (err == 0) err = map_rows<D>(&omap, dout, B, T_len, H, T_len * so, so, D);
+  int err = map_rows(&qmap, q, D, B, T_len, H, st.qb, st.qt, st.qh);
+  if (err == 0) err = map_rows(&kmap, k, D, B, T_len, H, st.kb, st.kt, st.kh);
+  if (err == 0) err = map_rows(&vmap, v, D, B, T_len, H, st.vb, st.vt, st.vh);
+  if (err == 0) err = map_rows(&omap, dout, D, B, T_len, H, T_len * so, so, D);
   if (err != 0) return err;
   const bool drop = dr.thr > 0;
   auto kernel = drop ? flash_bwd_fused<D, true> : flash_bwd_fused<D, false>;
   static bool smem_set[2] = {false, false};
-  if (!smem_set[drop]) {
-    // setmaxnreg's budget holds only at the launch count it was planned on
-    cudaFuncAttributes attr;
-    const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (attr.numRegs != F::LAUNCH_REGS) return REG_ERROR + attr.numRegs;
-  }
+  // setmaxnreg's budget holds only at the launch count it was planned on
+  if (!smem_set[drop] && (err = check_regs(kernel, F::LAUNCH_REGS)) != 0) return err;
   if ((err = allow_smem(kernel, F::SMEM, &smem_set[drop])) != 0) return err;
   const dim3 grid((T_len + FT - 1) / FT, B * H);
   kernel<<<grid, F::THREADS, F::SMEM, stream>>>(qmap, kmap, vmap, omap, mask, lse, delta,

@@ -1,13 +1,14 @@
-// The tile steps of the bf16 attention forward K2 (flash_attention.cu) on
-// mma.sync: a block of 4 warps holds 64-row tiles of (T, D) bf16 operands
-// in shared memory; each warp owns 16 rows of the other operand as mma.sync
-// fragments in registers. The design notes are in flash_attention.cu. The
-// head sizes and the shared-memory opt-in also serve the backward
-// (flash_attention_bwd.cu).
+// What the attention kernels share: the forward K2 (flash_attention.cu) and
+// the backward (flash_attention_bwd.cu). The head sizes they are compiled
+// for, their argument structs, the TMA map of a (B, T, H, D) operand, the
+// shared-memory opt-in, the register-plan error code of the kernels that
+// move registers with setmaxnreg, and exp2 on the special-function unit.
 
 #pragma once
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 // The head sizes the attention kernels are compiled for (HEAD_DIMS in
@@ -17,11 +18,22 @@
 
 namespace {
 
-constexpr int TILE = 64;  // rows of a staged tile: queries or keys
+// The (b, t, h) element strides of q, k and v; unit stride along D.
+struct Strides {
+  long long qb, qt, qh, kb, kt, kh, vb, vt, vh;
+};
 
-// The kernels carve their tiles from dynamic shared memory, so the tiles of
-// the larger head sizes may pass the 48 KB of static shared memory; a
-// kernel takes more than 48 KB only after opting in, once per process.
+struct Dropout {
+  uint32_t thr;  // floor(p * 2^24); 0 = no dropout
+  float inv_keep;
+  const uint32_t* ptr;  // the seed's two words in device memory (null: no dropout)
+  uint32_t seed0, seed1;  // read from ptr as each block starts
+};
+
+// The fp32 bodies carve their tiles from dynamic shared memory, so the
+// tiles of the larger head sizes may pass the 48 KB of static shared
+// memory; a kernel takes more than 48 KB only after opting in, once per
+// process.
 template <typename Kernel>
 inline void opt_in_smem(Kernel kernel, int bytes, bool& done) {
   if (!done && bytes > 48 * 1024)
@@ -30,101 +42,56 @@ inline void opt_in_smem(Kernel kernel, int bytes, bool& done) {
   done = true;
 }
 
-// How a (TILE, D) bf16 tile sits in shared memory.
-template <int D>
-struct Rows {
-  static_assert(D % 8 == 0, "rows are copied in 16-byte chunks");
-  static constexpr int DP = (D + 15) / 16 * 16;  // k extent of a product over D
-  static constexpr int LD = DP + 8;  // row pitch: an odd number of 16-byte units, so the
-                                     // 8 row addresses of an ldmatrix hit distinct banks
-  static constexpr int N8 = D / 8;   // 16-byte chunks of a row; n8 tiles of a (16, D) result
-  static constexpr int KS = DP / 16;  // k16 steps of a product over D
-  static constexpr int BYTES = TILE * LD * 2;  // one staged (TILE, D) tile
-};
-
-// Zero columns D..DP-1 of n_rows rows: the last k16 step over D reads them,
-// and no copy ever writes them.
-template <int D>
-__device__ __forceinline__ void zero_pad(bf16 (*rows)[Rows<D>::LD], int n_rows) {
-  constexpr int PADC = (Rows<D>::DP - D) / 8;
-  if constexpr (PADC > 0) {
-    for (int e = threadIdx.x; e < n_rows * PADC; e += blockDim.x)
-      *reinterpret_cast<uint4*>(&rows[e / PADC][D + 8 * (e % PADC)]) =
-          make_uint4(0u, 0u, 0u, 0u);
+// The same for the wgmma kernels, whose shared memory always passes 48 KB,
+// returning the error where the attribute is refused.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool* done) {
+  if (!*done) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    *done = true;
   }
+  return 0;
 }
 
-// Start the cp.async copies of rows t0 .. t0 + TILE - 1 of a (T, D) operand
-// whose row t starts at src + t * row_stride; rows past T are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16 (*dst)[Rows<D>::LD], const bf16* src,
-                                          long long row_stride, int t0, int T_len) {
-  constexpr int N8 = Rows<D>::N8;
-  for (int e = threadIdx.x; e < TILE * N8; e += blockDim.x) {
-    const int r = e / N8, c = 8 * (e - r * N8), t = t0 + r;
-    const bool ok = t < T_len;
-    cp_async16(&dst[r][c], src + static_cast<long long>(ok ? t : 0) * row_stride + c, ok);
-  }
+// A kernel built with another register count than its setmaxnreg plan
+// (REG_ERROR + the count): launched, its consumers could wait forever for
+// registers the block does not hold.
+constexpr int REG_ERROR = 300000;
+
+// Whether a kernel was built with the register count its setmaxnreg plan
+// assumes: 0, REG_ERROR + the count, or the error of the query.
+template <typename Kernel>
+int check_regs(Kernel kernel, int launch_regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return attr.numRegs == launch_regs ? 0 : REG_ERROR + attr.numRegs;
 }
 
-// A (16, DP) held as KS A fragments, times the transpose of a (TILE, DP)
-// tile B in shared memory: c = A B^T, 8 n8 tiles of (16, TILE), fp32.
-template <int D>
-__device__ __forceinline__ void mma_a_bt(float (&c)[8][4], const uint32_t (&a)[Rows<D>::KS][4],
-                                         const bf16 (*B)[Rows<D>::LD], int lane) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < Rows<D>::KS; ++ks)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {  // rows 16 np .. 16 np + 15 of B
-      uint32_t bf[4];
-      ldmatrix_x4(bf, &B[np * 16 + (lane & 7) + ((lane >> 4) << 3)]
-                        [ks * 16 + ((lane >> 3) & 1) * 8]);
-      mma_bf16(c[2 * np], a[ks], bf);
-      mma_bf16(c[2 * np + 1], a[ks], bf + 2);
-    }
+// A 4-D map (D, T, H, B) of a bf16 (B, T, H, D) tensor with the given (b,
+// t, h) element strides, [64 rows][64 columns] boxes under the 128-byte
+// swizzle: columns past D and rows past T load as zeros. A dimension of
+// length 1 is never stepped, so any valid stride stands in for its own.
+int map_rows(CUtensorMap* map, const bf16* x, int d, int B, int T_len, int H, long long sb,
+             long long st_, long long sh) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(T_len),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  auto bytes = [](long long s, int n) { return static_cast<cuuint64_t>(n > 1 ? 2 * s : 16); };
+  const cuuint64_t strides[3] = {bytes(st_, T_len), bytes(sh, H), bytes(sb, B)};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return encode_map(map, x, 4, dims, strides, box);
 }
 
-// acc += A B: A (16, TILE) the 8 fp32 C tiles of a product like mma_a_bt's,
-// rounded to bf16 and fed from registers (tiles 2kk and 2kk + 1 are the A
-// fragment of k16 step kk); B a (TILE, D) tile in shared memory, read with
-// ldmatrix.trans. acc holds the N8 n8 tiles of (16, D), fp32.
-template <int D>
-__device__ __forceinline__ void mma_c_b(float (&acc)[Rows<D>::N8][4], const float (&a)[8][4],
-                                        const bf16 (*B)[Rows<D>::LD], int lane) {
-  constexpr int N8 = Rows<D>::N8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(a[2 * kk][0], a[2 * kk][1]),
-                            pack_bf16(a[2 * kk][2], a[2 * kk][3]),
-                            pack_bf16(a[2 * kk + 1][0], a[2 * kk + 1][1]),
-                            pack_bf16(a[2 * kk + 1][2], a[2 * kk + 1][3])};
-    const int r = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int dp = 0; dp < N8 / 2; ++dp) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, &B[r][dp * 16 + (lane >> 4) * 8]);
-      mma_bf16(acc[2 * dp], pa, bf);
-      mma_bf16(acc[2 * dp + 1], pa, bf + 2);
-    }
-    if (N8 & 1) {
-      uint32_t bf[2];
-      ldmatrix_x2_trans(bf, &B[r][(N8 - 1) * 8]);
-      mma_bf16(acc[N8 - 1], pa, bf);
-    }
-  }
-}
-
-// The A fragments of rows row0 .. row0 + 15 of a tile in shared memory.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[Rows<D>::KS][4],
-                                       const bf16 (*rows)[Rows<D>::LD], int row0, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < Rows<D>::KS; ++ks)
-    ldmatrix_x4(a[ks], &rows[row0 + (lane & 15)][ks * 16 + (lane >> 4) * 8]);
+// 2^x on the special-function unit, subnormal results flushed to zero (a
+// probability below 2^-126 adds nothing a bf16 operand could hold):
+// exp2f's handling of them made the fused backward measurably slower on the
+// card.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace

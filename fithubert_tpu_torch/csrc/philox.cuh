@@ -9,7 +9,7 @@
 //   attention probability (z = b * H + h, query i, key j): word j & 3 of
 //     philox4x32((j >> 2, i, z, 0), (seed0, seed1)), one call per 4 keys of
 //     a row (K2 and the backward; flash_attention.keep_mask; the backward
-//     draws it through PhiloxRow, the same function);
+//     draws it through PhiloxRow, K2 through PhiloxQuery, the same function);
 //   element e of a flat tensor: word e & 3 of
 //     philox4x32((e >> 2, e >> 34, 0, 0), (seed0, seed1)), one call per 4
 //     consecutive elements (K5; dropout.keep_flat).
@@ -68,6 +68,45 @@ struct PhiloxRow {
     uint4 c = make_uint4(__umulhi(M1, b) ^ x3, M1 * b, w2 ^ z3, w3);  // after round 2
 #pragma unroll
     for (int r = 0; r < 7; ++r) {
+      const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+      const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+      c = make_uint4(hi1 ^ c.y ^ k0[r], lo1, hi0 ^ c.w ^ k1[r], lo0);
+    }
+    return c;
+  }
+};
+
+// philox4x32((x, i, z, 0), (seed0, seed1)) for a thread whose i and z stay
+// fixed while x varies (the attention forward: i its query row, z its (b,
+// h), x the key group): round 0's half free of x, round 1's half free of
+// it, and the key schedule of the other eight are computed once. Rounds 0
+// and 1 then cost one 32 x 32 product each (hi and lo), rounds 2-9 two.
+struct PhiloxQuery {
+  uint32_t x1, y1k, z1k, w2, s1;  // the parts of rounds 0-1 free of x
+  uint32_t k0[8], k1[8];          // the keys of rounds 2-9
+
+  __device__ __forceinline__ PhiloxQuery(uint32_t i, uint32_t z, uint32_t s0, uint32_t s1_)
+      : s1(s1_) {
+    constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u, W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+    // round 0 on (x, i, z, 0): (M1 z)_hi ^ i ^ k0, (M1 z)_lo, (M0 x)_hi ^ k1, (M0 x)_lo
+    x1 = __umulhi(M1, z) ^ i ^ s0;
+    // round 1: (M1 z1)_hi ^ y1 ^ k0, (M1 z1)_lo, (M0 x1)_hi ^ w1 ^ k1, (M0 x1)_lo
+    y1k = (M1 * z) ^ (s0 + W0);
+    z1k = __umulhi(M0, x1) ^ (s1 + W1);
+    w2 = M0 * x1;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      k0[r] = s0 + (r + 2) * W0;
+      k1[r] = s1 + (r + 2) * W1;
+    }
+  }
+
+  __device__ __forceinline__ uint4 draw(uint32_t x) const {
+    constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+    const uint32_t z1 = __umulhi(M0, x) ^ s1, w1 = M0 * x;                 // round 0's z, w
+    uint4 c = make_uint4(__umulhi(M1, z1) ^ y1k, M1 * z1, z1k ^ w1, w2);   // after round 1
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
       const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
       const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
       c = make_uint4(hi1 ^ c.y ^ k0[r], lo1, hi0 ^ c.w ^ k1[r], lo0);

@@ -10,8 +10,11 @@ custom VJP (``:271-357``). q is pre-scaled by the caller;
 ``key_padding_mask`` is (B, T) with True at padding.
 
 On a CUDA tensor the forward launches ``csrc/flash_attention.cu`` (an fp32
-online softmax that also returns the per-row logsumexp (B, H, T)) and the
-backward ``csrc/flash_attention_bwd.cu``. In bf16 the backward is three
+online softmax that also returns the per-row logsumexp (B, H, T); in bf16 on
+Hopper's wgmma fed by TMA, one block per tile of ``FWD_QUERY_TILE`` queries
+of one (b, h), ``fwd_launch_geometry``, with ``attention_fwd_tiles_plain``
+as the plain version of its arithmetic) and the backward
+``csrc/flash_attention_bwd.cu``. In bf16 the backward is three
 launches: a pre-pass for delta = rowsum(dO * O), one fused pass on Hopper's
 wgmma and TMA that writes dK, dV and an fp32 dQ partial per key tile, and a
 pass that sums the partials in key-tile order (``BWD_KEY_TILE``,
@@ -98,6 +101,13 @@ NEG_INF = -1e30
 # FA_HEAD_DIMS); others pad to the next one
 HEAD_DIMS = (16, 32, 40, 48, 64, 80, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 forward: queries per block (one consumer warpgroup), keys per
+# stage of its K / V ring and so per step of its online softmax, and the
+# registers a thread its setmaxnreg plan assumes at each head size
+# (Fwd::LAUNCH_REGS: three blocks an SM at D <= 64, two above)
+FWD_QUERY_TILE = 64
+FWD_KEY_TILE = 64
+FWD_REGS = {d: 80 if d <= 64 else 128 for d in HEAD_DIMS}
 
 
 def _check(q, k, v, key_padding_mask, dropout_p, seed) -> None:
@@ -152,6 +162,60 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if key_padding_mask is not None:
         lse = lse.masked_fill(key_padding_mask.all(-1)[:, None, None], NEG_INF)
     return out, lse
+
+
+def fwd_launch_geometry(b: int, t: int, h: int, d: int) -> Tuple[int, int, int]:
+    """The bf16 forward's launch at a compiled head size d: (query tiles,
+    blocks, dynamic shared-memory bytes). A block takes one query tile of
+    one (b, h). Its shared memory holds the Q tile and a ring of K and V
+    stages (4 at d <= 64, where three blocks share an SM, 2 above, where
+    two do), each in [64 rows][64 columns] boxes of 8 KB, and 1 KB to align
+    them."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the attention kernels are built for head sizes {HEAD_DIMS}, not {d}")
+    n_qt = -(-t // FWD_QUERY_TILE)
+    boxes, stages = -(-d // 64), (4 if d <= 64 else 2)
+    return n_qt, n_qt * b * h, (1 + 2 * stages) * boxes * 8192 + 1024
+
+
+def attention_fwd_tiles_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              key_padding_mask: Optional[torch.Tensor] = None,
+                              dropout_p: float = 0.0, seed: Optional[Seed] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 forward's arithmetic: (out in q's dtype, lse). The online
+    softmax runs over tiles of ``FWD_KEY_TILE`` keys in fp32; each tile's P
+    = exp(S - m) against the running max m (masked keys at -1e30 in S and 0
+    in P), dropped by ``keep_mask`` and scaled, is rounded to q's dtype
+    before P V; O is rescaled by alpha = exp(m_old - m); the normaliser l
+    and lse = m + log l stay undropped. A row without a valid key gives out
+    0 and lse -1e30."""
+    b, t, h, _d = q.shape
+    dev = q.device
+    logits = _logits(q, k, None)
+    ok = (torch.ones(b, t, dtype=torch.bool, device=dev) if key_padding_mask is None
+          else ~key_padding_mask)[:, None, None, :]
+    scale = None
+    if dropout_p > 0.0:
+        scale = torch.where(keep_mask(b, h, t, dropout_p, seed, dev), 1.0 / (1.0 - dropout_p),
+                            0.0)
+    m = torch.full((b, h, t), NEG_INF, dtype=torch.float32, device=dev)
+    l_ = torch.zeros((b, h, t), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, t, q.shape[-1]), dtype=torch.float32, device=dev)
+    v32 = v.float()
+    for j in range(0, t, FWD_KEY_TILE):
+        tile = slice(j, j + FWD_KEY_TILE)
+        s = logits[..., tile].masked_fill(~ok[..., tile], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None]).masked_fill(~ok[..., tile], 0.0)
+        l_ = l_ * alpha + p.sum(-1)
+        pv = p if scale is None else p * scale[..., tile]
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd",
+                                                    pv.to(q.dtype).float(), v32[:, tile])
+        m = m_new
+    out = torch.where(l_[..., None] > 0, acc / l_[..., None], 0.0)
+    lse = torch.where(l_ > 0, m + torch.log(l_), NEG_INF)
+    return out.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse
 
 
 def bwd_prep_plain(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -247,8 +311,8 @@ def rows_aligned(shape, strides, storage_offset: int, itemsize: int, align: int 
 
 def _readable(x: torch.Tensor) -> bool:
     """Whether the kernels can read x in place: unit stride along D and, in
-    bf16, every row on a 16-byte boundary (cp.async and TMA copy 16-byte
-    chunks)."""
+    bf16, every row on a 16-byte boundary (TMA's maps take strides and a
+    base of whole 16-byte units)."""
     return x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or (
         rows_aligned(x.shape, x.stride(), x.storage_offset(), x.element_size())
         and x.untyped_storage().data_ptr() % 16 == 0))
@@ -298,6 +362,15 @@ def _fwd_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def _fwd_maps_fn():
+    fn = _build.load("flash_attention").flash_attention_fwd_maps
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_longlong] * 9 + [ctypes.c_int]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _bwd_fns():
     lib = _build.load("flash_attention_bwd")
     strided = [ctypes.c_int] * 3 + [ctypes.c_longlong] * 9 + _SEED_TAIL  # B, T, H, strides
@@ -336,7 +409,7 @@ def _cuda_args(q, k, v, key_padding_mask):
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("q, k and v need unit stride along D")
     if not all(_readable(x) for x in (q, k, v)):
-        # the bf16 kernels read rows of q, k and v in 16-byte chunks (cp.async, TMA)
+        # the bf16 kernels read q, k and v through TMA maps of 16-byte strides
         raise ValueError("bf16 q, k and v need every (b, t, h) row on a 16-byte boundary "
                          "(pad_heads copies them)")
     if b * h > 65535:
@@ -353,7 +426,8 @@ def _dropout_args(dropout_p: float, seed: Optional[Seed]):
 
 
 def _fwd_kernel(q, k, v, key_padding_mask, dropout_p, seed):
-    """K2 on q, k, v at a compiled head size."""
+    """K2 on q, k, v at a compiled head size: one launch."""
+    _on_cuda("the attention forward", q, k, v)
     b, t, h, d = q.shape
     mask, strides = _cuda_args(q, k, v, key_padding_mask)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -366,6 +440,19 @@ def _fwd_kernel(q, k, v, key_padding_mask, dropout_p, seed):
     _build.check(err, name)
     _build.count_launch(name)
     return out, lse
+
+
+def fwd_maps_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, reps: int) -> None:
+    """Encode the bf16 forward's three TMA maps of q, k and v ``reps``
+    times on the host, as each launch does, and launch nothing: the host's
+    share of a call, timed by ``chip_smoke.py``."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the TMA maps are the bf16 forward's, not {q.dtype}'s")
+    _on_cuda("fwd_maps_cuda", q, k, v)
+    _mask, strides = _cuda_args(q, k, v, None)
+    b, t, h, d = q.shape
+    _build.check(_fwd_maps_fn()(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), b, t, h,
+                                *strides, reps), "flash_attention_fwd_maps")
 
 
 def _flash_cuda(q, k, v, key_padding_mask, dropout_p, seed):

@@ -5,7 +5,9 @@ narrow widths), the teacher's widths, the bf16 GroupNorm prefix kernel,
 widths the bf16 conv GEMM does not take (rejected), K6's
 up pass against K1's output bit for bit, short and odd T at the attention tiles'
 edges, strided q/k/v views, misaligned views (rejected), fully padded
-rows, the attention backward (the delta pre-pass, the fused wgmma pass at
+rows, the bf16 forward against its plain emulation (attention_fwd_tiles_plain),
+its register count, its determinism and its replay in a CUDA graph with new
+seed words, the attention backward (the delta pre-pass, the fused wgmma pass at
 D = 16-128 against its plain version, its register count, the dQ sum bit for bit,
 the whole backward against the plain formulas) with and without dropout,
 its determinism and its replay in a CUDA graph; the seeded dropout (K5) bit for bit, forward and backward;
@@ -210,6 +212,86 @@ def test_flash_attention_rejects_what_the_kernels_do_not_take(dev, inputs, match
         dout = torch.zeros(q.shape, dtype=q.dtype, device=dev)
         with pytest.raises(ValueError, match=match):
             fa.bwd_fused_cuda(q, k, v, None, lse, dout, lse)
+
+
+# the forward against attention_fwd_tiles_plain: the same arithmetic in
+# another fp32 summation order, which can flip P's bf16 rounding near a
+# boundary (well under 1e-3 of the output) and the output's own rounding by
+# one step (2^-8 relative); chip_smoke.FWD_TILES_TOL
+FWD_TILES_TOL = (1e-3, 2 ** -8)
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("case", [(2, 1, 2, 40), (3, 65, 2, 64), (2, 130, 3, 16),
+                                  (2, 299, 4, 40), (2, 599, 3, 64), (2, 200, 2, 80),
+                                  (1, 129, 2, 128)], ids=lambda c: "x".join(map(str, c)))
+def test_forward_matches_its_tiles_plain_version(dev, case, dropout_p):
+    """The bf16 kernel against the plain emulation of its arithmetic, on the
+    same keep mask: strided views, ragged masks, a fully padded row."""
+    q, k, v, mask, _dout = _attention_inputs(case, torch.bfloat16, dev, seed=5 * sum(case))
+    seed = seed_tensor(77, 78, dev) if dropout_p else None
+    out, lse = fa.flash_attention(q, k, v, mask, dropout_p=dropout_p, seed=seed,
+                                  return_lse=True)
+    want, want_lse = fa.attention_fwd_tiles_plain(q, k, v, mask, dropout_p, seed)
+    rows = ~mask.all(-1)
+    err = (out[rows].float() - want[rows].float()).abs()
+    assert bool((err <= FWD_TILES_TOL[0] + FWD_TILES_TOL[1] * want[rows].float().abs()).all()), \
+        err.max().item()
+    _close(lse[rows], want_lse[rows], torch.float32)
+    assert (out[~rows] == 0).all() and (lse[~rows] == fa.NEG_INF).all()
+
+
+def test_forward_is_built_at_the_register_count_of_its_plan(dev):
+    """Every instantiation of the bf16 forward, at every compiled head size,
+    with the registers its setmaxnreg plan moves between the warpgroups
+    (ptxas's report of this build), and none spills."""
+    _build.load("flash_attention")
+    fwd = [r for r in _build.ptxas_usage("flash_attention") if r[0].startswith("flash_fwd_wgmma")]
+    assert len(fwd) == 2 * len(fa.HEAD_DIMS)
+    for name, regs, stores, loads in fwd:
+        assert regs == fa.FWD_REGS[int(name.split("<")[1].split(",")[0])], (name, regs)
+        assert stores == loads == 0, (name, stores, loads)
+
+
+@pytest.mark.parametrize("case, p", [((12, 299, 12, 40), 0.1), ((2, 599, 4, 64), 0.0)],
+                         ids=["d40_p0.1", "d64_p0"])
+def test_forward_is_deterministic(dev, case, p):
+    """Every sum of the forward has a fixed order: two runs are bit-identical."""
+    q, k, v, mask, _dout = _attention_inputs(case, torch.bfloat16, dev, seed=6)
+    seed = seed_tensor(13, 14, dev) if p else None
+    runs = [fa.flash_attention(q, k, v, mask, dropout_p=p, seed=seed, return_lse=True)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [(3, 299, 12, 40), (2, 130, 4, 64)], ids=["d40", "d64"])
+def test_forward_replays_in_a_cuda_graph_with_new_seed_words(dev, case):
+    """K2 captured in a CUDA graph reads its seed from device memory when it
+    runs: a replay after new words are written equals an eager call with
+    those words, bit for bit, and differs from the old words' output."""
+    q, k, v, mask, _dout = _attention_inputs(case, torch.bfloat16, dev, seed=8)
+    seed = seed_tensor(31, 32, dev)
+
+    def fwd():
+        return fa.flash_attention(q, k, v, mask, dropout_p=0.1, seed=seed, return_lse=True)
+
+    old = fwd()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = fwd()
+    seed.copy_(seed_tensor(33, 34, dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = fwd()
+    for a, b in zip(static, eager):
+        assert torch.equal(a, b)
+    assert not torch.equal(static[0], old[0])
 
 
 BWD_CASES = [(2, 1, 2, 40), (2, 63, 3, 40), (3, 65, 2, 64), (2, 130, 12, 40),
