@@ -28,7 +28,10 @@ run with a non-zero exit and no final line:
      K1, its prefix and K6 on its 512-wide stack at 8 x 12 s; then K5 at
      the rel_pos conformer's probabilities, (3, 12, 599, 599) and
      (32, 12, 799, 799) fp32, bit for bit forward and backward, and K2 with
-     dropout and the backward at the abs conformer's (3, 299, 12, 40);
+     dropout and the backward at the abs conformer's (3, 299, 12, 40); then
+     K2 (p = 0 and 0.1) and the whole backward past grid y's 65535 (B x H =
+     65544, T = 1 and 80), the first 16 rows bit for bit against a call on
+     them alone;
   4. serving end to end: UpstreamExpert at FitHuBERT-960h width (seeded
      weights) serves three ragged requests in bf16, through K1 and K2
      (launch counters are zeroed just before and read just after); then the
@@ -54,6 +57,15 @@ run with a non-zero exit and no final line:
   8. the training loop: run_training on the release config, a seeded
      fairseq HuBERT-Base .pt and WAVs it writes, resumed runs bit for bit,
      the export served, a 20-step rate run;
+  8a. rehearsal: the port's dress rehearsal (train_torch.py on
+     configs/rehearsal.yaml, 240 steps, SIGTERM after step 100, the
+     preemption checkpoint, the resume with a continuous loss, the export,
+     the CTC probe on it), started after the loop in the background beside
+     phases 8b-8e (so the walls that [int8], [options], [remat] and [chain]
+     print are taken while it shares the card) and read before [tp]: each
+     training process's launches, the export's fp32
+     features on the card against the CPU, and the framewise probe on the
+     card, both probes under the probe CLI's rules;
   8b. ex: the DistilHuBERT-style student of configs/ex.yaml
      (``ex_experiment()``: 2 layers of 768, SplitLinear head on teacher
      layers 3, 7, 11, L1 + cosine) with the HuBERT-Base teacher: the
@@ -144,6 +156,7 @@ run with a non-zero exit and no final line:
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -152,6 +165,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -805,6 +819,63 @@ def check_attention_training_kernels(fa, gen, dev, errs,
                     print(f"  fully padded row: dq = dk = dv = 0 (p={p}) ok", flush=True)
 
 
+# More (b, h) pairs than grid y's 65535: 5462 rows of 12 heads, at one key
+# tile (T = 1) and two (T = 80), the student's head size
+BIG_BH = (5462, 12, 40)
+BIG_BH_HEAD = 16  # rows of the big call held bit for bit against a call on them alone
+
+
+def check_attention_past_65535(fa, gen, dev):
+    """K2 (p = 0 and p = 0.1) and the whole backward at B x H = 65544, T = 1
+    and 80, ragged masks, bf16 and fp32, against the plain versions
+    (``compare``'s tolerances); the first ``BIG_BH_HEAD`` rows bit for bit
+    against a call on those rows alone, whose Philox words are the same.
+    Returns the worst bf16 error of the forward and of the backward."""
+    import torch
+
+    b, h, d = BIG_BH
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for t in (1, 80):
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v, dout, m = attention_case(gen, b, t, h, d, dtype, dev, False)
+            rows = ~m.all(-1)
+            for p in (0.0, ATTN_P):
+                seed = seed_words(gen, dev) if p else None
+                tag = f"{dtype_name} {(b, t, h, d)} p={p}"
+
+                def both(n):
+                    out, lse = fa.flash_attention(q[:n], k[:n], v[:n], m[:n], dropout_p=p,
+                                                  seed=seed, return_lse=True)
+                    return (out, lse) + tuple(fa._flash_bwd_cuda(
+                        q[:n], k[:n], v[:n], m[:n], out, lse, dout[:n], p, seed))
+
+                got = both(b)
+                want, want_lse = fa.attention_plain(q, k, v, m, p, seed)
+                torch.cuda.synchronize()
+                e = compare(f"K2 {tag}", got[0], want, dtype_name, rows)
+                compare(f"K2 lse {tag}", got[1], want_lse, "float32", rows)
+                del want, want_lse
+                wants = fa.attention_bwd_plain(q, k, v, m, got[0], got[1], dout, p, seed)
+                torch.cuda.synchronize()
+                eb = max(compare(f"attention backward {name} {tag}", g, w, dtype_name, rows)
+                         for name, g, w in zip(("dq", "dk", "dv"), got[2:], wants))
+                del wants
+                if any((g[~rows] != 0).any().item() for g in got[2:]):
+                    fail(f"attention backward {tag}: a fully padded row has a gradient")
+                head = both(BIG_BH_HEAD)
+                if not all(torch.equal(a[:BIG_BH_HEAD], a16) for a, a16 in zip(got, head)):
+                    fail(f"attention {tag}: rows b < {BIG_BH_HEAD} differ from a call on "
+                         f"those rows alone")
+                print(f"  {tag} (B x H = {b * h}): rows b < {BIG_BH_HEAD} bit-identical to a "
+                      f"call on them alone ok", flush=True)
+                if dtype_name == "bfloat16":
+                    worst["fwd"], worst["bwd"] = max(worst["fwd"], e), max(worst["bwd"], eb)
+                del got, head
+            del q, k, v, dout, m
+            torch.cuda.empty_cache()
+    return worst
+
+
 def check_seeded_dropout(kd, shape, gen, dev, dtypes=None):
     """K5 against seeded_dropout_plain at ``shape``, in each of ``dtypes``
     (fp32 and bf16 by default): bit-identical forward and backward, and the
@@ -1277,6 +1348,162 @@ def loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi, tmp):
           f"({saves:.3f} s); the steps alone {timed_steps / (window - evals - saves):.3f} "
           f"steps/s; {smi}", flush=True)
     return pt, libri
+
+
+# ---- the rehearsal ([rehearsal]): the port's dress rehearsal and probes
+REHEARSAL_CONFIG = "configs/rehearsal.yaml"
+# The rehearsal at the config's own length (train.max_steps 240) and the JAX
+# harness's SIGTERM step. Cut to 40 steps (SIGTERM after 20), the student's
+# features failed the CTC probe's rule at every setting tried on an H100
+# (60 utterances x 6000 steps: CER 0.831 against the control's 0.847; 60 x
+# 300: 0.746 / 0.831; 24 x 300: 0.907 / 0.926; 16 x 60: 0.861 / 0.806),
+# while after 240 steps it passed at 60 x 6000 (0.576 / 0.864).
+REHEARSAL_SIGTERM = 100
+# the framewise probe at the probe CLI's defaults (utterances, classes, steps)
+PROBE_ARGS = (24, 4, 300)
+# the CTC probe at run_ctc_probe's defaults (utterances, steps): ~100 s on
+# an H100, two heads of 6000 steps each replayed as a CUDA graph
+CTC_PROBE_ARGS = (60, 6000)
+REHEARSAL_TIMEOUT = 900  # seconds for the whole harness, from its start
+
+
+def start_rehearsal(tmp):
+    """Start the port's dress rehearsal (fithubert_tpu_torch/scripts/
+    dress_rehearsal.py) on the card in the background: REHEARSAL_CONFIG at
+    the release geometry, SIGTERM after step REHEARSAL_SIGTERM, the
+    preemption checkpoint, the resume, the export pair and the CTC probe on
+    it (CTC_PROBE_ARGS), each training process's launches written through
+    ``FITHUBERT_LAUNCH_COUNTS``. It shares the card with the phases that
+    follow until ``rehearsal_phase`` reads it; the harness and its
+    children end with this script in any case."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = {name: os.path.join(tmp, name) for name in (
+        "rehearsal", "rehearsal_report", "rehearsal_launches.jsonl", "rehearsal.out",
+        "rehearsal.err")}
+    n_utts, steps = CTC_PROBE_ARGS
+    cmd = [sys.executable, "-m", "fithubert_tpu_torch.scripts.dress_rehearsal",
+           "--config", REHEARSAL_CONFIG, "--sigterm-after", str(REHEARSAL_SIGTERM),
+           "--set", f"train.output_dir={paths['rehearsal']}", "--out", paths["rehearsal_report"],
+           "--probe-utts", str(n_utts), "--probe-steps", str(steps)]
+    with open(paths["rehearsal.out"], "w") as out, open(paths["rehearsal.err"], "w") as err:
+        proc = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=err, start_new_session=True,
+                                env={**os.environ,
+                                     "FITHUBERT_LAUNCH_COUNTS": paths["rehearsal_launches.jsonl"]})
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, time.perf_counter(), paths
+
+
+def rehearsal_phase(started, smi):
+    """The dress rehearsal that ``start_rehearsal`` started: its chain
+    (SIGTERM, the checkpoint, the resume with a continuous loss, the
+    export, the CTC probe under the probe CLI's rule) and its launches:
+    those of the training step alone exactly the release step's times the
+    process's steps, the rest at least that. Then on the export: fp32
+    features on the card against the CPU, and the framewise probe at the
+    CLI's defaults on the card with its launches counted, under the CLI's
+    rule."""
+    import torch
+
+    from fithubert_tpu_torch.config import load_experiment_yaml, load_yaml_config
+    from fithubert_tpu_torch.export.expert import UpstreamExpert
+    from fithubert_tpu_torch.models.teacher import TeacherGeometry
+    from fithubert_tpu_torch.ops.kernels import _build
+    from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
+    from fithubert_tpu_torch.ops.kernels import dropout as kd
+    from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+    from fithubert_tpu_torch.scripts import linear_probe as lp
+
+    proc, t0, paths = started
+    root = os.path.dirname(os.path.abspath(__file__))
+    exp_r = load_experiment_yaml(os.path.join(root, REHEARSAL_CONFIG))
+    per_step = release_per_step(exp_r, TeacherGeometry.from_teacher_config(exp_r.teacher))
+    run, report, counts = paths["rehearsal"], paths["rehearsal_report"], \
+        paths["rehearsal_launches.jsonl"]
+    n_utts, steps = CTC_PROBE_ARGS
+    try:
+        proc.wait(timeout=max(1.0, REHEARSAL_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        fail(f"the dress rehearsal did not end within {REHEARSAL_TIMEOUT} s")
+    stdout, stderr = (open(paths[n]).read() for n in ("rehearsal.out", "rehearsal.err"))
+    wall = time.perf_counter() - t0
+    log = os.path.join(report, "dress_rehearsal_gpu.log")
+    if proc.returncode != 0:
+        tail = open(log).read()[-3000:] if os.path.exists(log) else ""
+        fail(f"the dress rehearsal exited {proc.returncode}:\n{stdout[-2000:]}\n"
+             f"{stderr[-3000:]}\n{tail}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    if not summary.get("ok"):
+        fail(f"the dress rehearsal's CTC probe failed: {summary}")
+    print(f"  train_torch.py -c {REHEARSAL_CONFIG} (train.max_steps {exp_r.train.max_steps}): "
+          f"SIGTERM at step {summary['preempt_step']}, [preemption] checkpointed step "
+          f"{summary['checkpointed_step']}, rc 0 ({summary['phase1_s']} s); resumed from step "
+          f"{summary['resumed_from']}, loss {summary['preempt_loss']} -> "
+          f"{summary['post_resume_loss']} at step {summary['post_resume_step']} (relative "
+          f"{summary['loss_continuity_rel']}, limit 0.35), final step {summary['final_step']} "
+          f"loss {summary['final_loss']} ({summary['phase2_s']} s)", flush=True)
+    print(f"  CTC probe on the export ({n_utts} utterances, {steps} steps, on the card, "
+          f"{summary['probe_s']} s): {summary['probe_tail']}; {json.dumps(summary['probe'])}",
+          flush=True)
+    with open(counts) as f:
+        runs = [json.loads(line) for line in f]
+    if len(runs) != 2:
+        fail(f"{len(runs)} launch records for the rehearsal's two training runs")
+    step_only = (cf.KERNEL_BWD, kd.KERNEL, fa.KERNEL_DROPOUT, *fa.BWD_KERNELS)  # no eval runs them
+    for what, got, n in (("preempted", runs[0], summary["checkpointed_step"]),
+                         ("resumed", runs[1], summary["final_step"] - summary["resumed_from"])):
+        if any(got.get(name, 0) != per_step[name] * n for name in step_only) or \
+                any(got.get(name, 0) < per_step[name] * n for name in per_step):
+            fail(f"the {what} run's launches {got} over {n} steps and its evals, the release "
+                 f"step's {per_step}")
+        print(f"  launches of the {what} run: {json.dumps(got)} ({n} steps, each the release "
+              f"step's, and its evals) ok", flush=True)
+
+    pt, yml = os.path.join(run, "student.pt"), os.path.join(run, "student.yaml")
+    cfg32 = dataclasses.replace(load_yaml_config(yml), compute_dtype="float32")
+    wavs, _texts = lp.make_spoken_dataset(8, seed=0)
+    outs = [UpstreamExpert(pt, cfg32, device=where, length_quantum=8000)(wavs)
+            for where in ("cuda", "cpu")]
+    worst = 0.0
+    for g, c in zip((outs[0]["last_hidden_state"], *outs[0]["hidden_states"]),
+                    (outs[1]["last_hidden_state"], *outs[1]["hidden_states"])):
+        err = (g.cpu() - c).abs()
+        worst = max(worst, err.max().item())
+        if not bool((err <= E2E_ATOL + E2E_RTOL * c.abs()).all()):
+            fail(f"the export's fp32 features, card vs CPU: max_abs_err {err.max().item():.3e}")
+    print(f"  the export's fp32 features on the card vs the CPU (8 spoken utterances, "
+          f"{1 + len(outs[0]['hidden_states'])} outputs): max_abs_err={worst:.3e} "
+          f"tol=({E2E_ATOL}, {E2E_RTOL}) ok", flush=True)
+    del outs
+
+    n_utts, n_classes, steps = PROBE_ARGS
+    expert = UpstreamExpert(pt, yml, device="cuda", length_quantum=8000)
+    expert([wavs[0]])  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = lp.run_probe(expert, n_utts, n_classes, steps)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    probe_launches = dict(_build.LAUNCHES)
+    if set(probe_launches) != {cf.KERNEL_PREFIX, cf.KERNEL, fa.KERNEL}:
+        fail(f"the probe's forwards launched {probe_launches}, not K1, its prefix and K2")
+    ok = lp.probe_passed(res)
+    print(f"  framewise probe on the export ({n_utts} utterances, {n_classes} classes, {steps} "
+          f"steps, bf16 features, {probe_s:.1f} s): PROBE {'PASSED' if ok else 'FAILED'}: "
+          f"acc {res['probe_acc']:.3f} vs control {res['control_acc']:.3f}; "
+          f"{json.dumps(res)}; launches {json.dumps(probe_launches)}", flush=True)
+    if not ok:
+        fail("the framewise probe did not beat its shuffled control by the CLI's rule")
+    print(f"  [rehearsal] harness wall {wall:.1f} s from its start, beside the phases "
+          f"between [loop] and [tp]; {smi}", flush=True)
+    del expert
+    torch.cuda.empty_cache()
 
 
 # ---- data parallelism ([dp]) and the rest of export ([export])
@@ -3920,6 +4147,12 @@ def main() -> int:
           f"conformer's {conf_abs_attn}, ragged, vs the plain versions", flush=True)
     check_attention_training_kernels(fa, gen, dev, errs, cases=(conf_abs_attn + (False,),),
                                      path="@conformer-abs")
+    print(f"[kernels] K2 (p = 0 and {ATTN_P}) and the whole backward past grid y's 65535: "
+          f"{BIG_BH[0]} rows of {BIG_BH[1]} heads (B x H = {BIG_BH[0] * BIG_BH[1]}), D = "
+          f"{BIG_BH[2]}, T = 1 and 80, ragged, vs the plain versions", flush=True)
+    big = check_attention_past_65535(fa, gen, dev)
+    print(f"  B x H = {BIG_BH[0] * BIG_BH[1]}: bf16 max_abs_err forward {big['fwd']:.3e}, "
+          f"backward {big['bwd']:.3e} ok", flush=True)
 
     # ---- 4. the slice end to end
     lap("serving")
@@ -4148,7 +4381,7 @@ def main() -> int:
     del on_card, on_cpu
 
     # ---- 8. the training loop
-    lap("loop, ex, ctc, conformer, mel")
+    lap("loop")
     print("[loop] run_training on the release config: a fairseq HuBERT-Base .pt teacher, "
           "a WAV corpus, FITHUBERT_CONV_BWD unset", flush=True)
     per_eval = {cf.KERNEL_PREFIX: 2, cf.KERNEL: per_step[cf.KERNEL],  # teacher + student
@@ -4156,6 +4389,14 @@ def main() -> int:
     # the loop's teacher and corpus serve phases 10 and 11 too
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     pt, libri = loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi, work.name)
+
+    # ---- 8a. the rehearsal: preempted, resumed, exported, probed; read before [timing]
+    print(f"[rehearsal] python -m fithubert_tpu_torch.scripts.dress_rehearsal on "
+          f"{REHEARSAL_CONFIG} (the release geometry, synthetic corpus) started in the "
+          f"background; its results and the probes on its export are read before [tp]",
+          flush=True)
+    rehearsal = start_rehearsal(work.name)
+    lap("ex, ctc, conformer, mel")
 
     # ---- 8b. configs/ex.yaml end to end, then the CTC path
     t_phase = time.perf_counter()
@@ -4246,6 +4487,12 @@ def main() -> int:
     print(f"[chain] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 8f. slice 13: tensor parallelism, the 'model' axis
+    # ---- 8f. the rehearsal's results, before [tp] and [timing] time their steps
+    lap("rehearsal (its wait)")
+    print("[rehearsal] the dress rehearsal's chain and launches, then the probes on its export",
+          flush=True)
+    rehearsal_phase(rehearsal, smi)
+
     lap("tensor parallelism")
     t_phase = time.perf_counter()
     print(f"[tp] the release config over a ('data', 'model') mesh of gloo ranks sharing the "

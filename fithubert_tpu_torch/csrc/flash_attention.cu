@@ -28,9 +28,10 @@
 //     the register cap of that many (80 a thread, 128 above) and setmaxnreg
 //     moves the producer's down to 24 and the consumers' up to 136 (232
 //     above), as the backward does. The launch checks the register count
-//     first (REG_ERROR). Grid: one block per (query tile, b * H + h), 1440
-//     blocks at the teacher's shape, 2688 at serving's, 180 at the abs
-//     conformer's.
+//     first (REG_ERROR). Grid: one block per (query tile, b * H + h), on x
+//     alone with the query tile fastest (tile_grid), so B * H may pass
+//     65535; 1440 blocks at the teacher's shape, 2688 at serving's, 180 at
+//     the abs conformer's.
 //   - The producer's first warp loads the block's Q tile once (TMA, [64
 //     rows][64 columns] boxes under the 128-byte swizzle: D > 64 takes two
 //     boxes, D = 40 one box whose columns past D TMA fills with zeros, rows
@@ -182,7 +183,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2], fl
   for (int r = 0; r < 2; ++r) l[r] = l[r] * al[r] + sum[r];
 }
 
-// Block (query tile, b * H + h). qmap, kmap, vmap: 4-D maps (D, T, H, B) of
+// Block (query tile, b * H + h) of tile_grid. qmap, kmap, vmap: 4-D maps (D, T, H, B) of
 // q, k and v with [64 rows][64 columns] boxes (map_rows).
 template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(Fwd<D>::THREADS, Fwd<D>::BLOCKS_PER_SM)
@@ -196,9 +197,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * FT;
-  const int n_kt = (T_len + FT - 1) / FT;
+  const int n_kt = (T_len + FT - 1) / FT;  // key tiles, and query tiles of the grid
+  int qt, bh;
+  block_tile(n_kt, qt, bh);
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = qt * FT;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -406,8 +409,10 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
   auto valid = reinterpret_cast<float*>(smem + 2 * BKV * D * sizeof(float));
   const uint32_t seed0 = DROPOUT ? seed_ptr[0] : 0u, seed1 = DROPOUT ? seed_ptr[1] : 0u;
 
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int t = blockIdx.x * BQ + threadIdx.x;
+  int qt, bh;
+  block_tile((T_len + BQ - 1) / BQ, qt, bh);
+  const int b = bh / H, h = bh - b * H;
+  const int t = qt * BQ + threadIdx.x;
   const bool row_ok = t < T_len;
 
   float qr[D], acc[D];
@@ -536,7 +541,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const uint8_t* mask
   // setmaxnreg's budget holds only at the launch count it was planned on
   if (!ready[drop] && (err = check_regs(kernel, F::LAUNCH_REGS)) != 0) return err;
   if ((err = allow_smem(kernel, F::SMEM, &ready[drop])) != 0) return err;
-  const dim3 grid((T_len + FT - 1) / FT, B * H);
+  dim3 grid;
+  if ((err = tile_grid((T_len + FT - 1) / FT, B, H, &grid)) != 0) return err;
   kernel<<<grid, F::THREADS, F::SMEM, stream>>>(maps[0], maps[1], maps[2], mask,
                                                 static_cast<bf16*>(out), lse, T_len, H, dr);
   return static_cast<int>(cudaGetLastError());
@@ -549,7 +555,9 @@ int launch_f32(const void* q, const void* k, const void* v, const uint8_t* mask,
   static bool opted[2] = {false, false};
   auto kernel = dr.thr > 0 ? &flash_fwd<D, true> : &flash_fwd<D, false>;
   opt_in_smem(kernel, fwd_smem<D>(), opted[dr.thr > 0]);
-  kernel<<<dim3((T_len + BQ - 1) / BQ, B * H), BQ, fwd_smem<D>(), stream>>>(
+  dim3 grid;
+  if (const int err = tile_grid((T_len + BQ - 1) / BQ, B, H, &grid)) return err;
+  kernel<<<grid, BQ, fwd_smem<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       mask, static_cast<float*>(out), lse, T_len, H, st.qb, st.qt, st.qh, st.kb, st.kt, st.kh,
       st.vb, st.vt, st.vh, dr.thr, dr.inv_keep, dr.ptr);

@@ -234,7 +234,7 @@ __device__ __forceinline__ void dq_store(const float* acc, float* dst, long long
   }
 }
 
-// Block (key tile kt, b * H + h). qmap, kmap, vmap, omap: 4-D maps (D, T,
+// Block (key tile kt, b * H + h) of tile_grid. qmap, kmap, vmap, omap: 4-D maps (D, T,
 // H, B) of q, k, v and dO with [64 rows][64 columns] boxes.
 template <int D, bool DROPOUT>
 __global__ void __launch_bounds__(Fused<D>::THREADS, Fused<D>::BLOCKS_PER_SM)
@@ -251,9 +251,11 @@ flash_bwd_fused(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
   const uint32_t base = (raw + 1023u) & ~1023u;
   float* const ld = reinterpret_cast<float*>(smem_raw + (base - raw) + F::LD_OFF);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kt = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int n_qt = (T_len + FT - 1) / FT;  // query tiles, and key tiles of the grid
+  int kt, bh;
+  block_tile(n_qt, kt, bh);
+  const int b = bh / H, h = bh - b * H;
   const int key0 = kt * FT;
-  const int n_qt = (T_len + FT - 1) / FT;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -530,7 +532,8 @@ int launch_fused(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mas
   // setmaxnreg's budget holds only at the launch count it was planned on
   if (!smem_set[drop] && (err = check_regs(kernel, F::LAUNCH_REGS)) != 0) return err;
   if ((err = allow_smem(kernel, F::SMEM, &smem_set[drop])) != 0) return err;
-  const dim3 grid((T_len + FT - 1) / FT, B * H);
+  dim3 grid;
+  if ((err = tile_grid((T_len + FT - 1) / FT, B, H, &grid)) != 0) return err;
   kernel<<<grid, F::THREADS, F::SMEM, stream>>>(qmap, kmap, vmap, omap, mask, lse, delta,
                                                 dq_part, dk, dv, T_len, H, B, dr);
   return static_cast<int>(cudaGetLastError());
@@ -561,8 +564,10 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     dr.seed1 = dr.ptr[1];
   }
 
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int i = blockIdx.x * BQ + threadIdx.x;
+  int qt, bh;
+  block_tile((T_len + BQ - 1) / BQ, qt, bh);
+  const int b = bh / H, h = bh - b * H;
+  const int i = qt * BQ + threadIdx.x;
   const bool row_ok = i < T_len;
   const long long row = static_cast<long long>(row_ok ? i : 0);
 
@@ -645,8 +650,10 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
     dr.seed1 = dr.ptr[1];
   }
 
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int j = blockIdx.x * BKV + threadIdx.x;
+  int kt, bh;
+  block_tile((T_len + BKV - 1) / BKV, kt, bh);
+  const int b = bh / H, h = bh - b * H;
+  const int j = kt * BKV + threadIdx.x;
   const bool col_in = j < T_len;
   const long long col = static_cast<long long>(col_in ? j : 0);
   const bool col_ok =
@@ -741,25 +748,31 @@ template <int D>
 constexpr int fp32_smem() { return 2 * BQ * D * sizeof(float) + 2 * BQ * sizeof(float); }
 
 template <int D>
-void launch_dq_f32(const float* q, const float* k, const float* v, const uint8_t* mask,
-                   const float* dout, const float* lse, const float* delta, float* dq, int B,
-                   int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
+int launch_dq_f32(const float* q, const float* k, const float* v, const uint8_t* mask,
+                  const float* dout, const float* lse, const float* delta, float* dq, int B,
+                  int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
   static bool opted[2] = {false, false};
   auto kernel = dr.thr > 0 ? &flash_bwd_dq<D, true> : &flash_bwd_dq<D, false>;
   opt_in_smem(kernel, fp32_smem<D>(), opted[dr.thr > 0]);
-  kernel<<<dim3((T_len + BQ - 1) / BQ, B * H), BQ, fp32_smem<D>(), stream>>>(
-      q, k, v, mask, dout, lse, delta, dq, T_len, H, st, dr);
+  dim3 grid;
+  if (const int err = tile_grid((T_len + BQ - 1) / BQ, B, H, &grid)) return err;
+  kernel<<<grid, BQ, fp32_smem<D>(), stream>>>(q, k, v, mask, dout, lse, delta, dq, T_len, H,
+                                               st, dr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-void launch_dkv_f32(const float* q, const float* k, const float* v, const uint8_t* mask,
-                    const float* dout, const float* lse, const float* delta, float* dk, float* dv,
-                    int B, int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
+int launch_dkv_f32(const float* q, const float* k, const float* v, const uint8_t* mask,
+                   const float* dout, const float* lse, const float* delta, float* dk, float* dv,
+                   int B, int T_len, int H, Strides st, Dropout dr, cudaStream_t stream) {
   static bool opted[2] = {false, false};
   auto kernel = dr.thr > 0 ? &flash_bwd_dkv<D, true> : &flash_bwd_dkv<D, false>;
   opt_in_smem(kernel, fp32_smem<D>(), opted[dr.thr > 0]);
-  kernel<<<dim3((T_len + BKV - 1) / BKV, B * H), BKV, fp32_smem<D>(), stream>>>(
-      q, k, v, mask, dout, lse, delta, dk, dv, T_len, H, st, dr);
+  dim3 grid;
+  if (const int err = tile_grid((T_len + BKV - 1) / BKV, B, H, &grid)) return err;
+  kernel<<<grid, BKV, fp32_smem<D>(), stream>>>(q, k, v, mask, dout, lse, delta, dk, dv, T_len,
+                                                H, st, dr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -851,12 +864,12 @@ extern "C" int flash_attention_bwd_dq_f32(int head_dim, const void* q, const voi
   const Dropout dr{thr, inv_keep, static_cast<const uint32_t*>(seed_ptr), 0u, 0u};
 #define FA_DQ_CASE(DD)                                                                          \
   if (head_dim == DD) {                                                                         \
-    launch_dq_f32<DD>(static_cast<const float*>(q), static_cast<const float*>(k),               \
-                      static_cast<const float*>(v), static_cast<const uint8_t*>(mask),          \
-                      static_cast<const float*>(dout), static_cast<const float*>(lse),          \
-                      static_cast<const float*>(delta), static_cast<float*>(dq), B, T_len, H,   \
-                      st, dr, static_cast<cudaStream_t>(stream));                               \
-    return static_cast<int>(cudaGetLastError());                                                \
+    return launch_dq_f32<DD>(                                                                   \
+        static_cast<const float*>(q), static_cast<const float*>(k),                             \
+        static_cast<const float*>(v), static_cast<const uint8_t*>(mask),                        \
+        static_cast<const float*>(dout), static_cast<const float*>(lse),                        \
+        static_cast<const float*>(delta), static_cast<float*>(dq), B, T_len, H, st, dr,         \
+        static_cast<cudaStream_t>(stream));                                                     \
   }
   FA_HEAD_DIMS(FA_DQ_CASE)
 #undef FA_DQ_CASE
@@ -876,13 +889,12 @@ extern "C" int flash_attention_bwd_dkv_f32(int head_dim, const void* q, const vo
   const Dropout dr{thr, inv_keep, static_cast<const uint32_t*>(seed_ptr), 0u, 0u};
 #define FA_DKV_CASE(DD)                                                                          \
   if (head_dim == DD) {                                                                          \
-    launch_dkv_f32<DD>(static_cast<const float*>(q), static_cast<const float*>(k),               \
-                       static_cast<const float*>(v), static_cast<const uint8_t*>(mask),          \
-                       static_cast<const float*>(dout), static_cast<const float*>(lse),          \
-                       static_cast<const float*>(delta), static_cast<float*>(dk),                \
-                       static_cast<float*>(dv), B, T_len, H, st, dr,                             \
-                       static_cast<cudaStream_t>(stream));                                       \
-    return static_cast<int>(cudaGetLastError());                                                 \
+    return launch_dkv_f32<DD>(                                                                   \
+        static_cast<const float*>(q), static_cast<const float*>(k),                              \
+        static_cast<const float*>(v), static_cast<const uint8_t*>(mask),                         \
+        static_cast<const float*>(dout), static_cast<const float*>(lse),                         \
+        static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), B,   \
+        T_len, H, st, dr, static_cast<cudaStream_t>(stream));                                    \
   }
   FA_HEAD_DIMS(FA_DKV_CASE)
 #undef FA_DKV_CASE

@@ -55,6 +55,24 @@ int allow_smem(Kernel kernel, int bytes, bool* done) {
   return 0;
 }
 
+// The grid of a kernel of one block per (tile, b * H + h): x alone, the
+// tile fastest (block bh * tiles + tile), so the tiles of one (b, h) run
+// side by side and read its K and V through L2 together, and B * H is not
+// held to grid y's 65535. Returns 0, or cudaErrorInvalidConfiguration
+// where the blocks would pass x's 2^31 - 1.
+inline int tile_grid(int tiles, int B, int H, dim3* grid) {
+  const long long n = static_cast<long long>(tiles) * B * H;
+  if (n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *grid = dim3(static_cast<unsigned>(n));
+  return 0;
+}
+
+// This block's (tile, b * H + h) under tile_grid.
+__device__ __forceinline__ void block_tile(int tiles, int& tile, int& bh) {
+  bh = static_cast<int>(blockIdx.x / static_cast<unsigned>(tiles));
+  tile = static_cast<int>(blockIdx.x) - bh * tiles;
+}
+
 // A kernel built with another register count than its setmaxnreg plan
 // (REG_ERROR + the count): launched, its consumers could wait forever for
 // registers the block does not hold.

@@ -127,14 +127,24 @@ def _check(q, k, v, key_padding_mask, dropout_p, seed) -> None:
             raise ValueError("all inputs must lie on one device")
 
 
+KEEP_MASK_CHUNK = 1 << 24  # elements of keep_mask's int64 Philox at a time
+
+
 def keep_mask(b: int, h: int, t: int, dropout_p: float, seed: Seed,
               device=None) -> torch.Tensor:
-    """(B, H, T, T) bool: True where a probability is kept."""
-    z = torch.arange(b * h, device=device, dtype=torch.int64).view(b, h, 1, 1)
+    """(B, H, T, T) bool: True where a probability is kept. Drawn over
+    batch rows of at most ``KEEP_MASK_CHUNK`` elements at a time: the int64
+    Philox holds ~120 bytes an element while it runs."""
     i = torch.arange(t, device=device, dtype=torch.int64).view(1, 1, t, 1)
     j = torch.arange(t, device=device, dtype=torch.int64).view(1, 1, 1, t)
-    words = philox4x32(j >> 2, i, z, torch.zeros_like(j), key_words(seed))
-    return keep_bits(pick_word(words, (j & 3).expand(b, h, t, t)), dropout_p)
+    out = torch.empty((b, h, t, t), dtype=torch.bool, device=device)
+    rows = max(1, KEEP_MASK_CHUNK // max(1, h * t * t))
+    for b0 in range(0, b, rows):
+        b1 = min(b, b0 + rows)
+        z = torch.arange(b0 * h, b1 * h, device=device, dtype=torch.int64).view(b1 - b0, h, 1, 1)
+        words = philox4x32(j >> 2, i, z, torch.zeros_like(j), key_words(seed))
+        out[b0:b1] = keep_bits(pick_word(words, (j & 3).expand(b1 - b0, h, t, t)), dropout_p)
+    return out
 
 
 def _logits(q, k, key_padding_mask):
@@ -412,8 +422,6 @@ def _cuda_args(q, k, v, key_padding_mask):
         # the bf16 kernels read q, k and v through TMA maps of 16-byte strides
         raise ValueError("bf16 q, k and v need every (b, t, h) row on a 16-byte boundary "
                          "(pad_heads copies them)")
-    if b * h > 65535:
-        raise ValueError("B * H must be at most 65535 (one grid row per (b, h))")
     mask = None if key_padding_mask is None else key_padding_mask.contiguous()
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     return mask, strides

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import os
 import queue
+import signal
 import socket
 import traceback
 from dataclasses import dataclass
@@ -104,7 +105,14 @@ def launch(fn: Callable, n: int, *args: Any, timeout: Optional[float] = None) ->
     ``timeout`` seconds pass, every rank is stopped and this raises.
     Results come back through a queue: plain values and numpy arrays, not
     tensors, which torch would share through memory of a rank that has
-    exited."""
+    exited.
+
+    While it waits, a SIGTERM or SIGINT to this process goes on to every
+    rank still alive and the wait goes on: a preemption signal sent to the
+    launching process reaches the ranks' ``PreemptionGuard`` (the loop's
+    ranks then checkpoint and return), where the default action would end
+    this process alone and leave the ranks training. The previous handlers
+    come back on the way out; off the main thread none is installed."""
     import multiprocessing as mp
     import time
 
@@ -113,11 +121,23 @@ def launch(fn: Callable, n: int, *args: Any, timeout: Optional[float] = None) ->
     port = free_port()
     procs = [ctx.Process(target=_worker, args=(fn, r, n, port, results, args), daemon=False)
              for r in range(n)]
-    for p in procs:
-        p.start()
+
+    def pass_on(signum, frame):
+        for p in procs:
+            if p.pid is not None and p.exitcode is None:
+                os.kill(p.pid, signum)
+
+    prev = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev[sig] = signal.signal(sig, pass_on)
+        except ValueError:  # not the main thread
+            pass
     got: Dict[int, Any] = {}
     deadline = None if timeout is None else time.monotonic() + timeout
     try:
+        for p in procs:
+            p.start()
         while len(got) < n:
             try:
                 rank, ok, value = results.get(timeout=1.0)
@@ -133,7 +153,11 @@ def launch(fn: Callable, n: int, *args: Any, timeout: Optional[float] = None) ->
                 raise RuntimeError(f"rank {rank} failed:\n{value}")
             got[rank] = value
     finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
         for p in procs:
+            if p.pid is None:  # never started
+                continue
             p.join(timeout=30 if len(got) == n else 1)
             if p.is_alive():
                 p.terminate()

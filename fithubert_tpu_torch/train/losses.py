@@ -172,6 +172,25 @@ def collapse_pseudo_labels(ids: torch.Tensor, blank: int = 0
 LOG_EPSILON = -1e5  # optax.ctc_loss's stand-in for log(0)
 
 
+class _TakeLabels(torch.autograd.Function):
+    """``logp`` (B, T, V) at each row's labels (B, U): (B, T, U). Its
+    gradient sums over a row's positions of each label in a fixed order;
+    ``gather``'s backward adds them with atomics on the card, in no fixed
+    order, where a label repeats."""
+
+    @staticmethod
+    def forward(ctx, logp, labels):
+        ctx.save_for_backward(labels)
+        ctx.vocab = logp.shape[-1]
+        return logp.gather(2, labels[:, None, :].expand(-1, logp.shape[1], -1))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (labels,) = ctx.saved_tensors
+        return torch.stack([(grad * (labels == c)[:, None, :]).sum(-1)
+                            for c in range(ctx.vocab)], dim=-1), None
+
+
 def ctc_per_sequence(logits: torch.Tensor, labels: torch.Tensor,
                      label_paddings: torch.Tensor,
                      logit_paddings: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -185,7 +204,8 @@ def ctc_per_sequence(logits: torch.Tensor, labels: torch.Tensor,
     labels, with the blanks their repeats need, than frames, as
     pseudo-labels from a teacher at a finer frame rate can be) the loss is
     a large finite penalty with a gradient, where ``F.ctc_loss`` returns
-    inf; elsewhere the two agree."""
+    inf; elsewhere the two agree. Its gradient is the same run to run on
+    the card (``_TakeLabels``)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     b, t, _ = logp.shape
     n = labels.shape[1]
@@ -195,7 +215,7 @@ def ctc_per_sequence(logits: torch.Tensor, labels: torch.Tensor,
     no_repeat = LOG_EPSILON * (1.0 - repeat)
     repeat = LOG_EPSILON * repeat
     lp_blank = logp[:, :, :1]  # (B, T, 1)
-    lp_emit = logp.gather(2, labels[:, None, :].expand(b, t, n))  # (B, T, U)
+    lp_emit = _TakeLabels.apply(logp, labels)  # (B, T, U)
     phi = torch.full((b, n + 1), LOG_EPSILON, device=logp.device)
     phi[:, 0].fill_(0.0)
     emit = torch.full((b, n), LOG_EPSILON, device=logp.device)

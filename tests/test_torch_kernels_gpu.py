@@ -341,6 +341,37 @@ def test_attention_backward_matches_plain(dev, case, dtype, dropout_p):
 
 
 @pytest.mark.parametrize("dropout_p", [0.0, 0.1], ids=["p0", "p0.1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_attention_past_65535_batch_heads(dev, dtype, dropout_p):
+    """B x H = 65536 at T = 1: every kernel takes its (tile, b * H + h)
+    blocks on grid x, whose y would stop at 65535. The forward and the
+    backward against the plain versions, and rows b < 16 bit for bit
+    against a call on those rows alone (their Philox words do not move)."""
+    q, k, v, mask, dout = _attention_inputs((4096, 1, 16, 40), dtype, dev, seed=65536)
+    seed = seed_tensor(0xDEADBEEF, 12345, dev) if dropout_p else None
+
+    def both(q, k, v, mask, dout):
+        out, lse = fa.flash_attention(q, k, v, mask, dropout_p=dropout_p, seed=seed,
+                                      return_lse=True)
+        return (out, lse) + tuple(fa._flash_bwd_cuda(q, k, v, mask, out, lse, dout,
+                                                     dropout_p, seed))
+
+    got = both(q, k, v, mask, dout)
+    out, lse, *grads = got
+    want, want_lse = fa.attention_plain(q, k, v, mask, dropout_p, seed)
+    rows = ~mask.all(-1)
+    _close(out[rows], want[rows], dtype)
+    _close(lse[rows], want_lse[rows], torch.float32)
+    for g, ref in zip(grads, fa.attention_bwd_plain(q, k, v, mask, out, lse, dout, dropout_p,
+                                                    seed)):
+        _close(g[rows], ref[rows], dtype)
+        assert (g[~rows] == 0).all()
+    head = both(q[:16], k[:16], v[:16], mask[:16], dout[:16])
+    for a, b in zip(got, head):
+        assert torch.equal(a[:16], b)
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1], ids=["p0", "p0.1"])
 @pytest.mark.parametrize("case", [(2, 63, 3, 40), (3, 130, 2, 64), (2, 65, 2, 16),
                                   (2, 200, 2, 80), (1, 129, 2, 128)],
                          ids=lambda c: "x".join(map(str, c)))

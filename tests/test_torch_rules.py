@@ -1,5 +1,5 @@
-"""Rules of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points run on the card unless the caller asks for the CPU, its
+"""Rules of the PyTorch port: it imports neither JAX nor the JAX package
+(nor the JAX side's scripts/), its entry points run on the card unless the caller asks for the CPU, its
 kernel modules import without a CUDA toolkit, and each CUDA source says
 which TPU kernel it replaces."""
 
@@ -18,7 +18,8 @@ from fithubert_tpu_torch.ops.kernels import SOURCES, _build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(fithubert_tpu_torch.__file__)
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "fithubert_tpu")
+# scripts/ is the JAX side's: its probe and rehearsal import fithubert_tpu
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "fithubert_tpu", "scripts")
 
 
 def _port_files():
@@ -133,6 +134,34 @@ def test_the_scan_covers_the_modules_of_this_slice():
     scanned = {os.path.relpath(p, PKG) for p in _port_files()}
     assert {"hubconf.py", "parallel/distributed.py", "export/reference_import.py",
             "export/extract_features.py"} <= scanned
+
+
+def test_the_scan_covers_the_probe_and_the_rehearsal():
+    """The port's consumer end, fithubert_tpu_torch/scripts/, is scanned:
+    its modules import neither JAX nor the JAX side's scripts/."""
+    scanned = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"scripts/__init__.py", "scripts/linear_probe.py",
+            "scripts/dress_rehearsal.py"} <= scanned
+
+
+def test_the_probe_needs_the_card_unless_cpu_is_asked(monkeypatch):
+    """The probe's CLI and its heads raise without a card unless the CPU is
+    asked for, before they read anything."""
+    import numpy as np
+
+    from fithubert_tpu_torch.scripts import linear_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        linear_probe.main(["--ckpt", "missing.pt", "--config", "missing.yaml"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        linear_probe.main(["--ckpt", "missing.pt", "--config", "missing.yaml", "--ctc"])
+    feats, labels = np.ones((4, 3), np.float32), np.array([0, 1, 0, 1], np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        linear_probe.train_linear_probe(feats, labels, 2, steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        linear_probe.train_ctc_probe([feats], ["ab"], steps=1)
+    assert linear_probe.train_linear_probe(feats, labels, 2, steps=1, device="cpu")[1] >= 0.0
 
 
 def test_kernel_modules_import_and_build_raises_without_nvcc(monkeypatch, tmp_path):

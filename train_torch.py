@@ -17,9 +17,16 @@ rank each, data parallel over NCCL. Under torchrun each process is one rank:
         -c configs/smoke.yaml --device cpu       # two gloo ranks on the CPU
     python train_torch.py -c configs/ex.yaml --device cpu --set data.synthetic=true \
         --set data.synthetic_wav_length=32000 --set train.max_steps=4
+
+A SIGTERM or SIGINT checkpoints ``last/`` and ends the run with exit code
+0, in this process or, over several cards, in every rank it started. With
+``FITHUBERT_LAUNCH_COUNTS`` set to a path, the run appends one JSON line of
+this process's kernel launches there (``ops/kernels/_build.LAUNCHES``).
 """
 
 import argparse
+import json
+import os
 import sys
 
 
@@ -55,6 +62,12 @@ def main(argv=None):
     # result to the same file, and print's separate newline could interleave
     sys.stdout.write(f"{result}\n")
     sys.stdout.flush()
+    counts = os.environ.get("FITHUBERT_LAUNCH_COUNTS")
+    if counts:
+        from fithubert_tpu_torch.ops.kernels import _build
+
+        with open(counts, "a") as f:
+            f.write(json.dumps(dict(_build.LAUNCHES)) + "\n")
     return result
 
 
