@@ -121,7 +121,7 @@ run with a non-zero exit and no final line:
      run_training with
      steps_per_launch 4;
   9. timing: serving at B = 32 x 16 s and the train step at 3 x 4 x 12 s,
-     with a profile of each, the host's time to encode K2's tensor maps,
+     with a profile of each, the host's time of a whole K2 call,
      the steps of paths 6 and 7, and every kernel against its bound, its
      plain version and the library call, one row per
      kernel and path at that path's shapes, with the launches that path's
@@ -4528,16 +4528,11 @@ def main() -> int:
 
     profile_device(lambda: expert(bench), "forward", unprofiled_ms=fwd_ms)
 
-    # the host's share of a K2 call: its three TMA maps, encoded at each call
-    # (eager steps are host-bound)
+    # the host's share of a K2 call (eager steps are host-bound)
     hq = [torch.randn(32, cf.out_len(16 * SR, cfg.conv_feature_layers) // cfg.tr_reduce_factor,
                       cfg.encoder_attention_heads,
                       cfg.encoder_embed_dim // cfg.encoder_attention_heads,
                       generator=gen).to(dev, torch.bfloat16) for _ in range(3)]
-    fa.fwd_maps_cuda(*hq, 100)
-    t0 = time.perf_counter()
-    fa.fwd_maps_cuda(*hq, 5000)
-    maps_us = (time.perf_counter() - t0) / 5000 * 1e6
     with torch.no_grad():
         fa.flash_attention(*hq)
         torch.cuda.synchronize()
@@ -4546,9 +4541,8 @@ def main() -> int:
             fa.flash_attention(*hq)
         call_us = (time.perf_counter() - t0) / 200 * 1e6
         torch.cuda.synchronize()
-    print(f"  K2's tensor maps at serving's {tuple(hq[0].shape)}: {maps_us:.2f} us of host time "
-          f"a call (q, k and v, cuTensorMapEncodeTiled), {12 * maps_us:.1f} us a forward (12 "
-          f"launches); a whole K2 call {call_us:.1f} us on the host", flush=True)
+    print(f"  K2 at serving's {tuple(hq[0].shape)}: a whole call {call_us:.1f} us on the host",
+          flush=True)
     del hq
 
     print("[timing] train step, 3 x 4 x 12 s (144 s of audio), bf16", flush=True)

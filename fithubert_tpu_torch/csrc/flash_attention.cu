@@ -598,20 +598,3 @@ extern "C" int flash_attention_fwd(int dtype, int head_dim, const void* q, const
 #undef FA_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
-// The host's share of a bf16 launch: the three TMA maps encoded reps times,
-// as flash_attention_fwd encodes them at each call (arguments as there).
-// Returns 0 or the first tensor-map error.
-extern "C" int flash_attention_fwd_maps(int head_dim, const void* q, const void* k,
-                                        const void* v, int B, int T_len, int H, long long sqb,
-                                        long long sqt, long long sqh, long long skb,
-                                        long long skt, long long skh, long long svb,
-                                        long long svt, long long svh, int reps) {
-  const Strides st{sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
-  CUtensorMap maps[3];
-  for (int i = 0; i < reps; ++i) {
-    const int err = encode_maps(maps, q, k, v, head_dim, B, T_len, H, st);
-    if (err != 0) return err;
-  }
-  return 0;
-}

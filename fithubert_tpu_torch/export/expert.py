@@ -40,6 +40,7 @@ from fithubert_tpu_torch.device import resolve_device
 from fithubert_tpu_torch.export.reference_import import reference_student_state_dict
 from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.ops.quant import prequantize_
+from fithubert_tpu_torch.utils.profiling import count, span
 
 
 class UpstreamExpert:
@@ -76,18 +77,27 @@ class UpstreamExpert:
         return self.forward(wavs)
 
     def forward(self, wavs: Sequence[Any]) -> Dict[str, Any]:
-        """wavs: 1-D float waveforms (numpy arrays or tensors)."""
-        wavs = [w.detach().float().cpu().numpy() if isinstance(w, torch.Tensor)
-                else np.asarray(w, np.float32) for w in wavs]
-        lengths = [int(w.shape[0]) for w in wavs]
-        t_pad = quantize_length(max(lengths), self.length_quantum)
-        batch = np.zeros((len(wavs), t_pad), np.float32)
-        mask = np.ones((len(wavs), t_pad), bool)
-        for i, (w, n) in enumerate(zip(wavs, lengths)):
-            batch[i, :n] = w
-            mask[i, :n] = False
-        out = self.model(torch.from_numpy(batch).to(self.device),
-                         torch.from_numpy(mask).to(self.device))
+        """wavs: 1-D float waveforms (numpy arrays or tensors). The call's
+        host work is in three spans (``utils/profiling.py``): ``expert.pad``
+        (the padded batch and mask in numpy), ``expert.h2d`` (their copies
+        to the device, counted in ``h2d_bytes``) and ``expert.model`` (the
+        student's forward as enqueued)."""
+        with span("expert.pad"):
+            wavs = [w.detach().float().cpu().numpy() if isinstance(w, torch.Tensor)
+                    else np.asarray(w, np.float32) for w in wavs]
+            lengths = [int(w.shape[0]) for w in wavs]
+            t_pad = quantize_length(max(lengths), self.length_quantum)
+            batch = np.zeros((len(wavs), t_pad), np.float32)
+            mask = np.ones((len(wavs), t_pad), bool)
+            for i, (w, n) in enumerate(zip(wavs, lengths)):
+                batch[i, :n] = w
+                mask[i, :n] = False
+        with span("expert.h2d"):
+            x = torch.from_numpy(batch).to(self.device)
+            pad = torch.from_numpy(mask).to(self.device)
+            count("h2d_bytes", batch.nbytes + mask.nbytes)
+        with span("expert.model"):
+            out = self.model(x, pad)
         return {
             "last_hidden_state": out.x,
             "hidden_states": tuple(h for (h, _, _) in out.layer_results),

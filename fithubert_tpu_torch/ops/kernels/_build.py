@@ -10,7 +10,10 @@ runs at import time, so the modules import on a machine without ``nvcc``.
 
 Every kernel wrapper adds one to ``LAUNCHES[<kernel name>]`` for each kernel
 launch it makes, and nowhere else, so a run can show which kernels it went
-through.
+through, and holds the wrapper's host work for each launch (its checks,
+allocations, tensor maps and the launch) in a span of that name
+(``utils/profiling.py span``). The counts live in the program's one counter
+registry, ``profiling.COUNTS``; ``LAUNCHES`` shows its launch counts alone.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ import re
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Iterable, List, Optional, Tuple
+from collections.abc import Mapping
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+
+from fithubert_tpu_torch.utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -31,15 +37,48 @@ BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {}
+_LAUNCHED: Dict[str, None] = {}  # the names count_launch has counted, in order
+
+
+class _Launches(Mapping):
+    """The launch counts of ``profiling.COUNTS``: its entries that
+    ``count_launch`` made."""
+
+    def __getitem__(self, name: str) -> int:
+        if name not in _LAUNCHED or name not in profiling.COUNTS:
+            raise KeyError(name)
+        return profiling.COUNTS[name]
+
+    def __iter__(self) -> Iterator[str]:
+        return (n for n in _LAUNCHED if n in profiling.COUNTS)
+
+    def __len__(self) -> int:
+        return sum(1 for _ in self)
+
+
+LAUNCHES = _Launches()
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    _LAUNCHED[name] = None
+    profiling.count(name)
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    for name in _LAUNCHED:
+        profiling.COUNTS.pop(name, None)
+
+
+def one_launch(name: str):
+    """Decorate a wrapper that makes one launch of ``name``: its host work,
+    from its checks to the launch, in a span of that name."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with profiling.span(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
 
 
 def _nvcc() -> str:

@@ -64,6 +64,7 @@ import torch.nn.functional as F
 
 from fithubert_tpu_torch.ops.activations import gelu_exact, gelu_tanh
 from fithubert_tpu_torch.ops.kernels import _build
+from fithubert_tpu_torch.utils import profiling
 
 Spec = Tuple[Tuple[int, int, int], ...]  # (dim, kernel, stride) per layer
 KERNEL = "conv_stack_cuda"
@@ -289,6 +290,11 @@ def gn_prefix_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) ->
     A tile) and raises on the card."""
     if x.device.type == "cpu":
         return _prefix(x, scale, shift)
+    return _gn_prefix_kernel(x, scale, shift)
+
+
+@_build.one_launch(KERNEL_PREFIX)
+def _gn_prefix_kernel(x, scale, shift):
     if x.dtype != torch.bfloat16 or scale.dtype != x.dtype or shift.dtype != x.dtype:
         raise ValueError(f"{KERNEL_PREFIX} takes bfloat16 x, scale and shift")
     b, t, c = x.shape
@@ -321,18 +327,19 @@ def _conv_stack_kernels(x, weights, spec, scale, shift) -> torch.Tensor:
     if scale is not None and x.dtype == torch.bfloat16:
         h, scale, shift = gn_prefix_cuda(x, scale, shift), None, None
     for i, (w, (d, k, s)) in enumerate(zip(weights, spec)):
-        wt = w.permute(2, 0, 1).contiguous()  # (C_out, k, C_in): rows of K = k*C_in
-        t_in, c_in = h.shape[1], h.shape[2]
-        t_out = (t_in - k) // s + 1
-        y = torch.empty((b, t_out, d), dtype=x.dtype, device=x.device)
-        prefix = scale is not None and i == 0  # fp32: applied to each A tile
-        err = fn(_DTYPE_CODE[x.dtype], h.data_ptr(), wt.data_ptr(),
-                 scale.data_ptr() if prefix else None,
-                 shift.data_ptr() if prefix else None,
-                 y.data_ptr(), b, t_in, c_in, t_out, d, k, s,
-                 *a_operand_view(t_in, c_in, k, s), stream)
-        _build.check(err, KERNEL)
-        _build.count_launch(KERNEL)
+        with profiling.span(KERNEL):
+            wt = w.permute(2, 0, 1).contiguous()  # (C_out, k, C_in): rows of K = k*C_in
+            t_in, c_in = h.shape[1], h.shape[2]
+            t_out = (t_in - k) // s + 1
+            y = torch.empty((b, t_out, d), dtype=x.dtype, device=x.device)
+            prefix = scale is not None and i == 0  # fp32: applied to each A tile
+            err = fn(_DTYPE_CODE[x.dtype], h.data_ptr(), wt.data_ptr(),
+                     scale.data_ptr() if prefix else None,
+                     shift.data_ptr() if prefix else None,
+                     y.data_ptr(), b, t_in, c_in, t_out, d, k, s,
+                     *a_operand_view(t_in, c_in, k, s), stream)
+            _build.check(err, KERNEL)
+            _build.count_launch(KERNEL)
         h = y
     return h
 
@@ -418,6 +425,7 @@ def _launch(fn, *args) -> None:
     _build.count_launch(KERNEL_BWD)
 
 
+@_build.one_launch(KERNEL_BWD)
 def up_cuda(a: torch.Tensor, wt: torch.Tensor, layer: Tuple[int, int, int],
             g: Optional[torch.Tensor] = None):
     """K6's up pass over one layer (d, k, s) of contiguous CUDA a (B, T_in,
@@ -443,6 +451,7 @@ def up_pass_cuda(a: torch.Tensor, w: torch.Tensor, layer: Tuple[int, int, int]
     return up_cuda(a, w.permute(2, 0, 1).contiguous(), layer)
 
 
+@_build.one_launch(KERNEL_BWD)
 def dw_partials_cuda(a: torch.Tensor, dz: torch.Tensor, layer: Tuple[int, int, int]
                      ) -> torch.Tensor:
     """K6's dW launch for one layer (d, k, s): fp32 partials (n_chunks, k *
@@ -460,6 +469,7 @@ def dw_partials_cuda(a: torch.Tensor, dz: torch.Tensor, layer: Tuple[int, int, i
     return part
 
 
+@_build.one_launch(KERNEL_BWD)
 def dw_reduce_cuda(part: torch.Tensor, layer: Tuple[int, int, int]) -> torch.Tensor:
     """The ordered sum of the dW partials: dW (k, C_in, d) fp32. One K6 launch."""
     d, k, _s = layer
@@ -469,6 +479,7 @@ def dw_reduce_cuda(part: torch.Tensor, layer: Tuple[int, int, int]) -> torch.Ten
     return dw
 
 
+@_build.one_launch(KERNEL_BWD)
 def da_cuda(dz: torch.Tensor, wk: torch.Tensor, layer: Tuple[int, int, int], t_in: int,
             z_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K6's da launch for one layer (d, k, s) from dz (B, T_out, d) and wk =

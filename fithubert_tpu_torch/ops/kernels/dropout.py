@@ -74,6 +74,7 @@ def _dropout_fn():
     return fn
 
 
+@_build.one_launch(KERNEL)
 def seeded_dropout_cuda(x: torch.Tensor, seed: Seed, p: float) -> torch.Tensor:
     """K5 on a CUDA tensor: one launch. ``seed`` is a (2,) int32 tensor
     on x's card, read by the kernel."""

@@ -78,6 +78,7 @@ from fithubert_tpu_torch.ops.kernels.philox import (
     pick_word,
     threshold,
 )
+from fithubert_tpu_torch.utils import profiling
 
 KERNEL = "flash_attention_fwd_cuda"
 KERNEL_DROPOUT = "flash_attention_fwd_dropout_cuda"
@@ -372,15 +373,6 @@ def _fwd_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_maps_fn():
-    fn = _build.load("flash_attention").flash_attention_fwd_maps
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_longlong] * 9 + [ctypes.c_int]
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
 def _bwd_fns():
     lib = _build.load("flash_attention_bwd")
     strided = [ctypes.c_int] * 3 + [ctypes.c_longlong] * 9 + _SEED_TAIL  # B, T, H, strides
@@ -434,39 +426,30 @@ def _dropout_args(dropout_p: float, seed: Optional[Seed]):
 
 
 def _fwd_kernel(q, k, v, key_padding_mask, dropout_p, seed):
-    """K2 on q, k, v at a compiled head size: one launch."""
-    _on_cuda("the attention forward", q, k, v)
-    b, t, h, d = q.shape
-    mask, strides = _cuda_args(q, k, v, key_padding_mask)
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    err = _fwd_fn()(_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    None if mask is None else mask.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), b, t, h, *strides, *_dropout_args(dropout_p, seed),
-                    _stream(q))
+    """K2 on q, k, v at a compiled head size: one launch, its host work
+    (the checks, the outputs, the TMA maps the C entry encodes) in a span
+    named after its launch counter."""
     name = KERNEL_DROPOUT if dropout_p > 0.0 else KERNEL
-    _build.check(err, name)
-    _build.count_launch(name)
+    with profiling.span(name):
+        _on_cuda("the attention forward", q, k, v)
+        b, t, h, d = q.shape
+        mask, strides = _cuda_args(q, k, v, key_padding_mask)
+        out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        err = _fwd_fn()(_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        None if mask is None else mask.data_ptr(), out.data_ptr(),
+                        lse.data_ptr(), b, t, h, *strides, *_dropout_args(dropout_p, seed),
+                        _stream(q))
+        _build.check(err, name)
+        _build.count_launch(name)
     return out, lse
-
-
-def fwd_maps_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, reps: int) -> None:
-    """Encode the bf16 forward's three TMA maps of q, k and v ``reps``
-    times on the host, as each launch does, and launch nothing: the host's
-    share of a call, timed by ``chip_smoke.py``."""
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the TMA maps are the bf16 forward's, not {q.dtype}'s")
-    _on_cuda("fwd_maps_cuda", q, k, v)
-    _mask, strides = _cuda_args(q, k, v, None)
-    b, t, h, d = q.shape
-    _build.check(_fwd_maps_fn()(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), b, t, h,
-                                *strides, reps), "flash_attention_fwd_maps")
 
 
 def _flash_cuda(q, k, v, key_padding_mask, dropout_p, seed):
     return padded_attention(_fwd_kernel, q, k, v, key_padding_mask, dropout_p, seed)
 
 
+@_build.one_launch(KERNEL_BWD_PREP)
 def bwd_prep_cuda(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """The pre-pass: delta = rowsum(dO * O), (B, H, T) fp32, from out and
     dout (B, T, H, D), both contiguous in one dtype, at any D."""
@@ -486,6 +469,7 @@ def bwd_prep_cuda(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return delta
 
 
+@_build.one_launch(KERNEL_DQ_SUM)
 def dq_sum_cuda(parts: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """dQ (B, T, H, D) in bf16 from the fp32 partials of the fused backward,
     summed in key-tile order (``dq_sum_plain``)."""
@@ -524,6 +508,7 @@ def _bwd_head(q, k, v, key_padding_mask, lse, dout, delta):
     return ptrs, [q.shape[0], q.shape[1], q.shape[2], *strides]
 
 
+@_build.one_launch(KERNEL_BWD)
 def bwd_fused_cuda(q, k, v, key_padding_mask, lse, dout, delta, dropout_p=0.0, seed=None):
     """The fused bf16 pass at a compiled head size: (dQ partials
     ``dq_scratch_shape`` fp32, dK, dV)."""
@@ -553,10 +538,11 @@ def _bwd_f32(q, k, v, key_padding_mask, lse, dout, delta, dropout_p, seed):
     d, seed_args, stream = q.shape[3], _dropout_args(dropout_p, seed), _stream(q)
     for name, fn, outs in ((KERNEL_DQ_F32, "dq_f32", grads[:1]),
                            (KERNEL_DKV_F32, "dkv_f32", grads[1:])):
-        err = _bwd_fns()[fn](d, *ptrs, *(x.data_ptr() for x in outs), *tail, *seed_args,
-                             stream)
-        _build.check(err, name)
-        _build.count_launch(name)
+        with profiling.span(name):
+            err = _bwd_fns()[fn](d, *ptrs, *(x.data_ptr() for x in outs), *tail, *seed_args,
+                                 stream)
+            _build.check(err, name)
+            _build.count_launch(name)
     return tuple(grads)
 
 

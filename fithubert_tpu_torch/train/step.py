@@ -81,6 +81,15 @@ steps. Launch counts (``_build.LAUNCHES``) count kernels where Python
 launches them, so a replay adds none: a captured chain counted its
 launches once, when it was captured.
 
+Every step marks the device time of its phases (``PHASES``: teacher
+forward, student forward and losses, backward, gradients and AdamW) with a
+``utils/profiling.py PhaseTimer``; a captured chain's marks are event-record
+nodes of its graph, so each replay times them. ``Distiller.phase_ms()``
+reads the last eager step's, ``_Chain.phase_ms()`` a chain's last replay's.
+A replay's host staging is in the spans ``chain.batches``, ``chain.lrs``,
+``chain.draws`` and ``chain.launch``; a replay made while ``torch.profiler``
+records leaves its phases to ``profiling.READINGS["step.phases"]``.
+
 ``distiller.quantize_matmuls`` raises ValueError, as the JAX Distiller does
 (``fithubert_tpu/train/step.py:60-67``): training through int8 matmuls
 would stop learning. ``teacher.quantize_int8`` makes the frozen teacher's
@@ -120,8 +129,11 @@ from fithubert_tpu_torch.train.optim import (
     lr_tensor,
     set_lr,
 )
+from fithubert_tpu_torch.utils import profiling
+from fithubert_tpu_torch.utils.profiling import PhaseTimer, span
 
 Batch = Mapping[str, torch.Tensor]
+PHASES = ("step.teacher", "step.student", "step.backward", "step.optim")
 
 
 class StepLogs(NamedTuple):
@@ -193,6 +205,8 @@ class Distiller:
         self.step = 0
         self._chains: Dict[Any, _Chain] = {}  # captured K-step graphs, by shape
         self._pool = None  # their shared memory pool
+        self._timer: Optional[PhaseTimer] = None  # the one the next _step marks
+        self._eager_timer: Optional[PhaseTimer] = None  # the last eager step's
 
     def _seed(self, micro: int, rank_free: bool = False, step: Optional[int] = None) -> int:
         step = self.step if step is None else step
@@ -219,9 +233,12 @@ class Distiller:
 
     def _forward_loss(self, wav, mask, rand_layers, rng: Optional[DropoutRNG],
                       labels=None, label_paddings=None,
-                      stripe: Optional[BatchStripe] = None) -> LossOutput:
+                      stripe: Optional[BatchStripe] = None,
+                      timer: Optional[PhaseTimer] = None) -> LossOutput:
         cfg = self.cfg
         t_out = self.teacher(wav, mask, need_taps=self.need_taps)
+        if timer is not None:
+            timer.mark("step.teacher")
         s_out = self.student.forward_train(wav, mask, rng, need_taps=self.need_taps,
                                            stripe=stripe)
         ctc_logits = None
@@ -268,9 +285,15 @@ class Distiller:
     def _eager_step(self, inputs, make_rng: Callable[[int], DropoutRNG]) -> "StepLogs":
         lr = self.schedule(self.step)
         set_lr(self.optimizer, lr)
+        self._timer = self._eager_timer = PhaseTimer(self.device)
         names, values = self._step(inputs, make_rng)
         self.step += 1
         return StepLogs(names, values, lr)
+
+    def phase_ms(self) -> List[Dict[str, float]]:
+        """The last eager step's ms in each of ``PHASES`` (``_step``), as
+        a one-step list; waits for the step."""
+        return [] if self._eager_timer is None else self._eager_timer.phase_ms()
 
     def _step(self, inputs, make_rng: Callable[[int], DropoutRNG]
               ) -> Tuple[Tuple[str, ...], torch.Tensor]:
@@ -278,7 +301,11 @@ class Distiller:
         microbatches' forwards and backwards, the gradient sums, AdamW.
         ``make_rng(i)`` gives microbatch i's draws. Returns the log names
         and their values on the device; nothing here waits for the card or
-        copies from the host, so a CUDA graph can capture it."""
+        copies from the host, so a CUDA graph can capture it. ``_timer``,
+        set by the caller, marks the step's start and the end of each of
+        ``PHASES``: each microbatch's teacher forward, its student forward
+        with the losses, its backward, then the gradients' fill, division,
+        all-reduce and norm, AdamW and the logs (``step.optim``)."""
         cfg = self.cfg
         x, mask, rand, labels, pads = inputs
         if x.dim() != 3:
@@ -293,13 +320,17 @@ class Distiller:
                                      for t in (x, mask, labels, pads))
         n_micro = x.shape[0]
         stripe = self._stripe(folded, x.shape[1] // folded)
+        timer = self._timer
         self.optimizer.zero_grad(set_to_none=True)
+        timer.mark()
         losses, logs = [], []
         for i in range(n_micro):
             out = self._forward_loss(x[i], mask[i], rand, make_rng(i),
                                      None if labels is None else labels[i],
-                                     None if pads is None else pads[i], stripe)
+                                     None if pads is None else pads[i], stripe, timer)
+            timer.mark("step.student")
             out.total.backward()
+            timer.mark("step.backward")
             losses.append(out.total.detach())
             logs.append(out.logs)
         grads = []
@@ -319,6 +350,7 @@ class Distiller:
         if self.dp is not None:  # each rank's logs are its share of the global batch's
             means = self.dp.sum(means)
         values = torch.cat([means, grad_norm.float()[None]])
+        timer.mark("step.optim")
         return tuple(names) + ("loss", "grad_norm"), values
 
     def train_step_chain(self, batches: Sequence[Batch], rand_layers) -> List["StepLogs"]:
@@ -363,6 +395,8 @@ class Distiller:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        # the phases' events become event-record nodes of the graph
+        self._timer = timer = PhaseTimer(self.device, external=True)
         values = []
         with torch.cuda.graph(graph, pool=self._pool):
             for k, inp in enumerate(static):
@@ -372,30 +406,37 @@ class Distiller:
                 values.append(v)
             out = torch.stack(values)
             self.optimizer.zero_grad(set_to_none=True)
-        return _Chain(graph, static, lrs, staged, out, names, 0.0)
+        return _Chain(graph, static, lrs, staged, out, names, timer, 0.0)
 
     def _replay(self, chain: "_Chain", inputs) -> List["StepLogs"]:
         """One replay of ``chain``: the K batches, lrs and host draws
         written into its static tensors, in stream order before it runs."""
         k_steps = len(inputs)
-        for dst, src in zip(chain.inputs, inputs):
-            for d, t in zip(dst, src):
-                if d is not None:
-                    d.copy_(t, non_blocking=True)
-        lrs = [self.schedule(self.step + k) for k in range(k_steps)]
-        chain.lrs.copy_(torch.tensor(lrs, dtype=torch.float32).pin_memory(), non_blocking=True)
-        streams = {}
-        for k, i, draw, dst in chain.staged.entries:
-            if (k, i) not in streams:
-                step = self.step + k
-                streams[k, i] = host_streams(self._seed(i, step=step),
-                                             self._seed(i, rank_free=True, step=step))
-            for d, t in zip(dst, draw(streams[k, i])):
-                if d.shape != t.shape:
-                    raise RuntimeError(f"a host draw of shape {tuple(t.shape)} for a static "
-                                       f"tensor of {tuple(d.shape)}")
-                d.copy_(t.pin_memory(), non_blocking=True)
-        chain.graph.replay()
+        profiling.settle()  # a profiled replay's phases, before this one re-records them
+        with span("chain.batches"):
+            for dst, src in zip(chain.inputs, inputs):
+                for d, t in zip(dst, src):
+                    if d is not None:
+                        d.copy_(t, non_blocking=True)
+        with span("chain.lrs"):
+            lrs = [self.schedule(self.step + k) for k in range(k_steps)]
+            chain.lrs.copy_(torch.tensor(lrs, dtype=torch.float32).pin_memory(),
+                            non_blocking=True)
+        with span("chain.draws"):
+            streams = {}
+            for k, i, draw, dst in chain.staged.entries:
+                if (k, i) not in streams:
+                    step = self.step + k
+                    streams[k, i] = host_streams(self._seed(i, step=step),
+                                                 self._seed(i, rank_free=True, step=step))
+                for d, t in zip(dst, draw(streams[k, i])):
+                    if d.shape != t.shape:
+                        raise RuntimeError(f"a host draw of shape {tuple(t.shape)} for a "
+                                           f"static tensor of {tuple(d.shape)}")
+                    d.copy_(t.pin_memory(), non_blocking=True)
+        with span("chain.launch"):
+            chain.graph.replay()
+        profiling.defer("step.phases", chain.phases.segments)
         out = chain.out.clone()
         self.step += k_steps
         return [StepLogs(chain.names, out[k], lrs[k]) for k in range(k_steps)]
@@ -526,4 +567,10 @@ class _Chain(NamedTuple):
     staged: _Staged
     out: torch.Tensor  # (K, n_logs): each step's log values
     names: Tuple[str, ...]
+    phases: PhaseTimer  # its events: every replay records them
     capture_s: float  # host seconds the capture took
+
+    def phase_ms(self) -> List[Dict[str, float]]:
+        """Each step's ms in each of ``PHASES`` in the last replay; waits
+        for it."""
+        return self.phases.phase_ms()

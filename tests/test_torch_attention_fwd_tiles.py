@@ -212,13 +212,12 @@ def test_the_forward_launch_names_stay():
     assert fa.KERNEL_DROPOUT == "flash_attention_fwd_dropout_cuda"
 
 
-@pytest.mark.parametrize("call", ["kernel", "maps"])
+@pytest.mark.parametrize("call", ["kernel"])
 def test_the_forward_wrappers_refuse_cpu_tensors(call):
-    """The kernel's launcher and the map encoder take CUDA tensors only:
-    nothing falls back to a plain version, and nothing is built or counted."""
+    """The kernel's launcher takes CUDA tensors only: nothing falls back to
+    a plain version, and nothing is built or counted."""
     q = torch.zeros(1, 64, 2, 40, dtype=torch.bfloat16)
-    calls = {"kernel": lambda: fa._fwd_kernel(q, q, q, None, 0.0, None),
-             "maps": lambda: fa.fwd_maps_cuda(q, q, q, 1)}
+    calls = {"kernel": lambda: fa._fwd_kernel(q, q, q, None, 0.0, None)}
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
         calls[call]()
