@@ -260,6 +260,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# Failures whose phase leaves nothing the later phases use: printed where
+# they happen, and the script fails with them after its last phase.
+DEFERRED: list = []
+
+
+def fail_at_end(msg: str) -> None:
+    print(f"chip_smoke FAILED (the later phases still run; the script fails at its end): "
+          f"{msg}", flush=True)
+    DEFERRED.append(msg)
+
+
 def smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True, text=True,
@@ -1433,13 +1444,16 @@ def rehearsal_phase(started, smi):
     stdout, stderr = (open(paths[n]).read() for n in ("rehearsal.out", "rehearsal.err"))
     wall = time.perf_counter() - t0
     log = os.path.join(report, "dress_rehearsal_gpu.log")
-    if proc.returncode != 0:
+    try:  # its last line: the summary, written once the CTC probe has run
+        summary = json.loads(stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        summary = {}
+    # exit 1 with a summary whose probe failed: the CTC probe's verdict alone
+    probe_only = proc.returncode == 1 and summary.get("probe_rc", 0) != 0
+    if proc.returncode != 0 and not probe_only:
         tail = open(log).read()[-3000:] if os.path.exists(log) else ""
         fail(f"the dress rehearsal exited {proc.returncode}:\n{stdout[-2000:]}\n"
              f"{stderr[-3000:]}\n{tail}")
-    summary = json.loads(stdout.strip().splitlines()[-1])
-    if not summary.get("ok"):
-        fail(f"the dress rehearsal's CTC probe failed: {summary}")
     print(f"  train_torch.py -c {REHEARSAL_CONFIG} (train.max_steps {exp_r.train.max_steps}): "
           f"SIGTERM at step {summary['preempt_step']}, [preemption] checkpointed step "
           f"{summary['checkpointed_step']}, rc 0 ({summary['phase1_s']} s); resumed from step "
@@ -1450,6 +1464,8 @@ def rehearsal_phase(started, smi):
     print(f"  CTC probe on the export ({n_utts} utterances, {steps} steps, on the card, "
           f"{summary['probe_s']} s): {summary['probe_tail']}; {json.dumps(summary['probe'])}",
           flush=True)
+    if not summary.get("ok"):
+        fail_at_end(f"the dress rehearsal's CTC probe: {summary['probe_tail']}")
     with open(counts) as f:
         runs = [json.loads(line) for line in f]
     if len(runs) != 2:
@@ -1491,8 +1507,11 @@ def rehearsal_phase(started, smi):
     torch.cuda.synchronize()
     probe_s = time.perf_counter() - t0
     probe_launches = dict(_build.LAUNCHES)
-    if set(probe_launches) != {cf.KERNEL_PREFIX, cf.KERNEL, fa.KERNEL}:
-        fail(f"the probe's forwards launched {probe_launches}, not K1, its prefix and K2")
+    want = set(plus_pos_conv({cf.KERNEL_PREFIX: 1, cf.KERNEL: 1, fa.KERNEL: 1},
+                             load_yaml_config(yml), 1, teacher=False, backward=False))
+    if set(probe_launches) != want:
+        fail(f"the probe's forwards launched {probe_launches}, not K1, its prefix, K2 and the "
+             f"positional conv")
     ok = lp.probe_passed(res)
     print(f"  framewise probe on the export ({n_utts} utterances, {n_classes} classes, {steps} "
           f"steps, bf16 features, {probe_s:.1f} s): PROBE {'PASSED' if ok else 'FAILED'}: "
@@ -2038,32 +2057,36 @@ def ex_per_step(exp_ex, geom):
     """The launches of one ex train step: K1 and the prefix on the student's
     and the teacher's extractors, the teacher's attention at p = 0, the
     student's at p = 0.1 with its backward, K6 over the student's stack
-    (feature_grad_mult 1: every block trains)."""
+    (feature_grad_mult 1: every block trains), the positional conv's
+    forwards and the student's input gradient."""
     from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
     from fithubert_tpu_torch.ops.kernels import flash_attention as fa
 
     n_stack = len(exp_ex.distiller.conv_feature_layers) - 1
     l_s = exp_ex.distiller.encoder_layers
-    return plus_k5({cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1,
-                    cf.KERNEL_PREFIX: 2, fa.KERNEL: geom.encoder_layers,
-                    fa.KERNEL_DROPOUT: l_s, **attn_bwd(l_s),
-                    cf.KERNEL_BWD: 4 * n_stack}, exp_ex.distiller, 1)
+    return plus_pos_conv(plus_k5({cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1,
+                                  cf.KERNEL_PREFIX: 2, fa.KERNEL: geom.encoder_layers,
+                                  fa.KERNEL_DROPOUT: l_s, **attn_bwd(l_s),
+                                  cf.KERNEL_BWD: 4 * n_stack}, exp_ex.distiller, 1),
+                         exp_ex.distiller, 1)
 
 
 def release_per_step(exp, geom):
     """The launches of one release train step (its microbatches folded
     into one forward): K1 on both extractors, one prefix each (block 0's
     GroupNorm), the teacher's K2 at p = 0, the student's K2 with dropout,
-    the backward's three launches, K6's up, dW, ordered sum and da per layer, and K5 at every
-    elementwise dropout forward and backward."""
+    the backward's three launches, K6's up, dW, ordered sum and da per layer, K5 at every
+    elementwise dropout forward and backward, and the positional conv (the teacher's and
+    the student's forwards, the student's input gradient)."""
     from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
     from fithubert_tpu_torch.ops.kernels import flash_attention as fa
 
     cfg, n_stack = exp.distiller, len(exp.distiller.conv_feature_layers) - 1
-    return plus_k5({cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 2,
-                    fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: cfg.encoder_layers,
-                    **attn_bwd(cfg.encoder_layers),
-                    cf.KERNEL_BWD: 4 * n_stack}, cfg, 1)
+    return plus_pos_conv(plus_k5({cf.KERNEL: n_stack + len(geom.conv_feature_layers) - 1,
+                                  cf.KERNEL_PREFIX: 2, fa.KERNEL: geom.encoder_layers,
+                                  fa.KERNEL_DROPOUT: cfg.encoder_layers,
+                                  **attn_bwd(cfg.encoder_layers),
+                                  cf.KERNEL_BWD: 4 * n_stack}, cfg, 1), cfg, 1)
 
 
 def launches_of_step(d, batch, rand, want, what):
@@ -2294,7 +2317,9 @@ def ex_phase(exp_ex, geom, t_state, gen, smi, tmp, pt, libri):
         torch.cuda.synchronize()
         got = dict(_build.LAUNCHES)
         n_stack = len(cfg.conv_feature_layers) - 1
-        if got != {cf.KERNEL_PREFIX: 1, cf.KERNEL: n_stack, fa.KERNEL: cfg.encoder_layers}:
+        if got != plus_pos_conv({cf.KERNEL_PREFIX: 1, cf.KERNEL: n_stack,
+                                 fa.KERNEL: cfg.encoder_layers}, cfg, 1, teacher=False,
+                                backward=False):
             fail(f"ex serving: launches {got}")
         t = cf.out_len((max(len(w) for w in wav_list) + SR - 1) // SR * SR,
                        cfg.conv_feature_layers)
@@ -2466,6 +2491,23 @@ def plus_k5(per, cfg, forwards):
     return out
 
 
+def plus_pos_conv(per, cfg, forwards, teacher=True, backward=True):
+    """``per`` with the positional conv kernel's launches added
+    (``ops/kernels/pos_conv.py``): for each of the step's ``forwards``, the
+    teacher's forward (``teacher``), and the student ``cfg``'s forward and
+    (``backward``) input gradient where its encoder runs the single-layer
+    positional conv: not the rel_pos / rope conformer stack, nor
+    ``pos_conv_depth`` > 1 (``SameConv1d``'s cuDNN path)."""
+    from fithubert_tpu_torch.ops.kernels import pos_conv as kp
+
+    student = int(not cfg.dedicated_conformer and cfg.pos_conv_depth == 1)
+    n = forwards * (int(teacher) + student * (1 + int(backward)))
+    out = dict(per)
+    if n:
+        out[kp.KERNEL] = out.get(kp.KERNEL, 0) + n
+    return out
+
+
 def conformer_per_step(exp_c, geom):
     """The launches of one train step of a conformer ``exp_c`` (4
     microbatches looped: its BatchNorm statistics never fold): per
@@ -2486,7 +2528,7 @@ def conformer_per_step(exp_c, geom):
         per[kd.KERNEL] = 2 * a * l_s
     else:
         per.update({fa.KERNEL_DROPOUT: a * l_s, **attn_bwd(a * l_s)})
-    return plus_k5(per, cfg, a)
+    return plus_pos_conv(plus_k5(per, cfg, a), cfg, a)
 
 
 def batch_norms(model):
@@ -2757,9 +2799,9 @@ def conformer_phase(geom, t_state, gen, smi, tmp, pt):
     requests = [[torch.randn(int(3.7 * SR), generator=gen) * 0.1],
                 ragged_wavs(gen, 4, 2.0, 16.0),
                 [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(8)]]
-    check_served(expert, cfg, requests, {cf.KERNEL_PREFIX: 1,
-                                         cf.KERNEL: len(cfg.conv_feature_layers) - 1},
-                 "conformer")
+    check_served(expert, cfg, requests,
+                 plus_pos_conv({cf.KERNEL_PREFIX: 1, cf.KERNEL: len(cfg.conv_feature_layers) - 1},
+                               cfg, 1, teacher=False, backward=False), "conformer")
     served_card_vs_cpu(pt_s, cfg, requests[1][:3], "conformer")
     return out, expert
 
@@ -2790,9 +2832,10 @@ def mel_phase(geom, t_state, gen, smi, tmp):
     l_s = cfg.encoder_layers
     # folded into one batch of a * b rows: the teacher's prefix and K1, its
     # K2 at p = 0, the student's attention with dropout and its backward
-    per_step = plus_k5({cf.KERNEL_PREFIX: 1, cf.KERNEL: len(geom.conv_feature_layers) - 1,
-                        fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s,
-                        **attn_bwd(l_s)}, cfg, 1)
+    per_step = plus_pos_conv(plus_k5({cf.KERNEL_PREFIX: 1,
+                                      cf.KERNEL: len(geom.conv_feature_layers) - 1,
+                                      fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s,
+                                      **attn_bwd(l_s)}, cfg, 1), cfg, 1)
     s_state = StudentModel(cfg, device="cpu").init_weights(gen).state_dict()
     d = Distiller(exp_m, t_state, s_state, device="cuda", num_training_steps=20)
     rand = torch.randperm(l_s - 1, generator=gen)
@@ -2861,7 +2904,8 @@ def mel_phase(geom, t_state, gen, smi, tmp):
     requests = [[torch.randn(int(3.7 * SR), generator=gen) * 0.1],
                 ragged_wavs(gen, 4, 2.0, 16.0),
                 [torch.randn(16 * SR, generator=gen) * 0.1 for _ in range(8)]]
-    check_served(expert, cfg, requests, {fa.KERNEL: l_s}, "mel")
+    check_served(expert, cfg, requests,
+                 plus_pos_conv({fa.KERNEL: l_s}, cfg, 1, teacher=False, backward=False), "mel")
     again = expert(requests[1])["last_hidden_state"]
     if not torch.equal(again, expert(requests[1])["last_hidden_state"]):
         fail("mel serving: two calls on one request differ")
@@ -2952,9 +2996,10 @@ def large_phase(exp, gen, smi, tmp):
     s_state = StudentModel(exp_l.distiller, device="cpu").init_weights(gen).state_dict()
     cfg, a, b = exp_l.distiller, exp_l.train.accumulate_grad_batches, exp_l.train.batch_size
     n_stack, l_s = len(cfg.conv_feature_layers) - 1, cfg.encoder_layers
-    per_step = plus_k5({cf.KERNEL: n_stack, cf.KERNEL_PREFIX: 1, fa.KERNEL: geom.encoder_layers,
-                        fa.KERNEL_DROPOUT: l_s, **attn_bwd(l_s),
-                        cf.KERNEL_BWD: 4 * n_stack}, cfg, 1)
+    per_step = plus_pos_conv(plus_k5({cf.KERNEL: n_stack, cf.KERNEL_PREFIX: 1,
+                                      fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s,
+                                      **attn_bwd(l_s), cf.KERNEL_BWD: 4 * n_stack}, cfg, 1),
+                             cfg, 1)
     rand = torch.randperm(cfg.encoder_layers - 1, generator=gen)
     d = Distiller(exp_l, t_state, s_state, device="cuda", num_training_steps=20,
                   teacher_geometry=geom)
@@ -3058,8 +3103,9 @@ def int8_phase(exp, t_state, s_state, state, cfg, rand_layers, per_step, gen, sm
         oq = e_q(wav_list)
         torch.cuda.synchronize()
         got = dict(_build.LAUNCHES)
-        want_l = {cf.KERNEL_PREFIX: 1, cf.KERNEL: len(cfg.conv_feature_layers) - 1,
-                  fa.KERNEL: cfg.encoder_layers}
+        want_l = plus_pos_conv({cf.KERNEL_PREFIX: 1, cf.KERNEL: len(cfg.conv_feature_layers) - 1,
+                                fa.KERNEL: cfg.encoder_layers}, cfg, 1, teacher=False,
+                               backward=False)
         if got != want_l:
             fail(f"[int8] serving: launches {got}, want {want_l}")
         of = e_f(wav_list)
@@ -3104,9 +3150,10 @@ def options_phase(exp, geom, t_state, rand_layers, gen, smi):
         fail("[options] the layer_norm extractor took the fused path")
     s_state = student.state_dict()
     l_s = cfg.encoder_layers
-    per_step = plus_k5({cf.KERNEL: len(geom.conv_feature_layers) - 1, cf.KERNEL_PREFIX: 1,
-                        fa.KERNEL: geom.encoder_layers, fa.KERNEL_DROPOUT: l_s,
-                        **attn_bwd(l_s)}, cfg, 1)
+    per_step = plus_pos_conv(plus_k5({cf.KERNEL: len(geom.conv_feature_layers) - 1,
+                                      cf.KERNEL_PREFIX: 1, fa.KERNEL: geom.encoder_layers,
+                                      fa.KERNEL_DROPOUT: l_s, **attn_bwd(l_s)}, cfg, 1),
+                             cfg, 1)
     d = Distiller(exp_o, t_state, s_state, device="cuda", num_training_steps=20)
     for what, batch in (("ragged", train_batch(gen, a, b, 12.0, ragged=True)),
                         ("fixed", train_batch(gen, a, b, 12.0, ragged=False))):
@@ -3597,7 +3644,7 @@ SMOKE_RUNS = (("smoke fp32", "configs/smoke.yaml", ()),
 CHAIN_K = 4
 CHAIN_ROUNDS = 2  # eager, then graphed, K steps a round: the wall medians
 # what a kernel row's launches count, where not one train step's
-LAUNCHES_OVER = {"serving": "over the 3 serving requests",
+LAUNCHES_OVER = {"serving": "over the 3 serving requests", "ex-serving": "a served call",
                  "smoke": "over the whole smoke bf16 run, its steps and evals",
                  "tp": "per train step on each model rank"}
 CHAIN_LOSS_RTOL, CHAIN_PARAM_ATOL, CHAIN_PARAM_RTOL = 2e-5, 1e-5, 2e-4
@@ -4344,6 +4391,7 @@ def main() -> int:
                              **attn_bwd(a * (l_s - 1)),
                              kd.KERNEL: 2 * a, cf.KERNEL_BWD: a * per_step[cf.KERNEL_BWD]},
                             exp.distiller, a)
+    per_step_taps = plus_pos_conv(per_step_taps, exp.distiller, a)
     distiller_taps = Distiller(exp_taps, t_state, s_state, device="cuda", num_training_steps=20)
     logs = step_checked(distiller_taps, ragged, per_step_taps, "taps ragged step", "train-taps")
     if not all(torch.isfinite(p).all().item() for p in distiller_taps.params):
@@ -4384,8 +4432,9 @@ def main() -> int:
     lap("loop")
     print("[loop] run_training on the release config: a fairseq HuBERT-Base .pt teacher, "
           "a WAV corpus, FITHUBERT_CONV_BWD unset", flush=True)
-    per_eval = {cf.KERNEL_PREFIX: 2, cf.KERNEL: per_step[cf.KERNEL],  # teacher + student
-                fa.KERNEL: geom.encoder_layers + exp.distiller.encoder_layers}  # p = 0
+    per_eval = plus_pos_conv({cf.KERNEL_PREFIX: 2, cf.KERNEL: per_step[cf.KERNEL],  # both
+                              fa.KERNEL: geom.encoder_layers + exp.distiller.encoder_layers},
+                             exp.distiller, 1, backward=False)  # K2 at p = 0
     # the loop's teacher and corpus serve phases 10 and 11 too
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     pt, libri = loop_phase(exp, geom, teacher_cpu, per_step, per_eval, smi, work.name)
@@ -4606,6 +4655,10 @@ def main() -> int:
     ex_fwd_ms = statistics.median(times)
     print(f"  ex forward: median {ex_fwd_ms:.3f} ms over 10 (min {min(times):.3f}, max "
           f"{max(times):.3f}), {32 * 16 / (ex_fwd_ms / 1e3):.1f} audio-s/s", flush=True)
+    _build.reset_launches()
+    expert_ex(bench)
+    torch.cuda.synchronize()
+    path_launches["ex-serving"] = dict(_build.LAUNCHES)
     profile_device(lambda: expert_ex(bench), "ex forward", unprofiled_ms=ex_fwd_ms)
     del expert_ex
 
@@ -4986,6 +5039,54 @@ def main() -> int:
     ex_step_wavs = list(fixed_ex["x"].reshape(-1, fixed_ex["x"].shape[-1]))
     k6_row(ex_student_cpu, ex_step_wavs, "ex", errs[cf.KERNEL_BWD + "@ex"])
 
+    def pos_conv_row(path, label, b, t, c, grad=False, groups=16, k=128):
+        """The positional conv kernel at (b, t, c): the forward with its bias,
+        or (``grad``) the input gradient over flipped weights; held to the
+        plain version at TOL in bf16 and in fp32, timed against it and, as
+        ``library_ms``, against the cuDNN conv the port called before (the
+        forward on the (B, C, T) view, padding k // 2; the input gradient as
+        that forward conv of flipped kernels on the cotangent with SamePad's
+        zero frame, padding k - 1 - k // 2). Its launches are those the
+        path's run counted."""
+        import torch.nn.functional as F
+
+        from fithubert_tpu_torch.ops.kernels import pos_conv as kp
+
+        cg = c // groups
+        x = torch.randn(b, t, c, generator=gen).to(dev, torch.bfloat16)
+        w = (torch.randn(c, cg, k, generator=gen) * (cg * k) ** -0.5).to(dev, torch.bfloat16)
+        bias, pad = torch.randn(c, generator=gen).to(dev, torch.bfloat16), k // 2
+        xt = x.transpose(1, 2)
+        if grad:
+            w, bias, pad = kp.flipped(w, groups), None, k - 1 - k // 2
+            xt = F.pad(xt, (0, 1))
+        what = f"{kp.KERNEL} vs pos_conv_plain, {label}"
+        args32 = [x.float(), w.float(), None if bias is None else bias.float()]
+        compare(f"{what}, fp32", kp.pos_conv_cuda(*args32, pad),
+                kp.pos_conv_plain(*args32, pad), "float32")
+        del args32
+        err = compare(f"{what}, bf16", kp.pos_conv_cuda(x, w, bias, pad),
+                      kp.pos_conv_plain(x, w, bias, pad), "bfloat16")
+        ms = cuda_ms(lambda: kp.pos_conv_cuda(x, w, bias, pad), reps=20)
+        plain = cuda_ms(lambda: kp.pos_conv_plain(x, w, bias, pad), reps=3, warmup=1)
+        lib = cuda_ms(lambda: F.conv1d(xt, w, bias, padding=pad, groups=groups), reps=5,
+                      warmup=2)
+        work = (2 * b * t * c * cg * k, 2 * (2 * b * t * c + c * cg * k))
+        row(kp.KERNEL, "pos_conv.cu", "", path, label, err, ms, plain, work, lib)
+        kernels[-1]["replaces"] = ("none: jax.lax.conv_general_dilated "
+                                   "(fithubert_tpu/ops/conv.py:338-373)")
+
+    # the positional conv at every cell's shapes (distilhubert serving and
+    # step, the release step's teacher and student), input gradients at the
+    # train shapes
+    pos_conv_row("ex-serving", "distilhubert serving (32, 849, 768)", 32, 849, 768)
+    pos_conv_row("train", "release teacher (12, 599, 768)", 12, 599, 768)
+    pos_conv_row("train", "release student (12, 599, 480)", 12, 599, 480)
+    pos_conv_row("train", "release student (12, 599, 480), input gradient", 12, 599, 480,
+                 grad=True)
+    pos_conv_row("ex", "ex teacher and student (8, 599, 768)", 8, 599, 768)
+    pos_conv_row("ex", "ex student (8, 599, 768), input gradient", 8, 599, 768, grad=True)
+
     # ex: the prefix and K1 over the ex student's and the teacher's stacks of one step
     ex_stu, ex_tea = (conv_times(m, ex_step_wavs, dev, f"{who}, ex train")
                       for m, who in ((ex_student_cpu, "ex student"), (teacher_cpu, "teacher")))
@@ -5064,6 +5165,10 @@ def main() -> int:
 
     # ---- 12. result lines
     lap("result lines")
+    if DEFERRED:
+        print(json.dumps({"kernels": kernels}), flush=True)
+        fail(f"every phase ran ({time.perf_counter() - t_start:.1f} s), but: "
+             + "; ".join(DEFERRED))
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)

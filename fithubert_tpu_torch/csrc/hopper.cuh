@@ -1,6 +1,7 @@
 // Hopper's asynchronous building blocks, shared by the bf16 kernels that
-// run on wgmma fed by TMA: K1 and K6 (conv_gemm.cuh, conv_frontend_bwd.cu)
-// and the fused attention backward (flash_attention_bwd.cu).
+// run on wgmma fed by TMA: K1 and K6 (conv_gemm.cuh, conv_frontend_bwd.cu),
+// the attention kernels (flash_attention*.cu) and the positional conv
+// (pos_conv.cu).
 //   - mbarriers: a phase completes when its arrivals and the bytes TMA was
 //     told to expect (expect_tx) have all come in; waits spin on a parity;
 //   - TMA: one thread copies a 2- to 4-D box between device memory and
@@ -268,11 +269,13 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A bf16 tensor map of rank 2 to 5 with 128-byte swizzled boxes: loads fill
-// zeros outside dims, stores skip what lies outside. strides in bytes, for
-// dims 1.. only.
+// A bf16 tensor map of rank 2 to 5 with 128-byte swizzled boxes (or, given
+// CU_TENSOR_MAP_SWIZZLE_NONE, boxes laid out densely, row after row): loads
+// fill zeros outside dims, stores skip what lies outside. strides in bytes,
+// for dims 1.. only.
 int encode_map(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
-               const cuuint64_t* strides, const cuuint32_t* box) {
+               const cuuint64_t* strides, const cuuint32_t* box,
+               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static EncodeTiledFn encode = nullptr;  // cuTensorMapEncodeTiled, from the CUDA driver: no -lcuda
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -286,7 +289,7 @@ int encode_map(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
                               dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : TMA_ERROR + static_cast<int>(res);
 }

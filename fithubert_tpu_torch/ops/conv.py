@@ -8,7 +8,7 @@ reference's state-dict names; the JAX kernels are their transposes (see
                           otherwise the unfused loop, layer_norm mode and
                           conv bias included)
   PositionalConv        ≙ conv.py:384 (weight norm over the kernel axis,
-                          SamePad, exact GELU)
+                          SamePad, exact GELU; the conv in kernels/pos_conv.py)
   MultiLayerPositionalConv ≙ conv.py:435 (pos_conv_depth > 1)
   Conv1D                ≙ conv.py:38, the k == s branch (the TR conv1d)
   SameConv1d            ≙ conv.py:38, stride 1 with padding (the conformer's
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from fithubert_tpu_torch.ops.activations import gelu_exact
 from fithubert_tpu_torch.ops.kernels.conv_frontend import conv_stack, fusable, gn_scale_shift
+from fithubert_tpu_torch.ops.kernels.pos_conv import conv_weight_grads, flipped, positional_conv
 from fithubert_tpu_torch.ops.norms import FP32GroupNorm, FP32LayerNorm
 
 
@@ -148,15 +149,17 @@ class _WeightNormConv(nn.Module):
 
 
 class _GroupedConv1d(torch.autograd.Function):
-    """``F.conv1d`` (stride 1) with a deterministic backward. cuDNN's
-    heuristics pick an input-gradient algorithm for the 768-wide positional
-    conv (groups 16, k 128) that sums in another order from run to run on an
-    H100, so two identical train steps gave different gradients below it;
-    its deterministic input-gradient kernel took 22 ms a step there. So the
+    """``F.conv1d`` (stride 1) with a deterministic backward, for
+    ``SameConv1d``'s grouped convs (the multi-layer positional conv, the
+    conformer's depthwise conv, the heads' convs). cuDNN's heuristics pick an
+    input-gradient algorithm for a wide grouped conv (768 wide, groups 16, k
+    128) that sums in another order from run to run on an H100, so two
+    identical train steps gave different gradients below it; its
+    deterministic input-gradient kernel took 22 ms a step there. So the
     input gradient is computed as the forward convolution it equals: each
-    group's kernel transposed and flipped in time, padded by k - 1 - p. The
-    weight gradient keeps cuDNN's with the deterministic flag, which is
-    read when the backward runs and so is set here."""
+    group's kernel transposed and flipped in time (``flipped``), padded by
+    k - 1 - p. The weight gradient keeps cuDNN's with the deterministic flag
+    (``conv_weight_grads``), as the positional conv's does."""
 
     @staticmethod
     def forward(ctx, x, w, b, padding: int, groups: int):
@@ -170,18 +173,11 @@ class _GroupedConv1d(torch.autograd.Function):
         g, k = ctx.groups, w.shape[-1]
         gx = None
         if ctx.needs_input_grad[0]:
-            c_out, c_in_g = w.shape[0], w.shape[1]
-            wt = w.reshape(g, c_out // g, c_in_g, k).transpose(1, 2).flip(-1)
-            gx = F.conv1d(grad, wt.reshape(g * c_in_g, c_out // g, k),
-                          padding=k - 1 - ctx.padding, groups=g)
+            gx = F.conv1d(grad, flipped(w, g), padding=k - 1 - ctx.padding, groups=g)
         gw = gb = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                            benchmark=False, deterministic=True,
-                                            allow_tf32=torch.backends.cudnn.allow_tf32):
-                _, gw, gb = torch.ops.aten.convolution_backward(
-                    grad, x, w, [w.shape[0]], [1], [ctx.padding], [1], False, [0], g,
-                    [False, ctx.needs_input_grad[1], ctx.needs_input_grad[2]])
+            gw, gb = conv_weight_grads(grad, x, w, ctx.padding, g, ctx.needs_input_grad[1],
+                                       ctx.needs_input_grad[2])
         return gx, gw, gb, None, None
 
 
@@ -216,8 +212,11 @@ class SameConv1d(nn.Conv1d):
 
 class PositionalConv(nn.Module):
     """Grouped weight-normed conv + SamePad + exact GELU over (B, T, C).
-    w[:, :, k] = g[k] * v[:, :, k] / ||v[:, :, k]||. The single child is
-    named ``0`` so the keys read ``pos_conv.0.weight_g`` as in the reference."""
+    w[:, :, k] = g[k] * v[:, :, k] / ||v[:, :, k]||. The conv is
+    ``kernels/pos_conv.py positional_conv``: the kernel on the card, the
+    fp32-summed ``F.conv1d`` on the CPU, in the (B, T, C) layout either way.
+    The single child is named ``0`` so the keys read ``pos_conv.0.weight_g``
+    as in the reference."""
 
     def __init__(self, embed_dim: int, kernel_size: int = 128, groups: int = 16,
                  device=None):
@@ -230,16 +229,7 @@ class PositionalConv(nn.Module):
         v = conv.weight_v
         norm = torch.sqrt((v * v).sum(dim=(0, 1), keepdim=True) + 1e-12)
         w = (v * (conv.weight_g / norm)).to(x.dtype)
-        b = conv.bias.to(x.dtype)
-        xt = x.transpose(1, 2)
-        if x.device.type == "cpu" and x.dtype != torch.float32:
-            # the CPU's bf16 grouped conv1d returns wrong values at some
-            # shapes (C=48, groups=4, k=16); sum the bf16 operands in fp32
-            xt, w, b = xt.float(), w.float(), b.float()
-        y = _GroupedConv1d.apply(xt, w, b, self.kernel_size // 2, self.groups).to(x.dtype)
-        if self.kernel_size % 2 == 0:  # SamePad: drop the trailing step
-            y = y[:, :, :-1]
-        return gelu_exact(y.transpose(1, 2))
+        return gelu_exact(positional_conv(x, w, conv.bias.to(x.dtype), self.groups))
 
 
 class MultiLayerPositionalConv(nn.Module):

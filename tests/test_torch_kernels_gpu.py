@@ -13,7 +13,9 @@ the whole backward against the plain formulas) with and without dropout,
 its determinism and its replay in a CUDA graph; the seeded dropout (K5) bit for bit, forward and backward;
 the conv-stack backward (K6) on ragged T with k < s, k = s and k > s layers
 and on the whole student stack at odd T_in with B > 1, its determinism, and
-its selection as the card's default backward, down to a train step.
+its selection as the card's default backward, down to a train step; the
+positional conv at every config's group width, forward and input gradient,
+its determinism, its launch count and its replay in a CUDA graph.
 Skipped where there is no CUDA card. On a machine
 with one (and without JAX, which the suite's conftest imports):
 
@@ -27,6 +29,7 @@ from fithubert_tpu_torch.ops.kernels import _build
 from fithubert_tpu_torch.ops.kernels import conv_frontend as cf
 from fithubert_tpu_torch.ops.kernels import dropout as kd
 from fithubert_tpu_torch.ops.kernels import flash_attention as fa
+from fithubert_tpu_torch.ops.kernels import pos_conv as kp
 from fithubert_tpu_torch.ops.kernels.philox import seed_tensor
 
 pytestmark = pytest.mark.gpu
@@ -464,8 +467,9 @@ def test_attention_backward_is_deterministic(dev, case):
 
 
 def test_positional_conv_bf16_at_the_teachers_width(dev):
-    """cuDNN's bf16 grouped conv at C = 768, groups 16, k = 128 against the
-    same conv in fp32 on the card: within bf16 rounding."""
+    """The positional conv kernel in bf16 at C = 768, groups 16, k = 128
+    (through PositionalConv) against the kernel's fp32 body on the card:
+    within bf16 rounding."""
     from fithubert_tpu_torch.ops.conv import PositionalConv
 
     g = torch.Generator().manual_seed(0)
@@ -473,10 +477,97 @@ def test_positional_conv_bf16_at_the_teachers_width(dev):
     with torch.no_grad():
         pc._modules["0"].weight_v.copy_(torch.randn(768, 48, 128, generator=g) * 0.01)
         x = torch.randn(2, 300, 768, generator=g).to(dev)
+        _build.reset_launches()
         want = pc(x)
         got = pc(x.bfloat16()).float()
+    assert _build.LAUNCHES == {kp.KERNEL: 2}
     rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
     assert rel < 2e-2, rel
+
+
+# (B, T, C, groups, k): every config's positional conv (serving's and the
+# train cells' shapes; FitHuBERT's 30-wide groups; the large teacher's 64;
+# the smoke student's 12 and teacher's 16 at k = 16), and T from 1 frame to
+# past a block's 256, odd and even
+POS_CONV_CASES = [
+    (32, 849, 768, 16, 128), (12, 599, 768, 16, 128), (12, 599, 480, 16, 128),
+    (8, 599, 768, 16, 128), (3, 301, 1024, 16, 128), (4, 49, 48, 4, 16), (4, 24, 64, 4, 16),
+    (2, 1, 768, 16, 128), (3, 64, 480, 16, 128), (2, 129, 768, 16, 128), (2, 257, 48, 4, 16),
+]
+
+
+def _pos_conv_inputs(case, dtype, dev, seed):
+    b, t, c, groups, k = case
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, c, generator=g).to(dev, dtype)
+    w = (torch.randn(c, c // groups, k, generator=g) * (c // groups * k) ** -0.5).to(dev, dtype)
+    bias = torch.randn(c, generator=g).to(dev, dtype)
+    return x, w, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", POS_CONV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_pos_conv_matches_plain(dev, case, dtype):
+    """The kernel against its plain version, forward (pad k // 2, with the
+    bias) and input gradient (flipped weights, pad k - 1 - k // 2)."""
+    x, w, bias = _pos_conv_inputs(case, dtype, dev, seed=sum(case))
+    groups, k = case[3], case[4]
+    for wt, bt, pad in ((w, bias, k // 2), (kp.flipped(w, groups), None, k - 1 - k // 2)):
+        _close(kp.pos_conv_cuda(x, wt, bt, pad), kp.pos_conv_plain(x, wt, bt, pad), dtype)
+
+
+def test_pos_conv_is_deterministic_and_counted(dev):
+    """Forward and input gradient through positional_conv: bit for bit the
+    same over two runs, one launch each; the weight and bias gradients
+    (cuDNN) within bf16 rounding of the fp32 body's."""
+    x, w, bias = _pos_conv_inputs((8, 599, 768, 16, 128), torch.bfloat16, dev, seed=2)
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).to(dev, x.dtype)
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().requires_grad_() for t in (x, w, bias)]
+        _build.reset_launches()
+        y = kp.positional_conv(*leaves, 16)
+        assert _build.LAUNCHES == {kp.KERNEL: 1}
+        grads = torch.autograd.grad(y, leaves, cot)
+        assert _build.LAUNCHES == {kp.KERNEL: 2}
+        runs.append((y, *grads))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    leaves = [t.detach().float().requires_grad_() for t in (x, w, bias)]
+    want = torch.autograd.grad(kp.positional_conv(*leaves, 16), leaves, cot.float())
+    for got, ref in zip(runs[0][2:], want[1:]):
+        rel = (torch.linalg.vector_norm(got.float() - ref) / torch.linalg.vector_norm(ref)).item()
+        assert rel < 2e-2, rel
+
+
+def test_pos_conv_replays_in_a_cuda_graph(dev):
+    """Forward and input gradient captured in a CUDA graph and replayed
+    equal the eager launches bit for bit, also after new inputs are copied
+    into the captured ones."""
+    case = (3, 599, 480, 16, 128)
+    x, w, bias = _pos_conv_inputs(case, torch.bfloat16, dev, seed=8)
+    wt = kp.flipped(w, 16)
+
+    def both():
+        return kp.pos_conv_cuda(x, w, bias, 64), kp.pos_conv_cuda(x, wt, None, 63)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = both()
+    for seed in (8, 9):
+        x2, w2, b2 = _pos_conv_inputs(case, torch.bfloat16, dev, seed=seed)
+        for dst, src in ((x, x2), (w, w2), (bias, b2), (wt, kp.flipped(w2, 16))):
+            dst.copy_(src)
+        eager = both()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(static, eager):
+            assert torch.equal(a, b)
 
 
 DROPOUT_CASES = [(4, 12, 299, 299), (3, 5, 77), (1, 1, 6)]
