@@ -36,6 +36,7 @@ ROOT = os.path.dirname(HERE)
 PROGRAM = "fithubert_tpu_torch"
 TRACE_CALLS = {"train_step_chain": 12, "upstream_expert": 12}  # calls in the traced stretch
 TRACE_AFTER = 3  # window calls before the traced stretch
+TRACE_TAIL_S = 0.25  # profiled idle time after the stretch (``traced``)
 CMP_CALLS = 3  # train calls compared: the eager first and two replays
 
 
@@ -146,8 +147,11 @@ def traced(fn_call: Callable[[bool], None], calls: int, dev) -> List:
     """The profiler's events over ``calls`` calls of ``fn_call(True)`` and
     a device sync, each in a span of the harness, after one call of
     ``fn_call(False)`` under the profiler but outside the stretch, which
-    takes the profiler's start-up (its first activity buffers) out of it;
-    reduced (``reduce``) once the window has closed."""
+    takes the profiler's start-up (its first activity buffers) out of it,
+    and before ``TRACE_TAIL_S`` of sleep: the profiler drops the device
+    records it places past its stop, and it can place the end of the
+    stretch's work past the sync that waited for it. Reduced (``reduce``)
+    once the window has closed."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -158,6 +162,7 @@ def traced(fn_call: Callable[[bool], None], calls: int, dev) -> List:
                 fn_call(True)
         with record_function("bench.sync"):
             torch.cuda.synchronize(dev)
+        time.sleep(TRACE_TAIL_S)
     return prof.profiler.kineto_results.events()
 
 

@@ -9,21 +9,27 @@ extractor (GroupNorm on block 0, exact GELU), LayerNorm, the post-extract
 projection, a weight-normed grouped positional convolution (same padding,
 exact GELU), post-LN transformer layers with dropout after attention and
 after the FFN and on the FFN's activation, the students' heads.
+
+The configurations that name no ``reference`` use this module; it meets
+the contract of ``reference/__init__.py`` with the FLOP counts of
+``work.py`` and the launch lists of ``shapes.py``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from ..shapes import call_launches, step_launches  # noqa: F401 (the contract's)
+from ..work import kd_step_flops, student_fwd_flops  # noqa: F401 (the contract's)
+from . import Spec
 from .dropout import Drops, keep_attention
 
 Params = Dict[str, torch.Tensor]
 Quant = Callable[[torch.Tensor], torch.Tensor]
-Spec = List[Tuple[str, Tuple[int, ...], str, float]]  # key, shape, init kind, scale
 
 
 def identity(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """The reference's served features: the utterances of one call padded with
 zeros to a multiple of the length quantum (a frozen copy of the program's
-``quantize_length``), the student's deterministic forward in blocks of
-rows, and what an s3prl upstream returns: the last hidden state, each
+``quantize_length``), the student's deterministic forward of the
+configuration's reference module (``load``) in blocks of rows, and what
+an s3prl upstream returns: the last hidden state, each
 layer's hidden state and the frame padding mask."""
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from . import model
+from . import load
 
 
 def quantize_length(length: int, quantum: int, max_length: int = 0) -> int:
@@ -23,6 +24,7 @@ def quantize_length(length: int, quantum: int, max_length: int = 0) -> int:
 
 def features(cfg: Dict, student: Dict[str, torch.Tensor], wavs: Sequence[np.ndarray],
              quantum: int, device, quant: str = "fp32", rows: int = 8) -> Dict[str, object]:
+    model = load(cfg)
     q = model.QUANT[quant]
     d = cfg["experiment"]["distiller"]
     params = {k: v.float() for k, v in student.items()}

@@ -1,5 +1,6 @@
-"""The reference's first training steps: a frozen teacher's forward, the
-student's training forward with the program's dropout masks
+"""The reference's first training steps, in the configuration's reference
+module (``load``): a frozen teacher's forward, the student's training
+forward with the program's dropout masks
 (``dropout.py``), the KD loss, autograd's gradient, and AdamW (decoupled
 weight decay, bias-corrected moments, eps outside the root) at the
 schedule's rate: linear warm-up over ``warmup_proportion`` of
@@ -12,7 +13,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from . import model
+from . import load
 from .dropout import Drops, seed_table, step_seed
 
 
@@ -42,6 +43,7 @@ def run_steps(cfg: Dict, teacher: Dict[str, torch.Tensor], student: Dict[str, to
     ``frozen_norms`` leaves the layer norms' weights and biases (about a
     fifth of the leaves) unchanged, as a parameter group dropped from the
     optimizer would."""
+    model = load(cfg)
     q = model.QUANT[quant]
     exp = cfg["experiment"]
     d, loss_cfg, opt = exp["distiller"], exp["train"], exp["optimizer"]

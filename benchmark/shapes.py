@@ -2,13 +2,16 @@
 shapes, each with the operations and bytes its work needs
 (``work.py``), grouped by kernel family: what the roofline metrics hold
 the measured kernel time against. A unit is the rows' unpadded lengths
-and the padded length they run at."""
+and the padded length they run at. ``step_launches`` and
+``call_launches`` are the fairseq transformer family's lists, which
+``reference/model.py`` gives; ``roofline_pct`` takes the lists of the
+configuration's reference module (``reference.load``)."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
-from . import work
+from . import reference, work
 
 Launch = Tuple[str, str, int, int]  # family, what, flops, bytes
 
@@ -109,7 +112,8 @@ def roofline_pct(r, family: str):
     measured = sum(k.end - k.start for k in r.stretch.family(family)) / 1e9
     if measured <= 0:
         return None
-    per_unit = step_launches if r.kind == "train" else call_launches
+    model = reference.load(r.cell.config)
+    per_unit = model.step_launches if r.kind == "train" else model.call_launches
     least = sum(least_seconds(per_unit(r.cell.config, u["lengths"], u["t_pad"]), family)
                 for u in r.units)
     return 100.0 * least / measured

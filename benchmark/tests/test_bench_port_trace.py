@@ -60,3 +60,54 @@ def test_idle_metric_counts_only_waits_of_10_us_or_more():
          Record("a(int)", 250 * us, 400 * us)]  # a 50-us wait
     st = Stretch(0, 500 * us, k, k, [], {})  # and 100 us at the end
     assert abs(harness.load_metric("idle_pct.train").read(SimpleNamespace(stretch=st)) - 30.0) < 1e-9
+
+
+class _Event:
+    """A kineto event as ``trace.from_profiler`` reads it."""
+
+    def __init__(self, name, start, end, corr=0, cuda=False):
+        self._name, self._start, self._end, self._corr, self._cuda = name, start, end, corr, cuda
+
+    def name(self):
+        return self._name
+
+    def start_ns(self):
+        return self._start
+
+    def duration_ns(self):
+        return self._end - self._start
+
+    def correlation_id(self):
+        return self._corr
+
+    def device_type(self):
+        from types import SimpleNamespace
+
+        return SimpleNamespace(name="CUDA" if self._cuda else "CPU")
+
+    def is_user_annotation(self):
+        return False
+
+
+def test_the_stretch_takes_in_the_work_its_calls_launched():
+    fams = {"fam": {"kernels": ["a"]}}
+    events = [_Event("cudaGraphLaunch", 40, 45, corr=3),  # the call before the stretch
+              _Event("void a<1>(int)", 50, 90, corr=3, cuda=True),
+              _Event("bench.call", 100, 200),
+              _Event("aten::mm", 120, 130, corr=3),  # an op's id, not a launch's
+              _Event("cudaGraphLaunch", 150, 155, corr=7),
+              _Event("void a<1>(int)", 160, 205, corr=7, cuda=True),
+              _Event("bench.sync", 200, 210),
+              _Event("void a<1>(int)", 230, 240, corr=9, cuda=True)]  # launched after it
+    st = trace.from_profiler(events, fams)
+    assert (st.lo, st.hi) == (100, 210)
+    assert [(r.start, r.end) for r in st.family("fam")] == [(160, 205)]
+    # the device's clock puts a kernel of the stretch before its first span
+    # and its last kernel past the sync that waited for it
+    events += [_Event("cuLaunchKernel", 101, 102, corr=11),
+               _Event("void a<1>(int)", 96, 104, corr=11, cuda=True),
+               _Event("void a<1>(int)", 212, 220, corr=7, cuda=True)]
+    st = trace.from_profiler(events, fams)
+    assert (st.lo, st.hi) == (96, 220)
+    assert sorted((r.start, r.end) for r in st.family("fam")) == [(96, 104), (160, 205),
+                                                                   (212, 220)]

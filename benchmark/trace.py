@@ -23,6 +23,7 @@ class Record:
     name: str
     start: int  # ns
     end: int  # ns
+    corr: int = 0  # the profiler's correlation id: a runtime call and what it launched
 
 
 def union(intervals: Iterable[Interval]) -> List[Interval]:
@@ -154,12 +155,20 @@ class Stretch:
         return short_name(best.name, 64) if best is not None else "(no host operation)"
 
 
+RUNTIME_CALL = re.compile(r"cu(da)?[A-Z]\w*$")  # cudaGraphLaunch, cuLaunchKernel, ...
+
+
 def from_profiler(events, families: Dict[str, Dict], span: str = "bench.") -> Stretch:
     """The stretch of a profile's kineto events: from the first host span
-    whose name starts with ``span`` to the end of the last."""
+    whose name starts with ``span`` to the end of the last, widened to take
+    in every device record that a runtime call inside the spans launched.
+    The device's times, mapped onto the host's clock, can put the
+    stretch's own work milliseconds outside the spans: past the last one,
+    which waited for it, or before the first, which launched it."""
     kernels, device, host = [], [], []
     for ev in events:
-        rec = Record(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+        rec = Record(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns(),
+                     ev.correlation_id())
         if ev.device_type().name == "CUDA":
             if ev.is_user_annotation():
                 continue
@@ -172,6 +181,11 @@ def from_profiler(events, families: Dict[str, Dict], span: str = "bench.") -> St
     if not spans:
         raise RuntimeError("the traced stretch holds none of the harness's spans")
     lo, hi = min(r.start for r in spans), max(r.end for r in spans)
+    launched = {r.corr for r in host
+                if r.corr and lo <= r.start < hi and RUNTIME_CALL.match(r.name)}
+    own = [r for r in device if r.corr in launched]
+    lo = min([lo] + [r.start for r in own])
+    hi = max([hi] + [r.end for r in own])
     kernels = [r for r in kernels if r.end > lo and r.start < hi]
     device = [r for r in device if r.end > lo and r.start < hi]
     family_of = {}

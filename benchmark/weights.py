@@ -1,13 +1,14 @@
 """Weights and audio drawn from the run's seed on the device, in a few
 large calls: every normal leaf from one ``randn``, every uniform leaf from
-one ``rand``, at the port's initialiser scales (a frozen copy of
-``models/student.py init_parameters``, which the teacher shares): extractor
-convs kaiming normal, Linear layers normal at 0.02 inside the encoder and
-fan_in^-0.5 elsewhere with zero bias, the TR conv and upsampler torch's
-uniform conv init, the weight-normed positional conv's v normal at
-sqrt(4 / (k e)) and g at that times sqrt(e^2 / groups), the SplitLinear
-head uniform at in_dim^-0.5, norms at one and zero. The same dict goes to
-the program and to the reference."""
+one ``rand``, at the scales of the leaves' specs, which the configuration's
+reference module gives (``reference.load``). ``reference/model.py``'s are a
+frozen copy of the port's ``models/student.py init_parameters``, which the
+teacher shares: extractor convs kaiming normal, Linear layers normal at
+0.02 inside the encoder and fan_in^-0.5 elsewhere with zero bias, the TR
+conv and upsampler torch's uniform conv init, the weight-normed positional
+conv's v normal at sqrt(4 / (k e)) and g at that times sqrt(e^2 / groups),
+the SplitLinear head uniform at in_dim^-0.5, norms at one and zero. The
+same dict goes to the program and to the reference."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from .reference import model
+from . import reference
 
 TAGS = {"teacher": 1, "student": 2, "audio": 3}
 
@@ -25,7 +26,7 @@ def generator(seed: int, tag: str, device) -> torch.Generator:
         (int(seed) * 1_000_003 + TAGS[tag]) % (1 << 63))
 
 
-def draw(spec: model.Spec, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
+def draw(spec: reference.Spec, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
     """fp32 leaves of ``spec`` (key, shape, kind, scale)."""
     out: Dict[str, torch.Tensor] = {}
     for kind, fn in (("normal", lambda n: torch.randn(n, generator=gen, device=device)),
@@ -46,12 +47,12 @@ def draw(spec: model.Spec, gen: torch.Generator, device) -> Dict[str, torch.Tens
 
 
 def teacher_state(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    return draw(model.teacher_spec(cfg["teacher_geometry"]), generator(seed, "teacher", device),
-                device)
+    return draw(reference.load(cfg).teacher_spec(cfg["teacher_geometry"]),
+                generator(seed, "teacher", device), device)
 
 
 def student_state(cfg: Dict, seed: int, device, export: bool = False) -> Dict[str, torch.Tensor]:
-    return draw(model.student_spec(cfg["experiment"]["distiller"], export),
+    return draw(reference.load(cfg).student_spec(cfg["experiment"]["distiller"], export),
                 generator(seed, "student", device), device)
 
 
