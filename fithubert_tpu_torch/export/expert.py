@@ -20,7 +20,11 @@ Every layer-wise projection head but the last is dropped, as the
 reference's export does; a SplitLinear head (``layerwise_proj=False``) goes
 whole, and ``last_hidden_state`` is the upsampled final hidden. The rest
 must match the model's keys exactly (a Lightning ``.ckpt``'s conformer keys
-that the port drops on load excepted: ``reference_import.py``). A
+that the port drops on load excepted: ``reference_import.py``). A fairseq
+wav2vec 2.0 model's state dict (a wav2vec 2.0 Conformer served as an
+upstream) loads as it is: its pre-training modules (``PRETRAINING_KEYS``:
+the mask embedding, the quantizer, ``project_q``, ``final_proj``) are
+dropped by name, and a conformer's unused ``encoder.pos_conv.*`` on load. A
 conformer student serves from its BatchNorm running statistics, a mel
 student without SpecAugment. The outputs are tensors on the expert's
 device.
@@ -41,6 +45,9 @@ from fithubert_tpu_torch.export.reference_import import reference_student_state_
 from fithubert_tpu_torch.models.student import StudentModel
 from fithubert_tpu_torch.ops.quant import prequantize_
 from fithubert_tpu_torch.utils.profiling import count, span
+
+# a fairseq wav2vec 2.0 model's keys that only its pre-training reads
+PRETRAINING_KEYS = ("mask_emb", "quantizer.", "project_q.", "final_proj.")
 
 
 class UpstreamExpert:
@@ -63,7 +70,8 @@ class UpstreamExpert:
         last = f"proj_head.{self.cfg.encoder_layers - 1}." if self.cfg.layerwise_proj \
             else None
         sd = {k: v for k, v in sd.items()
-              if not k.startswith("proj_head.") or (last and k.startswith(last))}
+              if (not k.startswith("proj_head.") or (last and k.startswith(last)))
+              and not k.startswith(PRETRAINING_KEYS)}
         self.model = StudentModel(self.cfg, disable_projections=True, device=self.device)
         self.model.load_state_dict(sd)
         self.model.eval()
@@ -81,7 +89,10 @@ class UpstreamExpert:
         host work is in three spans (``utils/profiling.py``): ``expert.pad``
         (the padded batch and mask in numpy), ``expert.h2d`` (their copies
         to the device, counted in ``h2d_bytes``) and ``expert.model`` (the
-        student's forward as enqueued)."""
+        student's forward as enqueued). Between the first two, the counters
+        ``served_frames`` and ``valid_frames`` take the frames the front end
+        hands the encoder, padding included and not, from the host's
+        lengths."""
         with span("expert.pad"):
             wavs = [w.detach().float().cpu().numpy() if isinstance(w, torch.Tensor)
                     else np.asarray(w, np.float32) for w in wavs]
@@ -92,6 +103,11 @@ class UpstreamExpert:
             for i, (w, n) in enumerate(zip(wavs, lengths)):
                 batch[i, :n] = w
                 mask[i, :n] = False
+        frames = self.model.frame_lengths
+        t_frames = frames(t_pad)
+        t_frames -= t_frames % self.cfg.crop_seq_to_multiple  # as the student crops
+        count("served_frames", len(wavs) * t_frames)
+        count("valid_frames", sum(min(max(frames(n), 0), t_frames) for n in lengths))
         with span("expert.h2d"):
             x = torch.from_numpy(batch).to(self.device)
             pad = torch.from_numpy(mask).to(self.device)

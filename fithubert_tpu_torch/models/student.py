@@ -241,15 +241,20 @@ class StudentModel(nn.Module):
             features = self.mel_spec_head(features)
         return features
 
+    def frame_lengths(self, lengths):
+        """The front end's frames of ``lengths`` samples; ints or tensors."""
+        cfg = self.cfg
+        if cfg.n_mels > 0:
+            return 1 + (lengths - 400) // 320
+        return feat_extract_output_lengths(lengths, cfg.conv_feature_layers)
+
     def _run(self, source, padding_mask, layer, rng, need_taps=False,
              stripe=None) -> StudentOutput:
         cfg = self.cfg
         features = self.layer_norm(self._front_end(source, rng, stripe))
 
         if padding_mask is not None:
-            lengths = padding_mask_to_lengths(padding_mask)
-            lengths = (feat_extract_output_lengths(lengths, cfg.conv_feature_layers)
-                       if cfg.n_mels <= 0 else 1 + (lengths - 400) // 320)
+            lengths = self.frame_lengths(padding_mask_to_lengths(padding_mask))
             padding_mask = lengths_to_padding_mask(lengths, features.shape[1])
 
         drop = features.shape[1] % cfg.crop_seq_to_multiple

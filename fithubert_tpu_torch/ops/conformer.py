@@ -16,6 +16,16 @@ espnet's relative-position (``rel_pos``), rotary (``rope``) or absolute
   ConformerEncoder         ≙ :394, rel_pos / rope: no TR module, no
                              pad_to_multiple, no positional conv
 
+Under ``layer_norm_first`` (a pre-LN stack) ``ConformerEncoder`` ends with
+its LayerNorm after the last layer when no ``tgt_slot`` stops it early, as
+fairseq's ``ConformerEncoder`` does through the ``TransformerEncoder.forward``
+it inherits (and as the port's transformer encoder does). The JAX package's
+conformer encoder (``fithubert_tpu/ops/conformer.py:371-434``) leaves this
+LayerNorm out; the port follows fairseq, since a released pre-LN conformer
+(wav2vec 2.0 Conformer Large) serves its last hidden state through it.
+Without ``layer_norm_first`` the LayerNorm comes before the layers and none
+after, in both.
+
 The QK, positional and PV products are plain matmuls, as they are XLA
 einsums outside any Pallas kernel there; the materialised probabilities are
 dropped by ``seeded_dropout`` (K5), seeded per call from the forward's
@@ -78,6 +88,7 @@ from fithubert_tpu_torch.ops.padding import apply_padding_mask
 from fithubert_tpu_torch.ops.quant import dense
 from fithubert_tpu_torch.ops.remat import run_layer
 from fithubert_tpu_torch.ops.transformer import EncoderOutput, layerdrop
+from fithubert_tpu_torch.utils.profiling import span
 
 
 def rel_positional_encoding(t: int, d: int, dtype=torch.float32,
@@ -170,11 +181,12 @@ class RelPositionAttention(_EspnetProjections):
             p, u, vb = (self.tp.local(self.tp.copy(w), d)
                         for w, d in ((p, -1), (u, 0), (vb, 0)))
         p = p.reshape(1, -1, h, dk)
-        ac = torch.einsum("bqhd,bkhd->bhqk", q.float() + u, k.float())
-        bd = torch.einsum("bqhd,zkhd->bhqk", q.float() + vb, p.float())
-        logits = (ac + rel_shift(bd)) / math.sqrt(dk)
-        out, taps = _attend(logits, v, key_padding_mask, self.dropout, rng,
-                            need_taps if neg_inf is None else neg_inf, need_taps, self.tp)
+        with span("conformer.rel_pos"):  # the scores through P V: what a fused kernel takes
+            ac = torch.einsum("bqhd,bkhd->bhqk", q.float() + u, k.float())
+            bd = torch.einsum("bqhd,zkhd->bhqk", q.float() + vb, p.float())
+            logits = (ac + rel_shift(bd)) / math.sqrt(dk)
+            out, taps = _attend(logits, v, key_padding_mask, self.dropout, rng,
+                                need_taps if neg_inf is None else neg_inf, need_taps, self.tp)
         return linear(out, self.linear_out), taps
 
 
@@ -297,9 +309,10 @@ class ConvolutionModule(nn.Module):
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRNG] = None,
                 row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = glu(self.pointwise_conv1(self.layer_norm(x)))
-        x = self.batch_norm(self.depthwise_conv(x), row_valid, train=rng is not None)
-        return dropout(self.pointwise_conv2(silu(x)), self.dropout, rng)
+        with span("conformer.conv_module"):
+            x = glu(self.pointwise_conv1(self.layer_norm(x)))
+            x = self.batch_norm(self.depthwise_conv(x), row_valid, train=rng is not None)
+            return dropout(self.pointwise_conv2(silu(x)), self.dropout, rng)
 
 
 class ConformerEncoderLayer(nn.Module):
@@ -350,8 +363,9 @@ class ConformerEncoderLayer(nn.Module):
 
 class ConformerEncoder(nn.Module):
     """The rel_pos / rope conformer stack: the padding zeroed, the position
-    table (rel_pos), the LayerNorm (unless ``layer_norm_first``), input
-    dropout, the layers and layerdrop; no TR module, no pad_to_multiple.
+    table (rel_pos), the LayerNorm (before the layers, or under
+    ``layer_norm_first`` after the last of a whole stack), input dropout,
+    the layers and layerdrop; no TR module, no pad_to_multiple.
     The reference's encoder keeps the positional conv it inherits but never
     runs it: its ``pos_conv.*`` keys are dropped on load."""
 
@@ -375,9 +389,10 @@ class ConformerEncoder(nn.Module):
                 tgt_slot: Optional[int] = None, rng: Optional[DropoutRNG] = None,
                 need_taps: bool = False):
         """``tgt_slot`` stops after that layer (no TR module: slots are
-        layers). ``need_taps``: the last layer that runs returns its taps,
-        and every layer masks keys with -inf, as the JAX package's layers
-        do when all of them return taps."""
+        layers) and returns its raw hidden, no LayerNorm after it.
+        ``need_taps``: the last layer that runs returns its taps, and every
+        layer masks keys with -inf, as the JAX package's layers do when all
+        of them return taps."""
         cfg = self.cfg
         x = apply_padding_mask(x, padding_mask)
         pos_emb = (rel_positional_encoding(x.shape[1], cfg.encoder_embed_dim, x.dtype, x.device)
@@ -396,4 +411,6 @@ class ConformerEncoder(nn.Module):
                 layer, fn, cfg.checkpoint_activations and rng is not None, x, padding_mask)
             x = layerdrop(x, y, cfg.encoder_layerdrop, rng)
             layer_results.append((x, taps, layer_result))
+        if cfg.layer_norm_first and tgt_slot is None:
+            x = self.layer_norm(x)
         return EncoderOutput(x, layer_results, [], padding_mask)

@@ -29,6 +29,7 @@ from fithubert_tpu_torch.ops.activations import gelu_exact
 from fithubert_tpu_torch.ops.kernels.conv_frontend import conv_stack, fusable, gn_scale_shift
 from fithubert_tpu_torch.ops.kernels.pos_conv import conv_weight_grads, flipped, positional_conv
 from fithubert_tpu_torch.ops.norms import FP32GroupNorm, FP32LayerNorm
+from fithubert_tpu_torch.utils.profiling import span
 
 
 class Conv1D(nn.Conv1d):
@@ -76,6 +77,7 @@ class ConvFeatureExtractor(nn.Module):
     (``conv.py:306-321``) does: the strided conv, the optional bias added in
     fp32 before the cast, in ``layer_norm`` mode an fp32 LayerNorm on every
     block (in ``default`` mode block 0's GroupNorm), then the exact GELU.
+    The unfused loop runs inside the span ``extractor.unfused``.
     State-dict keys follow fairseq: ``conv_layers.{i}.0.weight`` and
     ``.0.bias``, ``conv_layers.0.2.*`` for the GroupNorm and
     ``conv_layers.{i}.2.1.*`` for a block's LayerNorm."""
@@ -100,15 +102,21 @@ class ConvFeatureExtractor(nn.Module):
         self.conv_layers = nn.ModuleList(blocks)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        if not self.fused:
+            with span("extractor.unfused"):
+                return self._unfused(wav)
+        dtype = wav.dtype
+        conv0, gn = self.conv_layers[0][0], self.conv_layers[0][2]
+        d0, k0, s0 = self.spec[0]
+        x = wav.unfold(1, k0, s0) @ conv0.weight.to(dtype).reshape(d0, k0).t()
+        scale, shift = gn_scale_shift(x, gn.weight, gn.bias, gn.eps)
+        weights = [blk[0].weight.to(dtype).permute(2, 1, 0) for blk in self.conv_layers[1:]]
+        return conv_stack(x, weights, self.spec[1:], scale, shift)
+
+    def _unfused(self, wav: torch.Tensor) -> torch.Tensor:
         dtype = wav.dtype
         conv0 = self.conv_layers[0][0]
         d0, k0, s0 = self.spec[0]
-        if self.fused:
-            gn = self.conv_layers[0][2]
-            x = wav.unfold(1, k0, s0) @ conv0.weight.to(dtype).reshape(d0, k0).t()
-            scale, shift = gn_scale_shift(x, gn.weight, gn.bias, gn.eps)
-            weights = [blk[0].weight.to(dtype).permute(2, 1, 0) for blk in self.conv_layers[1:]]
-            return conv_stack(x, weights, self.spec[1:], scale, shift)
         # block 0: an im2col matmul summed in fp32 (JAX's tap-decomposed
         # einsum with preferred_element_type=f32), the bias added before the cast
         w0 = conv0.weight.to(dtype).float().reshape(d0, k0)
